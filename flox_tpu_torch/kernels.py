@@ -1,0 +1,423 @@
+"""The "torch" engine: grouped-reduction kernels on tensors (the slice of
+``flox_tpu/kernels.py`` that the eager reductions need).
+
+Every function has the plugin signature
+
+    f(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw)
+
+with ``group_idx`` an integer code tensor of shape (N,) (code -1: missing
+label), ``array`` of shape (..., N) and ``size`` the number of groups. The
+result has shape (..., size).
+
+Layout: the reference moves the reduced axis to the front (``_to_leading``)
+because XLA's segment ops reduce axis 0. Here the reduced axis stays last:
+the data is viewed as (K, N), which is the layout the CUDA kernels stream in
+place, and segment results are (K, size).
+
+Routing (``_seg``) follows the reference with "kernel" in the place of
+"pallas": float32/bfloat16 sums over at most ``pallas_num_groups_max`` groups
+go to the segment-sum kernel, float32/bfloat16/int32 min/max over at most
+``pallas_minmax_num_groups_max`` groups to the segment-min/max kernel, and
+everything else (float64, integer sums, more groups) to ``index_add_`` /
+``scatter_reduce``, as the reference sends it to XLA's scatter. Group counts
+between 512 and 16384, which the reference gives to its radix-binning kernel,
+go to ``index_add_`` until that kernel is ported (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from . import cuda_kernels, utils
+from .options import OPTIONS
+
+__all__ = ["KERNELS", "generic_kernel", "minmax_identity"]
+
+_KERNEL_SUM_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL_MINMAX_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _flat(array: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """(..., N) -> (K, N), and the leading shape to restore."""
+    lead = tuple(array.shape[:-1])
+    return array.reshape(-1, array.shape[-1]), lead
+
+
+def _unflat(out: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:
+    return out.reshape(lead + (out.shape[-1],))
+
+
+def _safe_codes(group_idx: torch.Tensor, size: int) -> torch.Tensor:
+    """int32 codes with every missing or out-of-range code sent to ``size``,
+    the extra segment that is sliced off."""
+    codes = group_idx.reshape(-1)
+    return torch.where((codes < 0) | (codes >= size), size, codes).to(torch.int32)
+
+
+def minmax_identity(op: str, dtype: torch.dtype):
+    """Identity of grouped min/max for ``dtype``: -inf (floats) / iinfo.min
+    (ints) for max, +inf / iinfo.max for min. The absorbing element — what NaN
+    maps to so that it wins — is the other op's identity."""
+    if dtype.is_floating_point:
+        return float("-inf") if op == "max" else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if op == "max" else info.max
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """Accumulation dtype of additive reductions: sub-f32 floats accumulate in
+    f32 (a bf16 running sum cannot count past 256)."""
+    if dt in (torch.bfloat16, torch.float16):
+        return torch.float32
+    return dt
+
+
+def _segment_sum_impl(data: torch.Tensor, size: int) -> str:
+    """"kernel" or "scatter" for a segment-sum of ``data`` (K, N)."""
+    policy = OPTIONS["segment_sum_impl"]
+    if policy == "scatter" or not data.is_floating_point():
+        return "scatter"
+    ok = (
+        data.dtype in _KERNEL_SUM_DTYPES
+        and size <= OPTIONS["pallas_num_groups_max"]
+        and data.shape[-1] >= 8
+    )
+    return "kernel" if ok else "scatter"
+
+
+def _segment_minmax_impl(data: torch.Tensor, size: int) -> str:
+    """"kernel" or "scatter" for a segment-min/max of ``data`` (K, N)."""
+    ok = (
+        data.dtype in _KERNEL_MINMAX_DTYPES
+        and size <= OPTIONS["pallas_minmax_num_groups_max"]
+        and data.shape[-1] >= 8
+    )
+    if OPTIONS["segment_minmax_impl"] == "scatter" or not ok:
+        return "scatter"
+    return "kernel"
+
+
+def _seg(op: str, data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor:
+    """Segment-reduce ``data`` (K, N) by safe ``codes`` (N,) into (K, size).
+
+    Additive ops on sub-f32 floats accumulate, and return, f32
+    (``_acc_dtype``); callers that want the input dtype back cast at the end.
+    """
+    if op in ("max", "min") and _segment_minmax_impl(data, size) == "kernel":
+        return cuda_kernels.segment_minmax(data, codes, size, op).T
+    if op == "sum" and _segment_sum_impl(data, size) == "kernel":
+        return cuda_kernels.segment_sum(data, codes, size).T
+    k = data.shape[0]
+    idx = codes.to(torch.int64)
+    if op == "sum":
+        if data.is_floating_point():
+            data = data.to(_acc_dtype(data.dtype))
+        out = torch.zeros((k, size + 1), dtype=data.dtype, device=data.device)
+        out.index_add_(1, idx, data)
+    else:
+        out = torch.full(
+            (k, size + 1), minmax_identity(op, data.dtype), dtype=data.dtype, device=data.device
+        )
+        out.scatter_reduce_(1, idx.expand_as(data), data, reduce="a" + op, include_self=True)
+    return out[:, :size]
+
+
+def _counts(codes: torch.Tensor, size: int, mask=None, dtype=torch.int32) -> torch.Tensor:
+    """Per-group element counts: (size,) from the codes alone, or (K, size)
+    restricted by ``mask`` (K, N)."""
+    if mask is None:
+        return torch.bincount(codes, minlength=size + 1)[:size].to(dtype)
+    return _seg("sum", mask.to(dtype), codes, size)
+
+
+def _promote_for_nan_fill(out: torch.Tensor, fv) -> torch.Tensor:
+    """A NaN fill on integer output must promote, not truncate to garbage."""
+    if utils.is_nan_fill(fv) and not (out.is_floating_point() or out.is_complex()):
+        return out.to(torch.float64)
+    return out
+
+
+def _fill_empty(out: torch.Tensor, present: torch.Tensor, fill_value) -> torch.Tensor:
+    """Replace groups with no contributing elements by ``fill_value``.
+    ``present`` is (size,) or (K, size); it broadcasts along the group axis."""
+    if fill_value is None:
+        return out
+    out = _promote_for_nan_fill(out, fill_value)
+    fill = torch.as_tensor(fill_value).to(device=out.device, dtype=out.dtype)
+    return torch.where(present, out, fill)
+
+
+def _nan_mask(array: torch.Tensor):
+    if array.is_floating_point() or array.is_complex():
+        return ~torch.isnan(array)
+    return None  # non-float: nothing is NaN
+
+
+def _maybe_cast(array: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype is not None:
+        dtype = utils.torch_dtype(dtype)
+        if array.dtype != dtype:
+            return array.to(dtype)
+    return array
+
+
+# ---------------------------------------------------------------------------
+# simple reductions
+# ---------------------------------------------------------------------------
+
+
+def _make_addlike(identity, skipna: bool):
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        codes = _safe_codes(group_idx, size)
+        data, lead = _flat(array)
+        mask = _nan_mask(data) if skipna else None
+        if mask is not None:
+            data = torch.where(mask, data, identity)
+        data = _maybe_cast(data, dtype)
+        out = _seg("sum", data, codes, size)  # f32-accumulated for bf16/f16
+        if fill_value is not None and fill_value != identity:
+            # numpy semantics: nansum of an all-NaN group is the identity (0),
+            # so "empty" means zero elements in all, not zero non-NaN ones
+            out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
+        if data.is_floating_point() and out.dtype != data.dtype and not kw.get("keep_acc"):
+            # result dtype contract: that of the (request-resolved) input
+            out = out.to(data.dtype)
+        return _unflat(out, lead)
+
+    return kernel
+
+
+sum_ = _make_addlike(0, skipna=False)
+nansum = _make_addlike(0, skipna=True)
+
+
+def _make_minmax(op: str, skipna: bool):
+    other = "min" if op == "max" else "max"
+
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        codes = _safe_codes(group_idx, size)
+        data, lead = _flat(array)
+        data = _maybe_cast(data, dtype)
+        mask = _nan_mask(data)
+        if skipna and mask is not None:
+            data = torch.where(mask, data, minmax_identity(op, data.dtype))
+        elif not skipna and mask is not None:
+            # NaN propagates through min/max in numpy: map it to the absorbing
+            # element (the other op's identity), then re-inject it from a
+            # per-group has-NaN flag
+            has_nan = _seg("max", (~mask).to(torch.int8), codes, size) > 0
+            data = torch.where(mask, data, minmax_identity(other, data.dtype))
+            out = _seg(op, data, codes, size)
+            out = torch.where(has_nan, float("nan"), out)
+            out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
+            return _unflat(out, lead)
+        out = _seg(op, data, codes, size)
+        present = _counts(codes, size, mask=mask if skipna else None) > 0
+        out = _fill_empty(out, present, fill_value)
+        return _unflat(out, lead)
+
+    return kernel
+
+
+max_ = _make_minmax("max", skipna=False)
+nanmax = _make_minmax("max", skipna=True)
+min_ = _make_minmax("min", skipna=False)
+nanmin = _make_minmax("min", skipna=True)
+
+
+def nanlen(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+    """Count of non-NaN elements per group."""
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    mask = _nan_mask(data)
+    out = _counts(codes, size, mask=mask, dtype=utils.torch_dtype(dtype or torch.int32))
+    if mask is None:
+        out = out.expand(data.shape[0], size)
+    if fill_value is not None and fill_value != 0:
+        out = _fill_empty(out, out > 0, fill_value)
+    return _unflat(out, lead)
+
+
+def len_(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    out = _counts(codes, size, dtype=utils.torch_dtype(dtype or torch.int32))
+    return _unflat(out.expand(data.shape[0], size), lead)
+
+
+# ---------------------------------------------------------------------------
+# one kernel pass, several statistics
+# ---------------------------------------------------------------------------
+
+_FUSABLE_LEG_NAMES = frozenset({"sum", "nansum", "len", "nanlen"})
+
+
+def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple):
+    """Several statistics from one pass of the segment-sum kernel (the sum,
+    nansum, len and nanlen legs of the reference's ``_fused_stats_leading``).
+
+    ``data`` (K, N); ``codes`` safe. The kernel zero-fills non-finite values
+    and counts NaN/±inf, so one pass yields both sum variants (IEEE
+    re-applied per skipna mode) and the non-NaN counts as
+    ``rowcount(codes) - nan_c``. Returns ``{name: (K, size)}``, or None when
+    the policy resolves to scatter or a guard fails (callers then run the
+    per-leg reductions). The min/max legs need the multi-statistic kernel
+    (ROADMAP A3).
+    """
+    want = tuple(want)
+    if not set(want) <= _FUSABLE_LEG_NAMES or not {"sum", "nansum"} & set(want):
+        return None
+    if not data.is_floating_point() or data.shape[-1] >= 2**24:
+        return None  # 2^24: the f32 marker-count exactness guard
+    if _segment_sum_impl(data, size) != "kernel":
+        return None
+    sums, nan_c, pos_c, neg_c = (t.T for t in cuda_kernels.segment_sum_raw(data, codes, size))
+    out: dict[str, torch.Tensor] = {}
+    if "sum" in want:
+        out["sum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=False)
+    if "nansum" in want:
+        out["nansum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=True)
+    if "len" in want or "nanlen" in want:
+        rowcount = _counts(codes, size).expand_as(sums)  # codes only
+        if "len" in want:
+            out["len"] = rowcount
+        if "nanlen" in want:
+            out["nanlen"] = rowcount.to(sums.dtype) - nan_c
+    return out
+
+
+def _fused_sum_counts(cast: torch.Tensor, codes: torch.Tensor, size: int):
+    """Single-pass skipna (total, non-NaN count): the mean/var fast path."""
+    got = _fused_stats(cast, codes, size, ("nansum", "nanlen"))
+    if got is None:
+        return None
+    return got["nansum"], got["nanlen"]
+
+
+# ---------------------------------------------------------------------------
+# mean and variance
+# ---------------------------------------------------------------------------
+
+
+def _float_request(data: torch.Tensor, dtype):
+    if dtype is None and not data.is_floating_point():
+        return torch.promote_types(data.dtype, torch.float32)
+    return dtype
+
+
+def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    cast = _maybe_cast(data, _float_request(data, dtype))
+    fused = _fused_sum_counts(cast, codes, size) if skipna else None
+    if fused is not None:
+        total, cnt = fused
+        orig_dtype = cast.dtype
+    else:
+        mask = _nan_mask(data) if skipna else None
+        sdata = cast if mask is None else torch.where(mask, cast, 0)
+        total = _seg("sum", sdata, codes, size)  # f32-accumulated for bf16/f16
+        # counts in int32: exact whatever the data dtype (bf16 saturates at 256)
+        cnt = _counts(codes, size, mask=mask).to(total.dtype)
+        orig_dtype = sdata.dtype
+    out = total / cnt
+    out = _fill_empty(out, cnt > 0, fill_value if fill_value is not None else float("nan"))
+    if out.dtype != orig_dtype and orig_dtype.is_floating_point:
+        out = out.to(orig_dtype)  # divide in f32, present as bf16
+    return _unflat(out, lead)
+
+
+def mean(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+    return _mean_impl(group_idx, array, size=size, fill_value=fill_value, dtype=dtype, skipna=False)
+
+
+def nanmean(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+    return _mean_impl(group_idx, array, size=size, fill_value=fill_value, dtype=dtype, skipna=True)
+
+
+def _var_impl(group_idx, array, *, size, fill_value, dtype, ddof, skipna, std):
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    cast = _maybe_cast(data, _float_request(data, dtype))
+    # mask on the pre-cast data: an int dtype request would destroy the NaNs
+    mask = _nan_mask(data) if skipna else None
+    zdata = cast if mask is None else torch.where(mask, cast, 0)
+    fused = _fused_sum_counts(cast, codes, size) if skipna else None
+    if fused is not None:
+        total, cnt_f = fused
+        cnt_b = cnt_f
+    else:
+        total = _seg("sum", zdata, codes, size)  # f32-accumulated for bf16/f16
+        cnt_b = _counts(codes, size, mask=mask)  # int32, exact
+        cnt_f = cnt_b.to(total.dtype)
+    mean_g = total / torch.where(cnt_f > 0, cnt_f, 1)
+    # gather each element's group mean (the sink segment reads 0) and
+    # accumulate squared deviations; bf16 - f32 promotes to f32, so the
+    # accumulation stays f32 end to end
+    padded = torch.cat([mean_g, mean_g.new_zeros((mean_g.shape[0], 1))], dim=1)
+    dev = zdata - padded.index_select(1, codes)
+    if mask is not None:
+        dev = torch.where(mask, dev, 0)
+    m2 = _seg("sum", dev * dev, codes, size)
+    denom = cnt_f - ddof
+    out = m2 / torch.where(denom > 0, denom, 1)
+    out = torch.where(denom > 0, out, float("nan"))
+    if std:
+        out = torch.sqrt(out)
+    out = _fill_empty(out, cnt_b > 0, fill_value if fill_value is not None else float("nan"))
+    if out.dtype != zdata.dtype and zdata.is_floating_point():
+        out = out.to(zdata.dtype)
+    return _unflat(out, lead)
+
+
+def _var_entry(skipna: bool, std: bool):
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, ddof=0, **kw):
+        return _var_impl(group_idx, array, size=size, fill_value=fill_value, dtype=dtype,
+                         ddof=ddof, skipna=skipna, std=std)
+
+    return kernel
+
+
+var = _var_entry(skipna=False, std=False)
+nanvar = _var_entry(skipna=True, std=False)
+std = _var_entry(skipna=False, std=True)
+nanstd = _var_entry(skipna=True, std=True)
+
+
+KERNELS: dict[str, Callable[..., Any]] = {
+    "sum": sum_,
+    "nansum": nansum,
+    "max": max_,
+    "nanmax": nanmax,
+    "min": min_,
+    "nanmin": nanmin,
+    "mean": mean,
+    "nanmean": nanmean,
+    "var": var,
+    "nanvar": nanvar,
+    "std": std,
+    "nanstd": nanstd,
+    "count": nanlen,
+    "nanlen": nanlen,
+    "len": len_,
+}
+
+
+def generic_kernel(func: str, group_idx, array, **kwargs):
+    """Entry point of the "torch" engine."""
+    try:
+        fn = KERNELS[func]
+    except KeyError:
+        raise NotImplementedError(
+            f"the torch engine has no kernel for {func!r} yet; it comes with the rest "
+            "of the reduction family (ROADMAP A2)"
+        ) from None
+    return fn(group_idx, array, **kwargs)
+

@@ -1,0 +1,291 @@
+"""The port's kernel module (flox_tpu_torch.cuda_kernels) against the
+reference's Pallas kernels, on the CPU.
+
+On the CPU each wrapper runs its plain PyTorch version; the reference runs
+its Pallas kernels in interpret mode. The same numpy inputs, made from a seed,
+go to both. The CUDA kernels themselves are held against the same plain
+versions on the card by ``chip_smoke.py``.
+
+Tolerances:
+* NaN/+inf/-inf marker counts and min/max results: exact.
+* Sums: ``|port - ref| <= 1e-5 * S`` per (group, column), where ``S`` is the
+  sum of the absolute finite values. The two sides add in different orders
+  (``index_add_`` against the Pallas kernel's 512-column tile contractions),
+  and the rounding error of a float32 sum of these sizes is bounded well
+  inside that: 1e-5 is about 170 float32 epsilons.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from flox_tpu.pallas_kernels import segment_minmax_pallas, segment_sum_raw_pallas
+from flox_tpu_torch import cuda_kernels as ck
+from flox_tpu_torch import set_options
+
+ACCUMS = ["plain", "kahan", "dd"]
+
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bfloat16 (returned as float32)."""
+    return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _sum_inputs(seed, k, n, size, dtype):
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(k, n)).astype(np.float32) * 10
+    data[rng.random((k, n)) < 0.03] = np.nan
+    data[rng.random((k, n)) < 0.01] = np.inf
+    data[rng.random((k, n)) < 0.01] = -np.inf
+    codes = rng.integers(-1, size + 2, n).astype(np.int32)  # -1 and >= size drop out
+    if size > 2:
+        codes[codes == 1] = 0  # an empty group
+    if dtype == "bfloat16":
+        data = _bf16_round(data)
+    return data, codes
+
+
+def _to_torch(data, dtype):
+    t = torch.from_numpy(np.ascontiguousarray(data))
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _to_ref(data_kn, dtype):
+    """The reference's (N, K) logical view, in the same dtype."""
+    import jax.numpy as jnp
+
+    arr = jnp.asarray(np.ascontiguousarray(data_kn.T))
+    return arr.astype(jnp.bfloat16) if dtype == "bfloat16" else arr
+
+
+def _abs_sums(data, codes, size):
+    finite = np.where(np.isfinite(data), np.abs(data.astype(np.float64)), 0.0)
+    out = np.zeros((size, data.shape[0]))
+    for g in range(size):
+        out[g] = finite[:, codes == g].sum(axis=1)
+    return out
+
+
+class TestSegmentSumPlainVsPallas:
+    @pytest.mark.parametrize("accum", ACCUMS)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("k,n,size", [(5, 1031, 12), (3, 700, 1), (2, 333, 40)])
+    def test_raw_matches(self, accum, dtype, k, n, size):
+        data, codes = _sum_inputs(k * n + size, k, n, size, dtype)
+        got = ck.segment_sum_raw(_to_torch(data, dtype), torch.from_numpy(codes), size, accum)
+        want = segment_sum_raw_pallas(
+            _to_ref(data, dtype), codes, size, interpret=True, accum=accum
+        )
+        sums, nan_c, pos_c, neg_c = (t.numpy() for t in got)
+        rsums, rnan, rpos, rneg = (np.asarray(w, dtype=np.float64) for w in want)
+        assert sums.shape == (size, k) and sums.dtype == np.float32
+        np.testing.assert_array_equal(nan_c, rnan)
+        np.testing.assert_array_equal(pos_c, rpos)
+        np.testing.assert_array_equal(neg_c, rneg)
+        tol = 1e-5 * _abs_sums(data, codes, size)
+        assert np.all(np.abs(sums - rsums) <= tol), np.max(np.abs(sums - rsums) - tol)
+
+    def test_markers_and_sums_exact_small(self):
+        # integers sum exactly in any order: every accumulation agrees bit for bit
+        codes = np.array([0, 1, 0, 1, 2, -1, 0, 1] * 4, np.int32)
+        data = np.arange(2 * 32, dtype=np.float32).reshape(2, 32)
+        data[0, 0] = np.inf
+        data[1, 1] = -np.inf
+        data[1, 3] = np.nan
+        for accum in ACCUMS:
+            got = ck.segment_sum_raw(torch.from_numpy(data), torch.from_numpy(codes), 3, accum)
+            want = segment_sum_raw_pallas(data.T, codes, 3, interpret=True, accum=accum)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    def test_reapplied_sum_matches_ieee(self):
+        codes = np.array([0, 1, 0, 1] * 4, np.int32)
+        data = np.zeros((2, 16), np.float32)
+        data[0, 0] = np.inf
+        data[0, 2] = -np.inf  # +inf and -inf in one group: NaN
+        data[1, 1] = np.nan
+        out = ck.segment_sum(torch.from_numpy(data), torch.from_numpy(codes), 2).numpy()
+        assert np.isnan(out[0, 0]) and out[1, 0] == 0.0
+        assert np.isnan(out[1, 1]) and out[0, 1] == 0.0
+        skip = ck.segment_sum(torch.from_numpy(data), torch.from_numpy(codes), 2, skipna=True)
+        assert skip.numpy()[1, 1] == 0.0
+
+
+class TestSegmentSumAccuracyBars:
+    """The reference's accumulation bars (tests/test_kernels.py,
+    ``test_pallas_kahan_accuracy`` and ``TestPallasDoubleDouble``), held on
+    the port's plain version of the segment-sum kernel."""
+
+    def _sum(self, data_nk, codes, size, accum):
+        data = torch.from_numpy(np.ascontiguousarray(data_nk.T))
+        return ck.segment_sum(data, torch.from_numpy(codes), size, accum).numpy()
+
+    def test_kahan_within_one_ulp(self):
+        rng = np.random.default_rng(0)
+        n = 100_000
+        data = rng.normal(1e4, 1, size=(n, 1)).astype(np.float32)
+        codes = np.zeros(n, dtype=np.int32)
+        oracle = data.astype(np.float64).sum()
+        plain = float(self._sum(data, codes, 1, "plain")[0, 0])
+        kahan = float(self._sum(data, codes, 1, "kahan")[0, 0])
+        ulp = np.spacing(np.float32(oracle)).astype(np.float64)
+        assert abs(kahan - oracle) <= ulp
+        assert abs(kahan - oracle) <= abs(plain - oracle)
+
+    def test_dd_is_correctly_rounded_f64(self):
+        rng = np.random.default_rng(1)
+        n = 200_000
+        data = rng.normal(1e4, 1, size=(n, 1)).astype(np.float32)
+        codes = (np.arange(n) % 3).astype(np.int32)
+        got = self._sum(data, codes, 3, "dd")
+        for g in range(3):
+            oracle = data[codes == g].astype(np.float64).sum()
+            assert got[g, 0] == np.float32(oracle), (g, got[g, 0], oracle)
+
+    def test_dd_cancellation(self):
+        n = 4096
+        data = np.zeros((n, 1), np.float32)
+        data[: n // 2, 0] = 3e7
+        data[n // 2 :, 0] = -3e7
+        data[0, 0] += 1.0
+        codes = np.zeros(n, dtype=np.int32)
+        got = float(self._sum(data, codes, 1, "dd")[0, 0])
+        assert got == np.float32(data.astype(np.float64).sum())
+
+    def test_dd_large_and_huge_values(self):
+        codes = np.zeros(256, dtype=np.int32)
+        big = np.full((256, 1), 2e34, np.float32)
+        assert float(self._sum(big, codes, 1, "dd")[0, 0]) == np.float32(
+            big.astype(np.float64).sum()
+        )
+        huge = np.full((256, 1), 1e35, np.float32)
+        got = float(self._sum(huge, codes, 1, "dd")[0, 0])
+        assert np.isfinite(got)
+        np.testing.assert_allclose(got, huge.astype(np.float64).sum(), rtol=1e-5)
+
+    def test_dd_nonfinite_semantics_preserved(self):
+        data = np.ones((600, 1), np.float32)
+        data[10, 0] = np.inf
+        data[20, 0] = np.nan
+        codes = (np.arange(600) % 3).astype(np.int32)
+        got = self._sum(data, codes, 3, "dd")
+        assert np.isposinf(got[1, 0]) and np.isnan(got[2, 0]) and np.isfinite(got[0, 0])
+
+    def test_unknown_accum_rejected(self):
+        data = torch.ones((1, 8))
+        codes = torch.zeros(8, dtype=torch.int32)
+        with pytest.raises(ValueError, match="accum"):
+            ck.segment_sum_raw(data, codes, 1, accum="khan")
+
+    def test_accum_follows_option(self):
+        rng = np.random.default_rng(2)
+        data = torch.from_numpy(rng.normal(size=(2, 1000)).astype(np.float32))
+        codes = torch.from_numpy((np.arange(1000) % 4).astype(np.int32))
+        with set_options(pallas_accum="plain"):
+            via_opt = ck.segment_sum_raw(data, codes, 4)[0]
+        explicit = ck.segment_sum_raw(data, codes, 4, accum="plain")[0]
+        assert torch.equal(via_opt, explicit)
+
+
+class TestSegmentMinmaxPlainVsPallas:
+    @pytest.mark.parametrize("op", ["min", "max"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+    @pytest.mark.parametrize("k,n,size", [(4, 301, 6), (3, 1000, 1), (2, 257, 128)])
+    def test_matches_exactly(self, op, dtype, k, n, size):
+        rng = np.random.default_rng(k * n + size)
+        codes = rng.integers(-1, size + 2, n).astype(np.int32)
+        if size > 2:
+            codes[codes == 1] = 0  # an empty group
+        if dtype == "int32":
+            data = rng.integers(-1000, 1000, size=(k, n)).astype(np.int32)
+            tdata, rdata = torch.from_numpy(data), data.T.copy()
+        else:
+            data = rng.normal(size=(k, n)).astype(np.float32)
+            data[rng.random((k, n)) < 0.01] = np.nan  # propagates on both sides
+            if dtype == "bfloat16":
+                data = _bf16_round(data)
+            tdata, rdata = _to_torch(data, dtype), _to_ref(data, dtype)
+        got = ck.segment_minmax(tdata, torch.from_numpy(codes), size, op)
+        want = segment_minmax_pallas(rdata, codes, size, op, interpret=True)
+        assert got.dtype == tdata.dtype and got.shape == (size, k)
+        if dtype == "int32":
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:  # bf16 and f32 widen exactly; NaN compares equal to NaN here
+            np.testing.assert_array_equal(
+                got.to(torch.float64).numpy(), np.asarray(want).astype(np.float64)
+            )
+
+    def test_empty_groups_hold_identity(self):
+        data = torch.arange(16, dtype=torch.float32).reshape(2, 8)
+        codes = torch.zeros(8, dtype=torch.int32)
+        out = ck.segment_minmax(data, codes, 3, "max")
+        assert torch.equal(out[0], torch.tensor([7.0, 15.0]))
+        assert torch.isneginf(out[1:]).all()
+        ints = ck.segment_minmax(data.to(torch.int32), codes, 3, "min")
+        assert (ints[1:] == torch.iinfo(torch.int32).max).all()
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what a wrapper sees when it is
+    handed a CUDA tensor, on a machine without CUDA."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class TestNoFallback:
+    def _cuda_typed(self):
+        data = torch.zeros(4, 16).as_subclass(_CudaTyped)
+        codes = torch.zeros(16, dtype=torch.int32).as_subclass(_CudaTyped)
+        return data, codes
+
+    def _forbid_plain(self, monkeypatch):
+        def boom(*a, **k):
+            raise AssertionError("a CUDA request fell back to the plain version")
+
+        monkeypatch.setattr(ck, "segment_sum_raw_plain", boom)
+        monkeypatch.setattr(ck, "segment_minmax_plain", boom)
+
+    def test_cuda_request_raises_without_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        self._forbid_plain(monkeypatch)
+        data, codes = self._cuda_typed()
+        before = dict(ck.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ck.segment_sum_raw(data, codes, 3, "kahan")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ck.segment_minmax(data, codes, 3, "max")
+        assert ck.LAUNCHES == before
+
+    def test_other_devices_rejected(self):
+        data = torch.zeros(4, 16, device="meta")
+        codes = torch.zeros(16, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="device"):
+            ck.segment_sum_raw(data, codes, 3)
+        with pytest.raises(ValueError, match="device"):
+            ck.segment_minmax(data, codes, 3, "min")
+
+    @pytest.mark.parametrize(
+        "kwargs,err",
+        [
+            ({"data": torch.zeros(4, 16, dtype=torch.float64)}, TypeError),
+            ({"data": torch.zeros(16)}, ValueError),
+            ({"codes": torch.zeros(15, dtype=torch.int32)}, ValueError),
+            ({"size": 513}, ValueError),
+            ({"size": 0}, ValueError),
+        ],
+    )
+    def test_argument_checks(self, kwargs, err):
+        args = {"data": torch.zeros(4, 16), "codes": torch.zeros(16, dtype=torch.int32), "size": 3}
+        args.update(kwargs)
+        with pytest.raises(err):
+            ck.segment_sum_raw(args["data"], args["codes"], args["size"])
+
+    def test_cpu_uses_plain_and_counts_no_launch(self):
+        before = dict(ck.LAUNCHES)
+        data = torch.ones(2, 32)
+        codes = torch.zeros(32, dtype=torch.int32)
+        assert ck.segment_sum_raw(data, codes, 1)[0].tolist() == [[32.0, 32.0]]
+        assert ck.segment_minmax(data, codes, 1, "max").tolist() == [[1.0, 1.0]]
+        assert ck.LAUNCHES == before
