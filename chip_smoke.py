@@ -5,26 +5,36 @@
 
 Phases; any failure exits nonzero:
 
-1. build the CUDA kernels from flox_tpu_torch/csrc with nvcc (sm_90a);
+1. build the CUDA kernels from flox_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card: the
    segment-sum kernel over {plain, kahan, dd} x {float32, bfloat16} x
    size {1, 12, 512} with NaN, +-inf and out-of-range codes, plus the
    reference's Kahan and double-double accuracy bars and run-to-run bit
    identity; the segment-min/max kernel over {min, max} x {float32,
-   bfloat16, int32} x size {1, 12, 128}, exactly;
-3. drive the main path, ``groupby_reduce(data, month, func="nanmean")``, on
-   (lat*lon, time) = (65160, 26304) float32 data made on the card from
-   ``--seed`` with the month labels of the repo's benchmark (12 groups), then
-   ``nanmax`` and ``var`` on the same data; count the kernel launches of each
-   call and check each result against a float64 (or exact) reduction of the
-   same rows on the card;
+   bfloat16, int32} x size {1, 12, 128}, exactly; the multi-statistic kernel
+   over {plain, kahan, dd} x {float32, bfloat16} x size {1, 12, 128}, its
+   sums and markers bit-identical to the segment-sum kernel's and its
+   extrema to the segment-min/max kernel's on NaN-parked data; the
+   segmented-cumsum kernel over {cumsum, nancumsum} x {float32, bfloat16} x
+   size {1, 12, 127} within ``n_g * u * cumsum|x|`` plus one ulp, with the
+   reference's overflow, NaN and stickiness cases;
+3. drive the main path on (lat*lon, time) = (65160, 26304) float32 data made
+   on the card from ``--seed`` with the month labels of the repo's benchmark
+   (12 groups): ``groupby_reduce`` nanmean, nanmax and var;
+   ``groupby_aggregate_many`` of (nanmean, nanmin, nanmax) and of the
+   climatology set (count, nanmean, nanstd, nanmin, nanmax);
+   ``groupby_scan`` nancumsum and cumsum; ffill on a cut of 2048 rows. Each
+   call runs with the launch counts set to 0 just before it, must launch
+   exactly its kernels, and is checked against a float64 (or exact)
+   reduction of the same data on the card;
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
-   kernel at the main path's shapes against its bound, its plain version,
-   one library call for the same sums / maxima, and the end-to-end nanmean.
+   kernel at the main path's shapes against its bound, its plain version and
+   one library call (or a labelled yardstick), and the end-to-end calls.
 
-It then prints the card's name and power limit, one JSON line of the kernels,
-and, last, ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
-before printing any result.
+It then prints the peak device memory, the card's name and power limit, one
+JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
+Without CUDA it exits nonzero before printing any result.
 """
 
 from __future__ import annotations
@@ -69,7 +79,9 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
 def time_ms(fn, reps: int) -> float:
@@ -190,8 +202,151 @@ def phase_kernels(seed: int) -> dict:
                 tag = f"segment_minmax size={size} {dtype} {op}"
                 check(same(got, again), f"{tag}: two launches differ")
                 check(same(got, want), f"{tag}: differs from the plain version")
-    print(f"[kernels] all sweeps agree; max |segment_sum - plain| {worst['segment_sum']!r}")
+    worst["segment_multistat"] = _multistat_sweep(ck, gen, k, n)
+    worst["segment_cumsum"] = _cumsum_sweep(ck, gen, k, n)
+    _scan_semantics(ck)
+    print(f"[kernels] all sweeps agree; max |segment_sum - plain| {worst['segment_sum']!r}, "
+          f"|segment_multistat - plain| {worst['segment_multistat']!r}, "
+          f"|segment_cumsum - plain| {worst['segment_cumsum']!r}")
     return worst
+
+
+def _multistat_sweep(ck, gen, k: int, n: int) -> float:
+    """B2 against B1, B3 and its plain version: sums and markers bit-identical
+    to segment_sum_raw, extrema exactly segment_minmax's on NaN-parked data,
+    sums within segment_sum's bar of the plain version, reruns bit-identical."""
+    worst = 0.0
+    for size in (1, 12, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            data, codes = _sum_case(gen, k, n, size, dtype)
+            isnan = torch.isnan(data)
+            lo = torch.where(isnan, float("inf"), data).to(dtype)
+            hi = torch.where(isnan, float("-inf"), data).to(dtype)
+            scale = abs_sums(data, codes, size)
+            for accum in ("plain", "kahan", "dd"):
+                got = ck.segment_multistat(data, codes, size, accum)
+                again = ck.segment_multistat(data, codes, size, accum)
+                raw = ck.segment_sum_raw(data, codes, size, accum)
+                mins = ck.segment_minmax(lo, codes, size, "min")
+                maxs = ck.segment_minmax(hi, codes, size, "max")
+                want = ck.segment_multistat_plain(data, codes, size, accum)
+                torch.cuda.synchronize()
+                tag = f"segment_multistat size={size} {dtype} {accum}"
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
+                      f"{tag}: two launches differ")
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got[:4], raw)),
+                      f"{tag}: sums or markers differ from segment_sum_raw")
+                check(torch.equal(bits(got[4]), bits(mins)) and torch.equal(bits(got[5]),
+                                                                            bits(maxs)),
+                      f"{tag}: extrema differ from segment_minmax on NaN-parked data")
+                for i in (1, 2, 3):
+                    check(torch.equal(got[i], want[i]), f"{tag}: markers differ from plain")
+                check(same(got[4], want[4]) and same(got[5], want[5]),
+                      f"{tag}: extrema differ from the plain version")
+                err = (got[0].double() - want[0].double()).abs()
+                ulp = torch.abs(want[0]).double() * 2 * U32
+                tol = ((n + -(-n // 32) + 5) * U32 * scale if accum == "plain"
+                       else 8 * U32 * scale + ulp)
+                check(bool((err <= tol).all()), f"{tag}: max |kernel - plain| {err.max().item()}")
+                worst = max(worst, err.max().item())
+    return worst
+
+
+def _cumsum_bound(x: torch.Tensor, idx: torch.Tensor, groups: int) -> torch.Tensor:
+    """``n_g * u * cumsum|x|`` per element of ``x`` (K, N), float64: the
+    rounding-error bound of a float32 grouped running sum in any order."""
+    ax = torch.where(torch.isfinite(x), x.double().abs(), 0.0)
+    out = torch.zeros_like(ax)
+    for g in range(groups):
+        cols = torch.nonzero(idx == g).squeeze(1)
+        if cols.numel():
+            out[:, cols] = cols.numel() * U32 * torch.cumsum(ax[:, cols], dim=1)
+    return out
+
+
+def _cumsum_agrees(got, want, x, idx, groups, tag) -> float:
+    """Non-finite positions equal; finite ones within the bound plus one ulp
+    of the result in its dtype. Returns the max |got - want|."""
+    g, w = got.double(), want.double()
+    check(torch.equal(torch.isnan(g), torch.isnan(w)), f"{tag}: NaN positions differ")
+    check(torch.equal(torch.isposinf(g), torch.isposinf(w))
+          and torch.equal(torch.isneginf(g), torch.isneginf(w)), f"{tag}: inf positions differ")
+    fin = torch.isfinite(w)
+    ulp = torch.where(fin, w, 0.0).abs() * (2.0**-7 if got.dtype == torch.bfloat16 else 2.0**-23)
+    err = torch.where(fin, (g - w).abs(), 0.0)
+    tol = _cumsum_bound(x, idx, groups) + ulp
+    check(bool((err <= tol).all()), f"{tag}: max |kernel - plain| {err.max().item()}")
+    return err.max().item()
+
+
+def _cumsum_sweep(ck, gen, k: int, n: int) -> float:
+    worst = 0.0
+    for size in (1, 12, 127):
+        for dtype in (torch.float32, torch.bfloat16):
+            # few non-finite values, so that most running sums stay finite
+            data = torch.randn((k, n), generator=gen, device=DEVICE) * 10
+            data[torch.rand((k, n), generator=gen, device=DEVICE) < 0.002] = float("nan")
+            data[0, n // 3], data[-1, n // 2] = float("inf"), float("-inf")
+            data = data.to(dtype)
+            codes = torch.randint(-1, size + 3, (n,), generator=gen, device=DEVICE,
+                                  dtype=torch.int32)
+            idx = torch.where((codes >= 0) & (codes < size), codes, size)
+            for skipna in (False, True):
+                got = ck.segment_cumsum(data, codes, size, skipna)
+                again = ck.segment_cumsum(data, codes, size, skipna)
+                want = ck.segment_cumsum_plain(data, codes, size, skipna)
+                torch.cuda.synchronize()
+                tag = f"segment_cumsum size={size} {dtype} skipna={skipna}"
+                check(torch.equal(bits(got), bits(again)), f"{tag}: two launches differ")
+                check(got.dtype == dtype and got.shape == data.shape, f"{tag}: {got.dtype}")
+                worst = max(worst, _cumsum_agrees(got, want, data, idx, size + 1, tag))
+    return worst
+
+
+def _scan_semantics(ck) -> None:
+    """The reference's IEEE cases for its scan kernel (tests/test_kernels.py,
+    TestPallasScan), on the CUDA kernel."""
+
+    def scan(vals, codes, size, skipna=False):
+        data = torch.from_numpy(np.asarray(vals, np.float32).reshape(1, -1)).to(DEVICE)
+        c = torch.from_numpy(np.asarray(codes, np.int32)).to(DEVICE)
+        return ck.segment_cumsum(data, c, size, skipna)[0].cpu().numpy()
+
+    n = 1100
+    codes = np.arange(n) % 2
+    vals = np.where(codes == 0, 3e38, 1.0)
+    got = scan(vals, codes, 2)
+    check(np.array_equal(got[codes == 1], np.arange(1, n // 2 + 1, dtype=np.float32))
+          and np.isposinf(got[codes == 0][-1]) and not np.isnan(got).any(),
+          "scan: a carry overflow leaked into another group")
+    vals = np.full(n, 3e38)
+    vals[400:] = -3e38
+    got = scan(vals, np.zeros(n), 1)
+    check(np.isposinf(got[1:]).all() and np.isfinite(got[0]),
+          "scan: opposite-sign overflow did not keep the first inf")
+    vals = np.zeros(200)
+    vals[:2], vals[5] = 3e38, -np.inf
+    got = scan(vals, np.zeros(200), 1)
+    check(np.isposinf(got[1:5]).all() and np.isnan(got[5:]).all(),
+          "scan: overflow then an opposite inf is not NaN")
+    vals = np.ones(400)
+    vals[30] = np.nan
+    codes = np.arange(400) % 3
+    got = scan(vals, codes, 3)
+    g0 = np.flatnonzero(codes == 0)
+    check(np.isnan(got[g0[g0 >= 30]]).all() and np.isfinite(got[g0[g0 < 30]]).all()
+          and np.isfinite(got[codes != 0]).all(), "scan: NaN did not poison just its group")
+    rng = np.random.default_rng(99)
+    vals = rng.choice([-1.0, 1.0], 1600) * rng.uniform(1e38, 3e38, 1600)
+    codes = np.arange(1600) % 3
+    for skipna in (False, True):
+        got = scan(vals, codes, 3, skipna)
+        for g in range(3):
+            ok = np.isfinite(got[codes == g])
+            first_bad = int(np.argmax(~ok)) if (~ok).any() else len(ok)
+            check(ok[:first_bad].all() and not ok[first_bad:].any(),
+                  f"scan: group {g} (skipna={skipna}) left its non-finite state")
+    print("[kernels] scan IEEE cases hold (carry overflow, opposite signs, NaN, stickiness)")
 
 
 def _accuracy_bars(ck) -> None:
@@ -240,16 +395,18 @@ def _accuracy_bars(ck) -> None:
 
 
 def _f64_reference(data, codes, size, func, block=8192):
-    """float64 (var, nanmean) or exact (nanmax) per-group reduction of
-    ``data`` (K, N), in row blocks to bound memory."""
+    """float64 (var, nanstd, nanmean) or exact (nanmax, nanmin) per-group
+    reduction of ``data`` (K, N), in row blocks to bound memory."""
     idx = codes.long()
     out = []
     cnt = torch.bincount(idx, minlength=size).double()
     for r0 in range(0, data.shape[0], block):
         x = data[r0 : r0 + block]
-        if func == "nanmax":
-            o = torch.full((x.shape[0], size), float("-inf"), device=x.device)
-            out.append(o.scatter_reduce_(1, idx.expand_as(x), x, "amax", include_self=True))
+        if func in ("nanmax", "nanmin"):
+            op = func[3:]
+            o = torch.full((x.shape[0], size), float("-inf" if op == "max" else "inf"),
+                           device=x.device)
+            out.append(o.scatter_reduce_(1, idx.expand_as(x), x, "a" + op, include_self=True))
             continue
         x = x.double()
         s = torch.zeros((x.shape[0], size), dtype=torch.float64, device=x.device)
@@ -259,8 +416,72 @@ def _f64_reference(data, codes, size, func, block=8192):
             continue
         dev = x - mean.index_select(1, idx)
         m2 = torch.zeros_like(s).index_add_(1, idx, dev * dev)
-        out.append(m2 / cnt)
+        out.append(torch.sqrt(m2 / cnt) if func == "nanstd" else m2 / cnt)
     return torch.cat(out)
+
+
+def _drive(ck, name: str, fn, want: dict, totals: dict):
+    """One call of the main path, with the launch counts set to 0 just before
+    it and read just after; fails unless they are ``want`` (zeros elsewhere)."""
+    ck.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(ck.LAUNCHES)
+    for kk, v in got.items():
+        totals[kk] += v
+    expect = {kk: want.get(kk, 0) for kk in got}
+    check(got == expect, f"{name}: launches {got}, expected {expect}")
+    print(f"[main] {name}: launches {got}")
+    return out
+
+
+def _check_close(name, out, ref, tol_rel=1e-5):
+    err = (out.double() - ref).abs()
+    tol = 1e-6 + tol_rel * ref.abs()  # float32 sums and division
+    check(bool((err <= tol).all()), f"{name}: max err {err.max().item()}")
+    print(f"[main] {name}: max |err| vs float64 {err.max().item()!r}")
+
+
+def _check_scan_full(name, out, data, codes, want=None):
+    """A full-width grouped cumsum of finite data against ``want`` (default: a
+    float64 ``torch.cumsum`` of each group's gathered columns), group by group,
+    within ``n_g * u * cumsum|x|`` plus one ulp. Returns the max |error|."""
+    check(out.shape == data.shape and out.dtype == data.dtype, f"{name}: {out.dtype}")
+    worst = 0.0
+    for g in range(NGROUPS):
+        cols = torch.nonzero(codes == g).squeeze(1)
+        x = data.index_select(1, cols).double()
+        ref = torch.cumsum(x, dim=1) if want is None else want.index_select(1, cols).double()
+        tol = cols.numel() * U32 * torch.cumsum(x.abs_(), dim=1)
+        del x
+        err = (out.index_select(1, cols).double() - ref).abs_()
+        tol += ref.abs_() * 2.0**-23
+        check(bool((err <= tol).all()), f"{name}: group {g} max err {err.max().item()}")
+        worst = max(worst, err.max().item())
+        del ref, tol, err
+    print(f"[main] {name}: max |err| vs {'float64 grouped cumsum' if want is None else 'plain'}"
+          f" {worst!r}")
+    return worst
+
+
+def _ffill_cut(ck, data, month, rows: int) -> None:
+    """ffill has no kernel: run it on the first ``rows`` rows with NaN holes,
+    against a sequential numpy forward fill per group on the host."""
+    import flox_tpu_torch
+
+    x = data[:rows].clone()
+    rows = x.shape[0]
+    x[torch.rand(x.shape, device=DEVICE) < 0.3] = float("nan")
+    out = flox_tpu_torch.groupby_scan(x, month, func="ffill").cpu().numpy()
+    xs = x.cpu().numpy()
+    want = np.empty_like(xs)
+    last = np.full((rows, NGROUPS), np.nan, np.float32)
+    for c, g in enumerate(month):
+        col = xs[:, c]
+        last[:, g] = np.where(np.isnan(col), last[:, g], col)
+        want[:, c] = last[:, g]
+    check(np.array_equal(out, want, equal_nan=True), "ffill differs from the sequential fill")
+    print(f"[main] ffill on the first {rows} rows (30% NaN): exact")
 
 
 def phase_main_path(seed: int):
@@ -275,43 +496,78 @@ def phase_main_path(seed: int):
     codes = torch.from_numpy(month).to(DEVICE)
     print(f"[main] data {tuple(data.shape)} float32, {data.numel() * 4 / 1e9:.2f} GB, "
           f"{NGROUPS} groups")
+    totals = {kk: 0 for kk in ck.LAUNCHES}
 
-    ck.reset_launches()  # the main path's run: nanmean, then nanmax, then var
-    per_call = {}
-    results = {}
-    for func in ("nanmean", "nanmax", "var"):
-        before = dict(ck.LAUNCHES)
+    def reduce(func):
         out, groups = flox_tpu_torch.groupby_reduce(data, month, func=func)
-        torch.cuda.synchronize()
-        per_call[func] = {kk: ck.LAUNCHES[kk] - before[kk] for kk in ck.LAUNCHES}
+        check(np.array_equal(groups, np.arange(NGROUPS)), f"{func}: groups {groups}")
+        return out
+
+    def many(funcs):
+        out, groups = flox_tpu_torch.groupby_aggregate_many(data, month, funcs=funcs)
+        check(tuple(out) == funcs, f"{funcs}: keys {tuple(out)}")
+        check(np.array_equal(groups, np.arange(NGROUPS)), f"{funcs}: groups {groups}")
+        return out
+
+    # groupby_reduce: nanmean is one segment-sum launch, nanmax one
+    # segment-min/max launch, var two segment-sum launches
+    results = {
+        "nanmean": _drive(ck, "nanmean", lambda: reduce("nanmean"), {"segment_sum": 1}, totals),
+        "nanmax": _drive(ck, "nanmax", lambda: reduce("nanmax"), {"segment_minmax": 1}, totals),
+        "var": _drive(ck, "var", lambda: reduce("var"), {"segment_sum": 2}, totals),
+    }
+    for func, out in results.items():
         check(tuple(out.shape) == (k, NGROUPS) and out.dtype == torch.float32,
               f"{func}: result {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out).all()), f"{func}: non-finite values in the result")
-        check(np.array_equal(groups, np.arange(NGROUPS)), f"{func}: groups {groups}")
-        results[func] = out
-    launches = dict(ck.LAUNCHES)
-    print(f"[main] launches per call {per_call}; whole run {launches}")
-    check(per_call["nanmean"] == {"segment_sum": 1, "segment_minmax": 0},
-          "nanmean must be one segment-sum launch (the fused path)")
-    check(per_call["nanmax"] == {"segment_sum": 0, "segment_minmax": 1},
-          "nanmax must be one segment-min/max launch")
-    check(per_call["var"] == {"segment_sum": 2, "segment_minmax": 0},
-          "var must be two segment-sum launches")
-
-    for func, out in results.items():
         ref = _f64_reference(data, codes, NGROUPS, func)
         if func == "nanmax":
             check(torch.equal(out, ref), "nanmax differs from scatter_reduce amax")
             print("[main] nanmax: exact")
         else:
-            err = (out.double() - ref).abs()
-            tol = 1e-6 + 1e-5 * ref.abs()  # float32 sums and division
-            check(bool((err <= tol).all()), f"{func}: max err {err.max().item()}")
-            print(f"[main] {func}: max |err| vs float64 {err.max().item()!r}")
+            _check_close(func, out, ref)
         del ref
-    del results
+
+    # the fused sets: one multi-statistic pass serves mean, min and max
+    trio = ("nanmean", "nanmin", "nanmax")
+    got = _drive(ck, "aggregate_many(nanmean, nanmin, nanmax)", lambda: many(trio),
+                 {"segment_multistat": 1}, totals)
+    check(torch.equal(got["nanmean"], results["nanmean"])
+          and torch.equal(got["nanmax"], results["nanmax"]),
+          "fused nanmean/nanmax differ from groupby_reduce's")
+    check(torch.equal(got["nanmin"], _f64_reference(data, codes, NGROUPS, "nanmin")),
+          "fused nanmin differs from scatter_reduce amin")
+    print("[main] aggregate_many trio: nanmean and nanmax bit-identical to groupby_reduce, "
+          "nanmin exact")
+    clim = ("count", "nanmean", "nanstd", "nanmin", "nanmax")
+    got2 = _drive(ck, "aggregate_many(climatology)", lambda: many(clim),
+                  {"segment_multistat": 1, "segment_sum": 2}, totals)
+    count = torch.bincount(codes, minlength=NGROUPS).expand(k, NGROUPS)
+    check(got2["count"].dtype == torch.int64 and torch.equal(got2["count"], count),
+          "climatology count differs from bincount")
+    for f in ("nanmean", "nanmin", "nanmax"):
+        check(torch.equal(got2[f], got[f]), f"climatology {f} differs from the trio's")
+    _check_close("climatology nanstd", got2["nanstd"],
+                 _f64_reference(data, codes, NGROUPS, "nanstd"))
+    del got, got2, results
     torch.cuda.empty_cache()
-    return data, month, codes, launches
+
+    # grouped scans: one segmented-cumsum launch each
+    scan_err = 0.0
+    outs = {}
+    for func in ("nancumsum", "cumsum"):
+        outs[func] = _drive(ck, f"groupby_scan({func})",
+                            lambda f=func: flox_tpu_torch.groupby_scan(data, month, func=f),
+                            {"segment_cumsum": 1}, totals)
+        scan_err = max(scan_err, _check_scan_full(func, outs[func], data, codes))
+    check(torch.equal(outs["cumsum"], outs["nancumsum"]),
+          "cumsum and nancumsum differ on data without NaN")
+    del outs
+    _ffill_cut(ck, data, month, rows=2048)
+    torch.cuda.empty_cache()
+    print(f"[main] launches over the main path {totals}")
+    print(f"[memory] peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return data, month, codes, totals, scan_err
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +644,90 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
     print(f"[times] segment_minmax max: {ms!r} ms (bound {bound_ms!r} ms), plain {plain_ms!r} "
           f"ms, scatter_reduce amax {library_ms!r} ms")
 
-    e2e_ms = time_ms(lambda: flox_tpu_torch.groupby_reduce(data, month, func="nanmean"),
-                     max(3, reps // 2))
-    gbps = data.numel() * data.element_size() / (e2e_ms * 1e-3) / 1e9
-    print(f"[times] end-to-end nanmean: {e2e_ms!r} ms, {gbps!r} GB/s")
+    # B2 at the shapes the fused sets give it (kahan)
+    b1_ms, b3_ms = entries[0]["ms"], ms
+    got = ck.segment_multistat(data, codes32, size, "kahan")
+    raw = ck.segment_sum_raw(data, codes32, size, "kahan")
+    want = ck.segment_multistat_plain(data, codes32, size, "kahan")
+    torch.cuda.synchronize()
+    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got[:4], raw)),
+          "full width: segment_multistat sums or markers differ from segment_sum_raw")
+    check(all(torch.equal(got[i], want[i]) for i in (1, 2, 3))
+          and same(got[4], want[4]) and same(got[5], want[5]),
+          "full width: segment_multistat markers or extrema differ from the plain version")
+    scale = abs_sums(data, codes32, size)
+    err = (got[0].double() - want[0].double()).abs()
+    check(bool((err <= 8 * U32 * scale + want[0].double().abs() * 2 * U32).all()),
+          f"full width: segment_multistat off its plain version by {err.max().item()}")
+    ms_err = err.max().item()
+    del got, raw, want, scale, err
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: ck.segment_multistat(data, codes32, size, "kahan"), reps)
+    plain_ms = time_ms(lambda: ck.segment_multistat_plain(data, codes32, size, "kahan"),
+                       max(2, reps // 4))
+    torch.cuda.empty_cache()
+    nbytes = data.numel() * data.element_size() + n * 4 + 6 * size * k * 4
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 4 * data.numel() / F32_FLOPS) * 1e3
+    entries.append({
+        "name": "segment_multistat", "route": "cuda",
+        "source": "flox_tpu_torch/csrc/segment_multistat.cu",
+        "replaces": "flox_tpu/pallas_kernels.py:371", "launches": launches["segment_multistat"],
+        "max_abs_err": ms_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": None,
+    })
+    print(f"[times] segment_multistat kahan: {ms!r} ms (bound {bound_ms!r} ms), plain "
+          f"{plain_ms!r} ms; no one library call computes sums, markers, min and max "
+          f"(library_ms null); unfused yardstick B1 + B3 = {b1_ms + b3_ms!r} ms, "
+          f"B1 + 2 B3 (min and max) = {b1_ms + 2 * b3_ms!r} ms")
+
+    # B4 at the shapes groupby_scan gives it (nancumsum)
+    got = ck.segment_cumsum(data, codes32, size, True)
+    want = ck.segment_cumsum_plain(data, codes32, size, True)
+    torch.cuda.synchronize()
+    cs_err = _check_scan_full("segment_cumsum full width", got, data, codes, want=want)
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: ck.segment_cumsum(data, codes32, size, True), reps)
+    plain_ms = time_ms(lambda: ck.segment_cumsum_plain(data, codes32, size, True), 2)
+    torch.cuda.empty_cache()
+    # yardstick, not the same function: one ungrouped cumsum over (K, N), one
+    # read plus one write of the data
+    library_ms = time_ms(lambda: torch.cumsum(data, dim=1), max(2, reps // 4))
+    torch.cuda.empty_cache()
+    nbytes = 2 * data.numel() * data.element_size() + n * 4
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, data.numel() / F32_FLOPS) * 1e3
+    entries.append({
+        "name": "segment_cumsum", "route": "cuda",
+        "source": "flox_tpu_torch/csrc/segment_cumsum.cu",
+        "replaces": "flox_tpu/pallas_kernels.py:516", "launches": launches["segment_cumsum"],
+        "max_abs_err": cs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": library_ms,
+    })
+    print(f"[times] segment_cumsum nancumsum: {ms!r} ms (bound {bound_ms!r} ms), plain "
+          f"{plain_ms!r} ms, torch.cumsum over (K, N) ungrouped (a yardstick, not the same "
+          f"function) {library_ms!r} ms")
+
+    nbytes = data.numel() * data.element_size()
+    calls = {
+        "nanmean": lambda: flox_tpu_torch.groupby_reduce(data, month, func="nanmean"),
+        "aggregate_many(nanmean, nanmin, nanmax)": lambda: flox_tpu_torch.groupby_aggregate_many(
+            data, month, funcs=("nanmean", "nanmin", "nanmax")),
+        "aggregate_many(count, nanmean, nanstd, nanmin, nanmax)":
+            lambda: flox_tpu_torch.groupby_aggregate_many(
+                data, month, funcs=("count", "nanmean", "nanstd", "nanmin", "nanmax")),
+        "groupby_scan(nancumsum)": lambda: flox_tpu_torch.groupby_scan(
+            data, month, func="nancumsum"),
+    }
+    # what each fused set replaces: one groupby_reduce per statistic
+    for funcs in (("nanmean", "nanmin", "nanmax"),
+                  ("count", "nanmean", "nanstd", "nanmin", "nanmax")):
+        calls[f"sequential groupby_reduce ({', '.join(funcs)})"] = (
+            lambda fs=funcs: [flox_tpu_torch.groupby_reduce(data, month, func=f) for f in fs])
+    for name, fn in calls.items():
+        e2e_ms = time_ms(fn, max(3, reps // 2))
+        torch.cuda.empty_cache()
+        gbps = nbytes / (e2e_ms * 1e-3) / 1e9
+        print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
     return entries
 
 
@@ -410,8 +746,9 @@ def main() -> int:
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
     phase_kernels(args.seed)
-    data, month, codes, launches = phase_main_path(args.seed)
+    data, month, codes, launches, _scan_err = phase_main_path(args.seed)
     entries = phase_times(data, month, codes, args.reps, launches)
+    print(f"[memory] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     smi = subprocess.run(

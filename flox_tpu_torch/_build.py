@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` on first use into a shared
 library with a plain C interface, and loaded with ``ctypes`` (no PyTorch
 headers: a build takes seconds, not minutes). Libraries go into ``_build/``
-next to this file, named by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. Only sources in
-this package are compiled. A failed build raises with the compiler's output.
+next to this file, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt and
+an unchanged one is loaded as it is. Only sources in this package are
+compiled. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = {
     "segment_sum": "segment_sum.cu",
     "segment_minmax": "segment_minmax.cu",
+    "segment_multistat": "segment_multistat.cu",
+    "segment_cumsum": "segment_cumsum.cu",
 }
 
 NVCC_FLAGS = (
@@ -57,6 +60,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

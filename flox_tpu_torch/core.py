@@ -278,12 +278,12 @@ def groupby_reduce(
         raise ValueError("No groups to reduce over (empty expected_groups?)")
 
     func_name = func if isinstance(func, str) else func.name
-    if arr.dtype == torch.bool and func_name in ("sum", "nansum", "count"):
+    if arr.dtype == torch.bool and func_name in ("sum", "nansum", "prod", "nanprod", "count"):
         arr = arr.to(torch.int64)
 
     # -- min_count semantics -----------------------------------------------
     if min_count is None:
-        min_count_ = 1 if fill_value is not None and func_name == "nansum" else 0
+        min_count_ = 1 if fill_value is not None and func_name in ("nansum", "nanprod") else 0
     else:
         min_count_ = min_count
     agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
@@ -316,7 +316,7 @@ def _reduce_blockwise(arr_flat, codes_flat, agg: Aggregation, *, size: int, engi
         kwargss.append({})
 
     # dtype request for the kernel: the final dtype for accumulating funcs
-    if not agg.preserves_dtype and agg.name in ("sum", "nansum"):
+    if not agg.preserves_dtype and agg.name in ("sum", "nansum", "prod", "nanprod"):
         kdtypes[0] = agg.final_dtype
     if agg.name in ("mean", "nanmean", "var", "nanvar", "std", "nanstd") and (
         agg.final_dtype.is_floating_point
@@ -347,8 +347,10 @@ def _where(cond, fill, x: torch.Tensor) -> torch.Tensor:
 def _astype_final(result: torch.Tensor, agg: Aggregation) -> torch.Tensor:
     final = agg.final_dtype
     if result.dtype != final:
-        # don't downcast float results carrying NaN fills into ints
-        if not (final.is_floating_point or final.is_complex) and result.is_floating_point():
+        # don't downcast float results carrying NaN fills into ints (a bool
+        # result takes the cast, NaN -> True, as the reference's jax engine does)
+        if final not in (torch.bool,) and not (final.is_floating_point or final.is_complex) \
+                and result.is_floating_point():
             if bool(torch.isnan(result).any()):
                 return result
         result = result.to(final)

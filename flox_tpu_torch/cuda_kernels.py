@@ -8,13 +8,20 @@ kernel (source)           replaces (flox_tpu/pallas_kernels.py)       plain vers
 (csrc/segment_sum.cu)     via ``segment_sum_raw_pallas``
 ``segment_minmax``        ``_minmax_kernel`` (B3), via                 ``segment_minmax_plain``
 (csrc/segment_minmax.cu)  ``segment_minmax_pallas``
+``segment_multistat``     ``_multistat_kernel`` + ``_minmax_accumulate``  ``segment_multistat_plain``
+(csrc/segment_multistat   (B2), via ``segment_multistat_pallas``
+.cu)
+``segment_cumsum``        ``_scan_kernel`` (B4), via                   ``segment_cumsum_plain``
+(csrc/segment_cumsum.cu)  ``segment_cumsum_pallas``
 ========================  ==========================================  =====================
 
-Both kernels take ``data`` as (K, N), N contiguous — the trailing-reduce
-layout the caller already holds — and read it once, in place. Both are bound
-by that read: K*N*itemsize bytes over the card's memory rate (3.35 TB/s on an
-H100 SXM), 2.05 ms for the 65160 x 26304 float32 benchmark array (computed,
-not measured). The design notes sit at the top of each source.
+Every kernel takes ``data`` as (K, N), N contiguous — the trailing-reduce
+layout the caller already holds — and reads it once, in place. The three
+reductions are bound by that read: K*N*itemsize bytes over the card's memory
+rate (3.35 TB/s on an H100 SXM), 2.05 ms for the 65160 x 26304 float32
+benchmark array; the cumsum also writes a (K, N) result, 4.09 ms (computed,
+not measured). The design notes sit at the top of each source; the segment-
+sum and multi-statistic kernels share theirs (csrc/segment_reduce.cuh).
 
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU. For
 a CUDA tensor it launches the kernel or raises; there is no fallback. Each
@@ -34,15 +41,19 @@ from .options import OPTIONS, VALID_ACCUMS
 __all__ = [
     "LAUNCHES",
     "reset_launches",
+    "segment_cumsum",
+    "segment_cumsum_plain",
     "segment_minmax",
     "segment_minmax_plain",
+    "segment_multistat",
+    "segment_multistat_plain",
     "segment_sum",
     "segment_sum_raw",
     "segment_sum_raw_plain",
 ]
 
 #: kernel launches since the last reset, one per launch of each kernel
-LAUNCHES = {"segment_sum": 0, "segment_minmax": 0}
+LAUNCHES = {"segment_sum": 0, "segment_minmax": 0, "segment_multistat": 0, "segment_cumsum": 0}
 
 _SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MINMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -222,3 +233,144 @@ def segment_minmax_plain(data: torch.Tensor, codes: torch.Tensor, size: int, op:
                      device=data.device)
     out.scatter_reduce_(1, idx.expand(k, n), data, reduce="a" + op, include_self=True)
     return out[:, :size].T.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# B2: sums, markers, min and max from one read
+# ---------------------------------------------------------------------------
+
+
+def segment_multistat(data: torch.Tensor, codes: torch.Tensor, size: int,
+                      accum: str | None = None):
+    """One pass over ``data`` (K, N) by ``codes`` (N,): the four outputs of
+    :func:`segment_sum_raw` plus the NaN-skipping per-group min and max,
+    ``(sums, nan_c, pos_c, neg_c, mins, maxs)``, each (size, K).
+
+    Sums and markers are float32 and, on the card, bit-identical to
+    :func:`segment_sum_raw` for the same input and ``accum``. Mins and maxs are
+    in the data dtype (float32 or bfloat16); an empty group, or one whose
+    values are all NaN, holds the op's identity (+inf for min, -inf for max).
+    """
+    accum = OPTIONS["pallas_accum"] if accum is None else accum
+    if accum not in VALID_ACCUMS:
+        raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
+    _check_args(data, codes, size, _SUM_DTYPES, "segment_multistat")
+    if data.device.type == "cpu":
+        return segment_multistat_plain(data, codes, size, accum)
+    return _segment_multistat_cuda(data, codes, int(size), accum)
+
+
+def _segment_multistat_cuda(data, codes, size: int, accum: str):
+    _require_cuda("segment_multistat")
+    lib = _lib("segment_multistat", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P])
+    k, n = data.shape
+    outs = [torch.empty((size, k), dtype=torch.float32, device=data.device) for _ in range(4)]
+    outs += [torch.empty((size, k), dtype=data.dtype, device=data.device) for _ in range(2)]
+    if k == 0:
+        return tuple(outs)
+    data = data.contiguous()  # one copy for a non-contiguous input, as above
+    codes = _codes_int32(codes, size)
+    err = lib.flox_segment_multistat(
+        data.data_ptr(), _SUM_DTYPES[data.dtype], codes.data_ptr(), k, n, size,
+        _ACCUM_CODES[accum], *(o.data_ptr() for o in outs), _stream(data.device),
+    )
+    _build.check(lib, err, "segment_multistat launch")
+    LAUNCHES["segment_multistat"] += 1
+    return tuple(outs)
+
+
+def segment_multistat_plain(data: torch.Tensor, codes: torch.Tensor, size: int, accum: str):
+    """Plain PyTorch version of :func:`segment_multistat`:
+    :func:`segment_sum_raw_plain` plus ``scatter_reduce`` amin/amax over the
+    data with NaN parked at each op's identity."""
+    sums = segment_sum_raw_plain(data, codes, size, accum)
+    isnan = torch.isnan(data)
+    mins = segment_minmax_plain(torch.where(isnan, float("inf"), data), codes, size, "min")
+    maxs = segment_minmax_plain(torch.where(isnan, float("-inf"), data), codes, size, "max")
+    return (*sums, mins, maxs)
+
+
+# ---------------------------------------------------------------------------
+# B4: grouped cumsum / nancumsum
+# ---------------------------------------------------------------------------
+
+
+def segment_cumsum(data: torch.Tensor, codes: torch.Tensor, size: int, skipna: bool):
+    """Grouped inclusive cumsum (``skipna=False``) or nancumsum of ``data``
+    (K, N) along N by ``codes`` (N,): a (K, N) tensor in the data dtype
+    (float32 or bfloat16; the running sums are float32).
+
+    Codes outside [0, size) are missing labels; they scan among themselves as
+    one extra group. IEEE prefix semantics per group: NaN beats inf, +inf with
+    -inf is NaN, nancumsum skips only NaN, and an overflowing running sum
+    turns into +-inf and stays so.
+    """
+    _check_args(data, codes, size, _SUM_DTYPES, "segment_cumsum")
+    if int(size) + 1 > _MAX_GROUPS:
+        raise ValueError(
+            f"segment_cumsum: size + 1 must be at most {_MAX_GROUPS}; got size={size}"
+        )
+    if data.device.type == "cpu":
+        return segment_cumsum_plain(data, codes, size, skipna)
+    return _segment_cumsum_cuda(data, codes, int(size), bool(skipna))
+
+
+def _segment_cumsum_cuda(data, codes, size: int, skipna: bool):
+    _require_cuda("segment_cumsum")
+    lib = _lib("segment_cumsum", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P])
+    k, n = data.shape
+    data = data.contiguous()  # one copy for a non-contiguous input, as above
+    out = torch.empty_like(data)
+    if k == 0:
+        return out
+    codes = _codes_int32(codes, size)
+    err = lib.flox_segment_cumsum(
+        data.data_ptr(), _SUM_DTYPES[data.dtype], codes.data_ptr(), k, n, size, int(skipna),
+        out.data_ptr(), _stream(data.device),
+    )
+    _build.check(lib, err, "segment_cumsum launch")
+    LAUNCHES["segment_cumsum"] += 1
+    return out
+
+
+def segment_cumsum_plain(data: torch.Tensor, codes: torch.Tensor, size: int, skipna: bool):
+    """Plain PyTorch version of :func:`segment_cumsum`, one group at a time.
+
+    Each group's columns are gathered and scanned with a float64
+    ``torch.cumsum`` of the zero-filled finite values, rounded once to
+    float32: the sequential sum, rounded at each step no worse than float32
+    would be. The IEEE rules are then applied from running flags: the NaN,
+    +inf and -inf seen so far in the group, and the first float32 overflow of
+    the running sum while no flag was set, whose sign then sticks.
+    """
+    k, n = data.shape
+    idx = torch.where((codes >= 0) & (codes < size), codes, size).to(torch.int64)
+    x = data.to(torch.float32)
+    out = torch.empty((k, n), dtype=torch.float32, device=data.device)
+    nan = float("nan")
+    for g in range(size + 1):
+        cols = torch.nonzero(idx == g).squeeze(1)
+        if cols.numel() == 0:
+            continue
+        xg = x.index_select(1, cols)
+        isnan, ispos, isneg = torch.isnan(xg), torch.isposinf(xg), torch.isneginf(xg)
+        z = torch.where(isnan | ispos | isneg, 0.0, xg)
+        run = torch.cumsum(z.to(torch.float64), dim=1).to(torch.float32)
+
+        def seen(flag):
+            return torch.cummax(flag.to(torch.int8), dim=1).values > 0
+
+        seen_n = seen(isnan) if not skipna else torch.zeros_like(isnan)
+        seen_p, seen_m = seen(ispos), seen(isneg)
+        # the first overflow of a group with no flag yet: its sign sticks
+        ovf = ~(seen_n | seen_p | seen_m) & torch.isinf(run)
+        after = seen(ovf)
+        first = torch.argmax(ovf.to(torch.int8), dim=1, keepdim=True)
+        positive = torch.gather(run, 1, first) > 0
+        seen_p = seen_p | (after & positive)
+        seen_m = seen_m | (after & ~positive)
+        res = torch.where(seen_p, float("inf"), run)
+        res = torch.where(seen_m, float("-inf"), res)
+        res = torch.where(seen_n | (seen_p & seen_m), nan, res)
+        out[:, cols] = res
+    return out.to(data.dtype)

@@ -21,7 +21,12 @@ go to the segment-sum kernel, float32/bfloat16/int32 min/max over at most
 everything else (float64, integer sums, more groups) to ``index_add_`` /
 ``scatter_reduce``, as the reference sends it to XLA's scatter. Group counts
 between 512 and 16384, which the reference gives to its radix-binning kernel,
-go to ``index_add_`` until that kernel is ported (ROADMAP A5).
+go to ``index_add_`` until that kernel is ported (ROADMAP A5). Several
+statistics of one float array (sums, counts, min and max) share one pass of
+the multi-statistic kernel (``_fused_stats``), and float32/bfloat16 grouped
+cumsums over at most ``pallas_scan_num_groups_max`` groups (the missing-label
+group included) go to the segmented-cumsum kernel (``_scan_impl_choice``);
+other scans run a sort plus a log-depth segmented scan of torch ops.
 """
 
 from __future__ import annotations
@@ -31,9 +36,10 @@ from typing import Any, Callable
 import torch
 
 from . import cuda_kernels, utils
+from .multiarray import MultiArray
 from .options import OPTIONS
 
-__all__ = ["KERNELS", "generic_kernel", "minmax_identity"]
+__all__ = ["KERNELS", "fused_segment_stats", "generic_kernel", "minmax_identity", "var_chunk"]
 
 _KERNEL_SUM_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_MINMAX_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -116,11 +122,14 @@ def _seg(op: str, data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.T
         return cuda_kernels.segment_sum(data, codes, size).T
     k = data.shape[0]
     idx = codes.to(torch.int64)
+    if op in ("sum", "prod") and data.is_floating_point():
+        data = data.to(_acc_dtype(data.dtype))
     if op == "sum":
-        if data.is_floating_point():
-            data = data.to(_acc_dtype(data.dtype))
         out = torch.zeros((k, size + 1), dtype=data.dtype, device=data.device)
         out.index_add_(1, idx, data)
+    elif op == "prod":
+        out = torch.ones((k, size + 1), dtype=data.dtype, device=data.device)
+        out.scatter_reduce_(1, idx.expand_as(data), data, reduce="prod", include_self=True)
     else:
         out = torch.full(
             (k, size + 1), minmax_identity(op, data.dtype), dtype=data.dtype, device=data.device
@@ -173,7 +182,7 @@ def _maybe_cast(array: torch.Tensor, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _make_addlike(identity, skipna: bool):
+def _make_addlike(op: str, identity, skipna: bool):
     def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
         codes = _safe_codes(group_idx, size)
         data, lead = _flat(array)
@@ -181,7 +190,7 @@ def _make_addlike(identity, skipna: bool):
         if mask is not None:
             data = torch.where(mask, data, identity)
         data = _maybe_cast(data, dtype)
-        out = _seg("sum", data, codes, size)  # f32-accumulated for bf16/f16
+        out = _seg(op, data, codes, size)  # f32-accumulated for bf16/f16
         if fill_value is not None and fill_value != identity:
             # numpy semantics: nansum of an all-NaN group is the identity (0),
             # so "empty" means zero elements in all, not zero non-NaN ones
@@ -194,8 +203,10 @@ def _make_addlike(identity, skipna: bool):
     return kernel
 
 
-sum_ = _make_addlike(0, skipna=False)
-nansum = _make_addlike(0, skipna=True)
+sum_ = _make_addlike("sum", 0, skipna=False)
+nansum = _make_addlike("sum", 0, skipna=True)
+prod = _make_addlike("prod", 1, skipna=False)
+nanprod = _make_addlike("prod", 1, skipna=True)
 
 
 def _make_minmax(op: str, skipna: bool):
@@ -256,29 +267,44 @@ def len_(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
 # one kernel pass, several statistics
 # ---------------------------------------------------------------------------
 
-_FUSABLE_LEG_NAMES = frozenset({"sum", "nansum", "len", "nanlen"})
+_FUSABLE_LEG_NAMES = frozenset(
+    {"sum", "nansum", "len", "nanlen", "min", "nanmin", "max", "nanmax"}
+)
 
 
 def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple):
-    """Several statistics from one pass of the segment-sum kernel (the sum,
-    nansum, len and nanlen legs of the reference's ``_fused_stats_leading``).
+    """Several statistics from one kernel pass (the reference's
+    ``_fused_stats_leading``).
 
-    ``data`` (K, N); ``codes`` safe. The kernel zero-fills non-finite values
-    and counts NaN/±inf, so one pass yields both sum variants (IEEE
-    re-applied per skipna mode) and the non-NaN counts as
-    ``rowcount(codes) - nan_c``. Returns ``{name: (K, size)}``, or None when
-    the policy resolves to scatter or a guard fails (callers then run the
-    per-leg reductions). The min/max legs need the multi-statistic kernel
-    (ROADMAP A3).
+    ``data`` (K, N); ``codes`` safe; ``want`` a subset of {sum, nansum, len,
+    nanlen, min, nanmin, max, nanmax}. The kernels zero-fill non-finite values
+    and count NaN/±inf, so one pass yields both sum variants (IEEE re-applied
+    per skipna mode) and the non-NaN counts as ``rowcount(codes) - nan_c``;
+    with a min or max leg the pass is the multi-statistic kernel, whose
+    NaN-skipping extrema serve nanmin/nanmax directly and min/max with NaN
+    re-injected where ``nan_c > 0``. Returns ``{name: (K, size)}``, or None
+    when the policy resolves to scatter or a guard fails (callers then run the
+    per-leg reductions).
     """
     want = tuple(want)
-    if not set(want) <= _FUSABLE_LEG_NAMES or not {"sum", "nansum"} & set(want):
+    if not set(want) <= _FUSABLE_LEG_NAMES:
         return None
+    sumish = bool({"sum", "nansum"} & set(want))
+    minmaxish = bool({"min", "nanmin", "max", "nanmax"} & set(want))
+    if not (sumish or minmaxish):
+        return None  # counts alone never justify a pass over the data
     if not data.is_floating_point() or data.shape[-1] >= 2**24:
         return None  # 2^24: the f32 marker-count exactness guard
     if _segment_sum_impl(data, size) != "kernel":
         return None
-    sums, nan_c, pos_c, neg_c = (t.T for t in cuda_kernels.segment_sum_raw(data, codes, size))
+    if minmaxish:
+        if size > min(OPTIONS["pallas_num_groups_max"], OPTIONS["pallas_minmax_num_groups_max"]):
+            return None
+        sums, nan_c, pos_c, neg_c, mins, maxs = (
+            t.T for t in cuda_kernels.segment_multistat(data, codes, size)
+        )
+    else:
+        sums, nan_c, pos_c, neg_c = (t.T for t in cuda_kernels.segment_sum_raw(data, codes, size))
     out: dict[str, torch.Tensor] = {}
     if "sum" in want:
         out["sum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=False)
@@ -290,7 +316,25 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
             out["len"] = rowcount
         if "nanlen" in want:
             out["nanlen"] = rowcount.to(sums.dtype) - nan_c
+    if minmaxish:
+        has_nan = nan_c > 0
+        for name, ext in (("min", mins), ("max", maxs)):
+            if "nan" + name in want:
+                out["nan" + name] = ext
+            if name in want:
+                out[name] = torch.where(has_nan, float("nan"), ext)
     return out
+
+
+def fused_segment_stats(group_idx, array, *, size: int, want: tuple):
+    """Plugin-layout entry to :func:`_fused_stats`: ``array`` (..., N) in,
+    ``{name: (..., size)}`` out, or None."""
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    raw = _fused_stats(data, codes, size, tuple(want))
+    if raw is None:
+        return None
+    return {k: _unflat(v, lead) for k, v in raw.items()}
 
 
 def _fused_sum_counts(cast: torch.Tensor, codes: torch.Tensor, size: int):
@@ -342,7 +386,12 @@ def nanmean(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **k
     return _mean_impl(group_idx, array, size=size, fill_value=fill_value, dtype=dtype, skipna=True)
 
 
-def _var_impl(group_idx, array, *, size, fill_value, dtype, ddof, skipna, std):
+def _var_stats(group_idx, array, *, size, dtype, skipna):
+    """The per-group (m2, total, count) of the shifted single-pass variance,
+    deviations taken about the group mean. Returns ``(zdata, m2, total, cnt_f,
+    cnt_b, lead)``: the zero-filled working data, the (K, size) sums of squared
+    deviations, totals and float counts, the counts to test presence with
+    (exact int32 off the fused path), and the leading shape."""
     codes = _safe_codes(group_idx, size)
     data, lead = _flat(array)
     cast = _maybe_cast(data, _float_request(data, dtype))
@@ -356,7 +405,7 @@ def _var_impl(group_idx, array, *, size, fill_value, dtype, ddof, skipna, std):
     else:
         total = _seg("sum", zdata, codes, size)  # f32-accumulated for bf16/f16
         cnt_b = _counts(codes, size, mask=mask)  # int32, exact
-        cnt_f = cnt_b.to(total.dtype)
+        cnt_f = cnt_b.to(total.dtype).expand_as(total)
     mean_g = total / torch.where(cnt_f > 0, cnt_f, 1)
     # gather each element's group mean (the sink segment reads 0) and
     # accumulate squared deviations; bf16 - f32 promotes to f32, so the
@@ -366,6 +415,13 @@ def _var_impl(group_idx, array, *, size, fill_value, dtype, ddof, skipna, std):
     if mask is not None:
         dev = torch.where(mask, dev, 0)
     m2 = _seg("sum", dev * dev, codes, size)
+    return zdata, m2, total, cnt_f, cnt_b, lead
+
+
+def _var_impl(group_idx, array, *, size, fill_value, dtype, ddof, skipna, std):
+    zdata, m2, _total, cnt_f, cnt_b, lead = _var_stats(
+        group_idx, array, size=size, dtype=dtype, skipna=skipna
+    )
     denom = cnt_f - ddof
     out = m2 / torch.where(denom > 0, denom, 1)
     out = torch.where(denom > 0, out, float("nan"))
@@ -391,9 +447,152 @@ std = _var_entry(skipna=False, std=True)
 nanstd = _var_entry(skipna=True, std=True)
 
 
+def var_chunk(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, skipna=True, **kw):
+    """Per-chunk variance statistics as a :class:`MultiArray` ``(m2, total,
+    count)``, each (..., size) in the float accumulator dtype: the sum of
+    squared deviations about the chunk's group mean, the group total and the
+    count. ``aggregations._var_finalize`` turns it into the variance."""
+    _zdata, m2, total, cnt_f, _cnt_b, lead = _var_stats(
+        group_idx, array, size=size, dtype=dtype, skipna=skipna
+    )
+    return MultiArray((_unflat(m2, lead), _unflat(total, lead), _unflat(cnt_f, lead)))
+
+
+# ---------------------------------------------------------------------------
+# bool reductions
+# ---------------------------------------------------------------------------
+
+
+def _make_boolred(op: str, identity: bool):
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        codes = _safe_codes(group_idx, size)
+        data, lead = _flat(array)
+        out = _seg(op, data.to(torch.bool).to(torch.int8), codes, size).to(torch.bool)
+        fill = identity if fill_value is None else fill_value
+        out = torch.where(_counts(codes, size) > 0, out, torch.as_tensor(fill))
+        return _unflat(out, lead)
+
+    return kernel
+
+
+all_ = _make_boolred("min", True)
+any_ = _make_boolred("max", False)
+
+
+# ---------------------------------------------------------------------------
+# grouped scans
+#
+# float32/bfloat16 cumsums over few groups run the segmented-cumsum kernel in
+# the data's own order. Everything else is sorted stably by code, so that each
+# group is one contiguous run, scanned along the last axis with run-start
+# flags, and unsorted. The segmented-scan operator
+# ``((v1, f1), (v2, f2)) -> (f2 ? v2 : v1 + v2, f1 | f2)`` is associative, and
+# a Hillis-Steele scan applies it in log2(N) steps of whole-tensor ops; no
+# value ever crosses a run start, so NaN and inf stay inside their group.
+# ---------------------------------------------------------------------------
+
+
+def _scan_impl_choice(data: torch.Tensor, size) -> str:
+    """"kernel" or "segmented" for a grouped cumsum of ``data`` (K, N)."""
+    ok = (
+        isinstance(size, int)
+        and data.dtype in _KERNEL_SUM_DTYPES
+        and size + 1 <= OPTIONS["pallas_scan_num_groups_max"]
+        and data.shape[-1] >= 8
+    )
+    if OPTIONS["scan_impl"] == "segmented" or not ok:
+        return "segmented"
+    return "kernel"
+
+
+def _segmented_scan(values: torch.Tensor, flags: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan of ``values`` (..., N) along the last axis, restarted
+    where ``flags`` (N,) is True (Hillis-Steele: log2(N) steps)."""
+    v, f = values, flags
+    d = 1
+    while d < v.shape[-1]:
+        stepped = torch.where(f[d:], v[..., d:], op(v[..., :-d], v[..., d:]))
+        v = torch.cat([v[..., :d], stepped], dim=-1)
+        f = torch.cat([f[:d], f[:-d] | f[d:]])
+        d *= 2
+    return v
+
+
+def _grouped_scan_setup(codes: torch.Tensor, data: torch.Tensor):
+    """Stable-sort ``data`` (K, N) by ``codes`` (N,); return the sorted data,
+    the run-start flags (N,) and the inverse permutation."""
+    codes = codes.reshape(-1).to(device=data.device, dtype=torch.int64)
+    perm = torch.argsort(codes, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    sorted_codes = codes[perm]
+    starts = torch.ones_like(sorted_codes, dtype=torch.bool)
+    starts[1:] = sorted_codes[1:] != sorted_codes[:-1]
+    return data.index_select(1, perm), starts, inv
+
+
+def _cumsum_impl(group_idx, array, *, size, dtype, skipna):
+    data, lead = _flat(array)
+    cast = _maybe_cast(data, dtype)
+    if _scan_impl_choice(cast, size) == "kernel":
+        codes = group_idx.reshape(-1).to(data.device)
+        return _unflat(cuda_kernels.segment_cumsum(cast, codes, size, skipna), lead)
+    sorted_data, flags, inv = _grouped_scan_setup(group_idx, data)
+    mask = _nan_mask(sorted_data) if skipna else None
+    vals = sorted_data if mask is None else torch.where(mask, sorted_data, 0)
+    vals = _maybe_cast(vals, dtype)
+    out_dtype = vals.dtype
+    if vals.is_floating_point():
+        vals = vals.to(_acc_dtype(vals.dtype))  # a bf16 running sum saturates
+    scanned = _segmented_scan(vals, flags, torch.add).to(out_dtype)
+    return _unflat(scanned.index_select(1, inv), lead)
+
+
+def cumsum(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
+    return _cumsum_impl(group_idx, array, size=size, dtype=dtype, skipna=False)
+
+
+def nancumsum(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
+    return _cumsum_impl(group_idx, array, size=size, dtype=dtype, skipna=True)
+
+
+def _ffill_impl(group_idx, array, *, reverse: bool):
+    """Each missing value takes the last valid value before it in its group
+    (bfill: after it). The last valid index is a running max of the masked
+    iota over the code-sorted axis; it belongs to the group when it is not
+    before the start of the position's run."""
+    data, lead = _flat(array)
+    codes = group_idx.reshape(-1)
+    if reverse:
+        codes, data = codes.flip(0), data.flip(-1)
+    sorted_data, starts, inv = _grouped_scan_setup(codes, data)
+    mask = _nan_mask(sorted_data)
+    out = sorted_data
+    if mask is not None:
+        iota = torch.arange(sorted_data.shape[-1], device=data.device)
+        last_valid = torch.cummax(torch.where(mask, iota, -1), dim=-1).values
+        run_start = torch.cummax(torch.where(starts, iota, 0), dim=0).values
+        gathered = torch.gather(sorted_data, 1, last_valid.clamp(min=0))
+        out = torch.where(last_valid >= run_start, gathered, float("nan"))
+    out = out.index_select(1, inv)
+    if reverse:
+        out = out.flip(-1)
+    return _unflat(out, lead)
+
+
+def ffill(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
+    return _ffill_impl(group_idx, array, reverse=False)
+
+
+def bfill(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
+    return _ffill_impl(group_idx, array, reverse=True)
+
+
 KERNELS: dict[str, Callable[..., Any]] = {
     "sum": sum_,
     "nansum": nansum,
+    "prod": prod,
+    "nanprod": nanprod,
     "max": max_,
     "nanmax": nanmax,
     "min": min_,
@@ -404,9 +603,16 @@ KERNELS: dict[str, Callable[..., Any]] = {
     "nanvar": nanvar,
     "std": std,
     "nanstd": nanstd,
+    "var_chunk": var_chunk,
     "count": nanlen,
     "nanlen": nanlen,
     "len": len_,
+    "all": all_,
+    "any": any_,
+    "cumsum": cumsum,
+    "nancumsum": nancumsum,
+    "ffill": ffill,
+    "bfill": bfill,
 }
 
 

@@ -32,6 +32,14 @@ OPTIONS: dict[str, Any] = {
     "segment_minmax_impl": "auto",
     # group-count ceiling of the segment-min/max kernel
     "pallas_minmax_num_groups_max": 128,
+    # grouped cumsum/nancumsum: "auto" and "kernel" take the hand-written
+    # segmented-cumsum kernel when its guards pass (f32/bf16 data, size + 1
+    # <= ``pallas_scan_num_groups_max``, N >= 8); "segmented" is an explicit
+    # request for the sort + log-depth segmented scan of torch ops
+    "scan_impl": "auto",
+    # group-count ceiling of the segmented-cumsum kernel, the missing-label
+    # group included: its per-group carries sit in shared memory
+    "pallas_scan_num_groups_max": 128,
 }
 
 _IMPLS = ("auto", "scatter", "kernel")
@@ -42,6 +50,8 @@ _VALIDATORS = {
     "pallas_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
     "segment_minmax_impl": lambda x: x in _IMPLS,
     "pallas_minmax_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
+    "scan_impl": lambda x: x in ("auto", "segmented", "kernel"),
+    "pallas_scan_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
 }
 
 
@@ -85,9 +95,16 @@ def from_reference(opts: dict) -> dict:
 
     Keys the port has are carried over; the reference's ``"pallas"``
     implementation maps to the port's ``"kernel"``. Keys the port lacks are
-    ignored. An implementation the port has not got raises
-    ``NotImplementedError`` naming the ROADMAP item.
+    ignored. An implementation the port has not got, or the reference's
+    measured dispatch (``autotune=True``), raises ``NotImplementedError``
+    naming the ROADMAP item.
     """
+    if opts.get("autotune"):
+        raise NotImplementedError(
+            "autotune=True (measured dispatch, including the fused-vs-sequential "
+            "choice of groupby_aggregate_many) has no counterpart in the port yet; "
+            "ROADMAP item: A9"
+        )
     out: dict[str, Any] = {}
     for key in OPTIONS:
         if key not in opts:

@@ -289,3 +289,94 @@ class TestNoFallback:
         assert ck.segment_sum_raw(data, codes, 1)[0].tolist() == [[32.0, 32.0]]
         assert ck.segment_minmax(data, codes, 1, "max").tolist() == [[1.0, 1.0]]
         assert ck.LAUNCHES == before
+
+
+class TestScanOptionsFromReference:
+    """The scan options carried across from the reference's option set."""
+
+    @pytest.mark.parametrize(
+        "ref,port",
+        [
+            ({"scan_impl": "pallas"}, {"scan_impl": "kernel"}),
+            ({"scan_impl": "segmented"}, {"scan_impl": "segmented"}),
+            ({"scan_impl": "auto", "pallas_scan_num_groups_max": 64},
+             {"scan_impl": "auto", "pallas_scan_num_groups_max": 64}),
+        ],
+    )
+    def test_mapped(self, ref, port):
+        from flox_tpu_torch.options import from_reference
+
+        assert from_reference(ref) == port
+
+    def test_reference_defaults_carry_over(self):
+        from flox_tpu import options as ref_options
+        from flox_tpu_torch.options import OPTIONS, from_reference
+
+        got = from_reference(dict(ref_options.OPTIONS))
+        assert got["scan_impl"] == "auto"
+        assert got["pallas_scan_num_groups_max"] == OPTIONS["pallas_scan_num_groups_max"] == 128
+
+    @pytest.mark.parametrize(
+        "opts", [{"scan_impl": "sorted"}, {"pallas_scan_num_groups_max": 513}]
+    )
+    def test_invalid_rejected(self, opts):
+        from flox_tpu_torch.options import from_reference
+
+        with pytest.raises(ValueError):
+            from_reference(opts)
+        with pytest.raises(ValueError):
+            set_options(**opts)
+
+
+class TestNoFallbackNewKernels(TestNoFallback):
+    """The multi-statistic and segmented-cumsum wrappers keep the same
+    contract: a CUDA tensor reaches its kernel or the call raises."""
+
+    def test_cuda_request_raises_without_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+        def boom(*a, **k):
+            raise AssertionError("a CUDA request fell back to the plain version")
+
+        monkeypatch.setattr(ck, "segment_multistat_plain", boom)
+        monkeypatch.setattr(ck, "segment_cumsum_plain", boom)
+        data, codes = self._cuda_typed()
+        before = dict(ck.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ck.segment_multistat(data, codes, 3, "kahan")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ck.segment_cumsum(data, codes, 3, skipna=True)
+        assert ck.LAUNCHES == before
+
+    def test_other_devices_rejected(self):
+        data = torch.zeros(4, 16, device="meta")
+        codes = torch.zeros(16, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="device"):
+            ck.segment_multistat(data, codes, 3)
+        with pytest.raises(ValueError, match="device"):
+            ck.segment_cumsum(data, codes, 3, skipna=False)
+
+    @pytest.mark.parametrize(
+        "kwargs,err",
+        [
+            ({"data": torch.zeros(4, 16, dtype=torch.int32)}, TypeError),
+            ({"data": torch.zeros(16)}, ValueError),
+            ({"codes": torch.zeros(15, dtype=torch.int32)}, ValueError),
+            ({"size": 512}, ValueError),  # size + 1 groups, the missing one included
+            ({"size": 0}, ValueError),
+        ],
+    )
+    def test_argument_checks(self, kwargs, err):
+        args = {"data": torch.zeros(4, 16), "codes": torch.zeros(16, dtype=torch.int32), "size": 3}
+        args.update(kwargs)
+        with pytest.raises(err):
+            ck.segment_cumsum(args["data"], args["codes"], args["size"], skipna=False)
+
+    def test_cpu_uses_plain_and_counts_no_launch(self):
+        before = dict(ck.LAUNCHES)
+        data = torch.ones(2, 32)
+        codes = torch.zeros(32, dtype=torch.int32)
+        sums, _, _, _, mins, maxs = ck.segment_multistat(data, codes, 1)
+        assert sums.tolist() == [[32.0, 32.0]] and mins.tolist() == maxs.tolist() == [[1.0, 1.0]]
+        assert ck.segment_cumsum(data, codes, 1, skipna=False)[0, -1].item() == 32.0
+        assert ck.LAUNCHES == before
