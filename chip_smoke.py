@@ -18,16 +18,24 @@ Phases; any failure exits nonzero:
    extrema to the segment-min/max kernel's on NaN-parked data; the
    segmented-cumsum kernel over {cumsum, nancumsum} x {float32, bfloat16} x
    size {1, 12, 127} within ``n_g * u * cumsum|x|`` plus one ulp, with the
-   reference's overflow, NaN and stickiness cases;
+   reference's overflow, NaN and stickiness cases; the radix-binning kernel
+   over {plain, kahan, dd} x {float32, bfloat16} x size {513, 1096, 4096,
+   16384} x {sorted, random codes} at the segment-sum kernel's bars, each
+   512-group block bit-identical to the segment-sum kernel on the block's
+   shifted codes, and bit-identical to it outright at size <= 512;
 3. drive the main path on (lat*lon, time) = (65160, 26304) float32 data made
    on the card from ``--seed`` with the month labels of the repo's benchmark
    (12 groups): ``groupby_reduce`` nanmean, nanmax and var;
    ``groupby_aggregate_many`` of (nanmean, nanmin, nanmax) and of the
    climatology set (count, nanmean, nanstd, nanmin, nanmax);
-   ``groupby_scan`` nancumsum and cumsum; ffill on a cut of 2048 rows. Each
-   call runs with the launch counts set to 0 just before it, must launch
-   exactly its kernels, and is checked against a float64 (or exact)
-   reduction of the same data on the card;
+   ``groupby_scan`` nancumsum and cumsum; ffill on a cut of 2048 rows; the
+   daily means and sums (``np.arange(26304) // 24``, 1096 groups, the
+   radix-binning kernel); and the sort engine on a cut of 8192 rows, with
+   the days counted from 1940-01-01 over a 36524-day universe. Each call
+   runs with the launch counts set to 0 just before it, must launch exactly
+   its kernels, and is checked against a float64 (or exact) reduction of the
+   same data on the card (the sort engine against the daily call, bit for
+   bit);
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls.
@@ -54,6 +62,10 @@ F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 U32 = 2.0**-24  # unit roundoff of float32
 
 NLAT, NLON, NTIME, NGROUPS = 181, 360, 26304, 12
+NDAYS = NTIME // 24  # 1096 day groups of the hourly steps
+DAY0 = 29220  # 2020-01-01 in days since 1940-01-01, ERA5's first day
+NUNIVERSE = 36524  # the days 1940-01-01 to 2039-12-31
+SORT_ROWS = 8192  # the sort engine's cut: its dense result is scattered on the host
 DEVICE = "cuda"
 
 
@@ -106,6 +118,17 @@ def abs_sums(data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor
     idx = torch.where((codes >= 0) & (codes < size), codes, size).long()
     out = torch.zeros((data.shape[0], size + 1), dtype=torch.float64, device=data.device)
     return out.index_add_(1, idx, x)[:, :size].T
+
+
+def _sum_bar(accum: str, n: int, scale: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """The segment-sum kernel's bar against its plain version, per (group,
+    row), with S = ``scale``: plain, (n + chunks + 5) u S (the kernel's chunk
+    tree and running sum, <= (chunks + 5) u S, plus the plain version's own
+    running sum, <= (n - 1) u S); kahan and dd, 8 u S + 1 ulp (chunk tree
+    <= 5 u S, compensated carry <= 2 u |s|, final rounding)."""
+    if accum == "plain":
+        return (n + -(-n // 32) + 5) * U32 * scale
+    return 8 * U32 * scale + want.double().abs() * 2 * U32
 
 
 # ---------------------------------------------------------------------------
@@ -169,18 +192,14 @@ def phase_kernels(seed: int) -> dict:
                 for i, name in ((1, "nan"), (2, "+inf"), (3, "-inf")):
                     check(torch.equal(got[i], want[i]), f"{tag}: {name} counts differ")
                 err = (got[0].double() - want[0].double()).abs()
-                ulp = torch.abs(want[0]).double() * 2 * U32
-                chunks = -(-n // 32)
                 if accum == "plain":
-                    # kernel <= (chunks + 5) u S, plain version <= (n - 1) u S
-                    tol = (n + chunks + 5) * U32 * scale
+                    # the kernel alone: its chunk tree and running sum, <= (chunks + 5) u S
                     own = (got[0].double() - oracle.double()).abs()
-                    check(bool((own <= (chunks + 5) * U32 * scale + ulp).all()),
+                    ulp = torch.abs(want[0]).double() * 2 * U32
+                    check(bool((own <= (-(-n // 32) + 5) * U32 * scale + ulp).all()),
                           f"{tag}: off the float64 sum by {own.max().item()}")
-                else:
-                    # chunk tree <= 5 u S, compensated carry <= 2 u |s|, final rounding
-                    tol = 8 * U32 * scale + ulp
-                check(bool((err <= tol).all()), f"{tag}: max |kernel - plain| {err.max().item()}")
+                check(bool((err <= _sum_bar(accum, n, scale, want[0])).all()),
+                      f"{tag}: max |kernel - plain| {err.max().item()}")
                 worst["segment_sum"] = max(worst["segment_sum"], err.max().item())
     _accuracy_bars(ck)
     for size in (1, 12, 128):
@@ -205,9 +224,58 @@ def phase_kernels(seed: int) -> dict:
     worst["segment_multistat"] = _multistat_sweep(ck, gen, k, n)
     worst["segment_cumsum"] = _cumsum_sweep(ck, gen, k, n)
     _scan_semantics(ck)
+    worst["segment_sum_radixbin"] = _radixbin_sweep(ck, gen, k, n)
     print(f"[kernels] all sweeps agree; max |segment_sum - plain| {worst['segment_sum']!r}, "
           f"|segment_multistat - plain| {worst['segment_multistat']!r}, "
-          f"|segment_cumsum - plain| {worst['segment_cumsum']!r}")
+          f"|segment_cumsum - plain| {worst['segment_cumsum']!r}, "
+          f"|segment_sum_radixbin - plain| {worst['segment_sum_radixbin']!r}")
+    return worst
+
+
+def _radixbin_sweep(ck, gen, k: int, n: int) -> float:
+    """B5 against its plain version at B1's bars, with the markers exact and
+    reruns bit-identical; every 512-group block bit-identical to B1 run on
+    the codes shifted into the block (the others set to -1); and at size <=
+    512, bit-identical to B1 outright. Sorted and random codes, each with -1
+    and out-of-range codes."""
+    worst = 0.0
+    for size in (12, 512, 513, 1096, 4096, 16384):
+        for dtype in (torch.float32, torch.bfloat16):
+            data, codes = _sum_case(gen, k, n, size, dtype)
+            for order in ("random", "sorted"):
+                if order == "sorted":
+                    codes = torch.sort(codes).values
+                scale = abs_sums(data, codes, size)
+                for accum in ("plain", "kahan", "dd"):
+                    tag = f"segment_sum_radixbin size={size} {dtype} {order} {accum}"
+                    got = ck.segment_sum_radixbin_raw(data, codes, size, accum)
+                    again = ck.segment_sum_radixbin_raw(data, codes, size, accum)
+                    want = ck.segment_sum_radixbin_plain(data, codes, size, accum)
+                    if size <= 512:
+                        b1 = ck.segment_sum_raw(data, codes, size, accum)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, b1)),
+                              f"{tag}: differs from segment_sum_raw")
+                        continue  # the sweep of segment_sum holds B1 to its plain version
+                    for y in range(-(-size // 512)):
+                        g0, gs = 512 * y, min(512, size - 512 * y)
+                        local = codes - g0
+                        local = torch.where((local >= 0) & (local < gs), local, -1)
+                        b1 = ck.segment_sum_raw(data, local, gs, accum)
+                        check(all(torch.equal(bits(a[g0 : g0 + gs]), bits(b))
+                                  for a, b in zip(got, b1)),
+                              f"{tag}: block {y} differs from segment_sum_raw on its codes")
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
+                          f"{tag}: two launches differ")
+                    for i, name in ((1, "nan"), (2, "+inf"), (3, "-inf")):
+                        check(torch.equal(got[i], want[i]), f"{tag}: {name} counts differ")
+                    err = (got[0].double() - want[0].double()).abs()
+                    check(bool((err <= _sum_bar(accum, n, scale, want[0])).all()),
+                          f"{tag}: max |kernel - plain| {err.max().item()}")
+                    worst = max(worst, err.max().item())
+    print("[kernels] radix-binning sweep: B1 bit for bit at size <= 512 and block by block "
+          "above; markers exact; sums within B1's bars")
     return worst
 
 
@@ -244,10 +312,8 @@ def _multistat_sweep(ck, gen, k: int, n: int) -> float:
                 check(same(got[4], want[4]) and same(got[5], want[5]),
                       f"{tag}: extrema differ from the plain version")
                 err = (got[0].double() - want[0].double()).abs()
-                ulp = torch.abs(want[0]).double() * 2 * U32
-                tol = ((n + -(-n // 32) + 5) * U32 * scale if accum == "plain"
-                       else 8 * U32 * scale + ulp)
-                check(bool((err <= tol).all()), f"{tag}: max |kernel - plain| {err.max().item()}")
+                check(bool((err <= _sum_bar(accum, n, scale, want[0])).all()),
+                      f"{tag}: max |kernel - plain| {err.max().item()}")
                 worst = max(worst, err.max().item())
     return worst
 
@@ -395,7 +461,7 @@ def _accuracy_bars(ck) -> None:
 
 
 def _f64_reference(data, codes, size, func, block=8192):
-    """float64 (var, nanstd, nanmean) or exact (nanmax, nanmin) per-group
+    """float64 (var, nanstd, nanmean, sum) or exact (nanmax, nanmin) per-group
     reduction of ``data`` (K, N), in row blocks to bound memory."""
     idx = codes.long()
     out = []
@@ -410,7 +476,11 @@ def _f64_reference(data, codes, size, func, block=8192):
             continue
         x = x.double()
         s = torch.zeros((x.shape[0], size), dtype=torch.float64, device=x.device)
-        mean = s.index_add_(1, idx, x) / cnt
+        s.index_add_(1, idx, x)
+        if func == "sum":
+            out.append(s)
+            continue
+        mean = s / cnt
         if func == "nanmean":
             out.append(mean)
             continue
@@ -565,9 +635,81 @@ def phase_main_path(seed: int):
     del outs
     _ffill_cut(ck, data, month, rows=2048)
     torch.cuda.empty_cache()
+    _daily_and_sort(ck, data, totals)
+    torch.cuda.empty_cache()
     print(f"[main] launches over the main path {totals}")
     print(f"[memory] peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return data, month, codes, totals, scan_err
+
+
+def _daily_and_sort(ck, data, totals) -> None:
+    """The high-cardinality path: the daily means and sums (1096 groups, one
+    radix-binning launch each) at full width, then the sort engine on the
+    first SORT_ROWS rows with the days counted from 1940-01-01 over a 36524-day
+    universe (1096 present, capacity 2048, one radix-binning launch), whose
+    present columns must be the daily means bit for bit and the rest NaN."""
+    import flox_tpu_torch
+    from flox_tpu_torch import kernels as pk
+
+    k, n = data.shape
+    day = np.arange(n, dtype=np.int64) // 24
+    day_codes = torch.from_numpy(day).to(DEVICE)
+
+    def daily(func):
+        out, groups = flox_tpu_torch.groupby_reduce(data, day, func=func)
+        check(np.array_equal(groups, np.arange(NDAYS)), f"daily {func}: groups {groups[:4]}...")
+        check(tuple(out.shape) == (k, NDAYS) and out.dtype == torch.float32,
+              f"daily {func}: result {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"daily {func}: non-finite values")
+        return out
+
+    means = _drive(ck, "daily nanmean (1096 groups)", lambda: daily("nanmean"),
+                   {"segment_sum_radixbin": 1}, totals)
+    _check_close("daily nanmean", means, _f64_reference(data, day_codes, NDAYS, "nanmean"))
+    sums = _drive(ck, "daily sum (1096 groups)", lambda: daily("sum"),
+                  {"segment_sum_radixbin": 1}, totals)
+    # a sum of 24 values that cancels to near 0 has no relative bar: hold it
+    # to the kernel's own (kahan, the default), as phase 2 does, and count
+    # the sums that the nanmean's bar, 1e-6 + 1e-5 |ref|, would refuse
+    ref = _f64_reference(data, day_codes, NDAYS, "sum")
+    scale = torch.cat([abs_sums(data[r : r + 8192], day_codes, NDAYS).T
+                       for r in range(0, k, 8192)])
+    err = (sums.double() - ref).abs()
+    bar = _sum_bar("kahan", n, scale, ref)
+    check(bool((err <= bar).all()), f"daily sum: max err {err.max().item()}")
+    past_mean_bar = int((err > 1e-6 + 1e-5 * ref.abs()).sum())
+    print(f"[main] daily sum: max |err| vs float64 {err.max().item()!r}, max err / bar "
+          f"{(err / bar).max().item()!r}; {past_mean_bar} of {err.numel()} sums past "
+          f"1e-6 + 1e-5 |ref|")
+    del sums, ref, scale, err, bar
+    torch.cuda.empty_cache()
+
+    cut = data[:SORT_ROWS]
+    labels = DAY0 + day
+    universe = np.arange(NUNIVERSE)
+
+    def sort_call():
+        out, groups = flox_tpu_torch.groupby_reduce(cut, labels, func="nanmean",
+                                                    expected_groups=universe, engine="sort")
+        check(np.array_equal(groups, universe), "sort engine: groups differ from the universe")
+        return out
+
+    out = _drive(ck, f"sort engine nanmean ({SORT_ROWS} rows, {NUNIVERSE}-day universe)",
+                 sort_call, {"segment_sum_radixbin": 1}, totals)
+    present = pk.present_groups(labels, NUNIVERSE)
+    cap = pk.present_cap(len(present), NUNIVERSE)
+    check(tuple(out.shape) == (cut.shape[0], NUNIVERSE) and out.dtype == torch.float32
+          and out.device.type == torch.device(DEVICE).type,
+          f"sort engine: result {tuple(out.shape)} {out.dtype} on {out.device}")
+    check(len(present) == NDAYS and cap == 2048, f"sort engine: {len(present)} present, cap {cap}")
+    cols = torch.from_numpy(present).to(DEVICE)
+    check(torch.equal(bits(out.index_select(1, cols)), bits(means[: cut.shape[0]])),
+          "sort engine: present columns differ from the daily means")
+    absent = torch.ones(NUNIVERSE, dtype=torch.bool, device=DEVICE)
+    absent[cols] = False
+    check(bool(torch.isnan(out[:, absent]).all()), "sort engine: an absent column is not NaN")
+    print(f"[main] sort engine: {len(present)} present groups, capacity {cap}; present columns "
+          f"bit-identical to the daily means, {int(absent.sum())} absent columns NaN")
 
 
 # ---------------------------------------------------------------------------
@@ -593,7 +735,7 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
         check(torch.equal(got[i], want[i]), "full width: marker counts differ")
     scale = abs_sums(data, codes32, size)
     err = (got[0].double() - want[0].double()).abs()
-    check(bool((err <= 8 * U32 * scale + want[0].double().abs() * 2 * U32).all()),
+    check(bool((err <= _sum_bar("kahan", n, scale, want[0])).all()),
           f"full width: segment_sum off its plain version by {err.max().item()}")
     sum_err = err.max().item()
     del got, want, scale, err
@@ -657,7 +799,7 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
           "full width: segment_multistat markers or extrema differ from the plain version")
     scale = abs_sums(data, codes32, size)
     err = (got[0].double() - want[0].double()).abs()
-    check(bool((err <= 8 * U32 * scale + want[0].double().abs() * 2 * U32).all()),
+    check(bool((err <= _sum_bar("kahan", n, scale, want[0])).all()),
           f"full width: segment_multistat off its plain version by {err.max().item()}")
     ms_err = err.max().item()
     del got, raw, want, scale, err
@@ -707,9 +849,14 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
           f"{plain_ms!r} ms, torch.cumsum over (K, N) ungrouped (a yardstick, not the same "
           f"function) {library_ms!r} ms")
 
+    entries.append(_radixbin_times(ck, data, reps, launches))
+
+    day = np.arange(n, dtype=np.int64) // 24
     nbytes = data.numel() * data.element_size()
     calls = {
         "nanmean": lambda: flox_tpu_torch.groupby_reduce(data, month, func="nanmean"),
+        "daily nanmean (1096 groups)": lambda: flox_tpu_torch.groupby_reduce(
+            data, day, func="nanmean"),
         "aggregate_many(nanmean, nanmin, nanmax)": lambda: flox_tpu_torch.groupby_aggregate_many(
             data, month, funcs=("nanmean", "nanmin", "nanmax")),
         "aggregate_many(count, nanmean, nanstd, nanmin, nanmax)":
@@ -728,7 +875,95 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
         torch.cuda.empty_cache()
         gbps = nbytes / (e2e_ms * 1e-3) / 1e9
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
+    cut = data[:SORT_ROWS]
+    e2e_ms = time_ms(lambda: flox_tpu_torch.groupby_reduce(
+        cut, DAY0 + day, func="nanmean", expected_groups=np.arange(NUNIVERSE), engine="sort"),
+        max(3, reps // 2))
+    gbps = cut.numel() * cut.element_size() / (e2e_ms * 1e-3) / 1e9
+    print(f"[times] end-to-end sort engine nanmean ({SORT_ROWS} rows, {NUNIVERSE}-day universe, "
+          f"host scatter included): {e2e_ms!r} ms, {gbps!r} GB/s of input")
+    _sort_breakdown(cut, day)
     return entries
+
+
+def _sort_breakdown(cut, day) -> None:
+    """Where the sort-engine call's time goes, outside its one kernel: the
+    host scatter of the compact (rows, 2048) result to the dense (rows,
+    36524) layout (its copy to the host included), on the host clock, and
+    the dense result's copy back to the card, on the card's clock."""
+    from flox_tpu_torch import kernels as pk
+
+    present = pk.present_groups(DAY0 + day, NUNIVERSE)
+    cap = pk.present_cap(len(present), NUNIVERSE)
+    compact = torch.zeros((cut.shape[0], cap), device=DEVICE)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dense = pk.scatter_present_dense(compact, present, NUNIVERSE)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = time_ms(lambda: dense.to(DEVICE), 3)
+    print(f"[times] sort engine, outside the kernel: host scatter of ({cut.shape[0]}, {cap}) to "
+          f"({cut.shape[0]}, {NUNIVERSE}) {statistics.median(walls)!r} ms (host clock, median of "
+          f"3), copy of the {dense.numel() * 4 / 1e9:.2f} GB dense result to the card "
+          f"{copy_ms!r} ms")
+
+
+def _radixbin_times(ck, data, reps: int, launches: dict) -> dict:
+    """B5 at the daily means' shapes (kahan) against its bound, its plain
+    version and index_add_; then once more on random codes over 4096 groups
+    (8 group blocks, each reading every column), against the same kind of
+    bound."""
+    k, n = data.shape
+    day = (torch.arange(n, device=DEVICE) // 24).to(torch.int32)
+    size = NDAYS
+    got = ck.segment_sum_radixbin_raw(data, day, size, "kahan")
+    want = ck.segment_sum_radixbin_plain(data, day, size, "kahan")
+    torch.cuda.synchronize()
+    for i in (1, 2, 3):
+        check(torch.equal(got[i], want[i]), "daily shapes: radix-binning marker counts differ")
+    scale = torch.cat([abs_sums(data[r : r + 8192], day, size) for r in range(0, k, 8192)], 1)
+    err = (got[0].double() - want[0].double()).abs()
+    check(bool((err <= _sum_bar("kahan", n, scale, want[0])).all()),
+          f"daily shapes: segment_sum_radixbin off its plain version by {err.max().item()}")
+    rb_err = err.max().item()
+    del got, want, scale, err
+    torch.cuda.empty_cache()
+
+    ms = time_ms(lambda: ck.segment_sum_radixbin_raw(data, day, size, "kahan"), reps)
+    plain_ms = time_ms(lambda: ck.segment_sum_radixbin_plain(data, day, size, "kahan"),
+                       max(2, reps // 4))
+    torch.cuda.empty_cache()
+    acc = torch.zeros((k, size), device=DEVICE)
+    idx = day.long()
+    # the data holds no non-finite value, so its zero-filled copy is itself
+    library_ms = time_ms(lambda: acc.zero_().index_add_(1, idx, data), max(2, reps // 4))
+    del acc
+    nbytes = data.numel() * data.element_size() + n * 4 + 4 * size * k * 4
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 2 * data.numel() / F32_FLOPS) * 1e3
+    print(f"[times] segment_sum_radixbin kahan, daily codes (1096 groups, sorted): {ms!r} ms "
+          f"(bound {bound_ms!r} ms), plain {plain_ms!r} ms, index_add_ (sums only, no "
+          f"markers) {library_ms!r} ms")
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    rsize = 4096
+    rnd = torch.randint(0, rsize, (n,), generator=gen, device=DEVICE, dtype=torch.int32)
+    rnd_ms = time_ms(lambda: ck.segment_sum_radixbin_raw(data, rnd, rsize, "kahan"),
+                     max(2, reps // 4))
+    torch.cuda.empty_cache()
+    rnd_bytes = data.numel() * data.element_size() + n * 4 + 4 * rsize * k * 4
+    rnd_bound = max(rnd_bytes / HBM_BYTES_PER_S, 2 * data.numel() / F32_FLOPS) * 1e3
+    print(f"[times] segment_sum_radixbin kahan, random codes over {rsize} groups "
+          f"({rsize // 512} group blocks, each reading every column): {rnd_ms!r} ms "
+          f"(bound {rnd_bound!r} ms, one read of the data)")
+    return {
+        "name": "segment_sum_radixbin", "route": "cuda",
+        "source": "flox_tpu_torch/csrc/segment_radixbin.cu",
+        "replaces": "flox_tpu/pallas_kernels.py:973",
+        "launches": launches["segment_sum_radixbin"], "max_abs_err": rb_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
 
 
 def main() -> int:

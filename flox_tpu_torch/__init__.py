@@ -1,5 +1,5 @@
 """flox_tpu_torch: the PyTorch/CUDA port of flox_tpu's grouped reductions,
-multi-statistic fusion and grouped scans.
+multi-statistic fusion, grouped scans and high-cardinality (sort) engine.
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and

@@ -29,6 +29,7 @@ SOURCES = {
     "segment_minmax": "segment_minmax.cu",
     "segment_multistat": "segment_multistat.cu",
     "segment_cumsum": "segment_cumsum.cu",
+    "segment_radixbin": "segment_radixbin.cu",
 }
 
 NVCC_FLAGS = (

@@ -53,19 +53,26 @@ def generic_aggregate(
     dtype=None,
     **kwargs,
 ):
-    """Engine dispatcher: a callable runs as it is; a name runs the torch
-    engine's kernel of that name."""
+    """Engine dispatcher: a callable runs as it is; a name runs the named
+    engine's kernel of that name ("torch": dense over ``size`` groups;
+    "sort": over the groups present, scattered back to ``size``)."""
     if callable(func):
         return func(
             group_idx, array, axis=axis, size=size, fill_value=fill_value, dtype=dtype, **kwargs
         )
-    if engine != "torch":
-        raise ValueError(f"Unknown engine {engine!r}; the port has only 'torch'.")
     from . import kernels
 
-    return kernels.generic_kernel(
-        func, group_idx, array, axis=axis, size=size, fill_value=fill_value, dtype=dtype, **kwargs
-    )
+    if engine == "torch":
+        return kernels.generic_kernel(
+            func, group_idx, array, axis=axis, size=size, fill_value=fill_value, dtype=dtype,
+            **kwargs
+        )
+    if engine == "sort":
+        return kernels.sort_kernel(
+            func, group_idx, array, axis=axis, size=size, fill_value=fill_value, dtype=dtype,
+            **kwargs
+        )
+    raise ValueError(f"Unknown engine {engine!r}; expected 'torch' or 'sort'.")
 
 
 @dataclass

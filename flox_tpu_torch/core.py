@@ -6,8 +6,13 @@ data to (..., N) with the reduced axes last, run the aggregation's kernels
 (``chunk_reduce``), mask by ``min_count`` and cast to the final dtype.
 
 The data lives on one torch device, ``cuda`` unless the caller asks for the
-CPU; labels and group values stay on the host. Branches of the reference
-that later slices port raise ``NotImplementedError`` naming the ROADMAP item.
+CPU; labels and group values stay on the host. Two engines reduce: "torch"
+holds dense (..., size) accumulators over the label universe, and "sort"
+(the present-groups engine) compacts the codes to the groups present,
+reduces over a small capacity and scatters the dense result on the host.
+``_route_highcard`` picks between them under the dense-intermediate ceiling.
+Branches of the reference that later slices port raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,16 +22,16 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from . import factorize as fct, utils
+from . import factorize as fct, kernels, utils
 from .aggregations import Aggregation, _initialize_aggregation, generic_aggregate
+from .options import OPTIONS
 from .types import Bins
 
-__all__ = ["chunk_reduce", "groupby_reduce"]
+__all__ = ["chunk_reduce", "dense_intermediate_bytes", "groupby_reduce"]
 
 #: engines of the reference, and the ROADMAP item that brings each to the port
 _UNPORTED_ENGINES = {
     "numpy": "A6 (the host numpy engine is vendored with the label layers)",
-    "sort": "A5 (the high-cardinality sort engine)",
     "jax": "none: the torch engine is the port's counterpart of 'jax'; pass engine='torch'",
     "flox": "none: the torch engine is the port's counterpart of 'flox'; pass engine='torch'",
     "numbagg": "none: the port has no numbagg engine",
@@ -125,14 +130,105 @@ def _normalize_reduce_axes(arr: torch.Tensor, bys: list[np.ndarray], axis):
 
 
 def _choose_engine(engine) -> str:
-    if engine is None or engine == "torch":
-        return "torch"
+    """The engine of a call: ``engine`` itself, or the ``default_engine``
+    option when it is None."""
+    if engine is None:
+        return OPTIONS["default_engine"]
+    if engine in ("torch", "sort"):
+        return engine
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
             f"engine={engine!r} is not available in the port; ROADMAP item: "
             f"{_UNPORTED_ENGINES[engine]}"
         )
-    raise ValueError(f"Unknown engine {engine!r}; the port has engine='torch'.")
+    raise ValueError(f"Unknown engine {engine!r}; the port has engine='torch' and 'sort'.")
+
+
+# ---------------------------------------------------------------------------
+# dense-vs-sort routing under the dense-intermediate ceiling
+# ---------------------------------------------------------------------------
+
+
+def _est_itemsize(dtype) -> int:
+    """Accumulator width for the footprint estimate: intermediates travel in
+    >= 4-byte accumulators; complex dtypes keep their full width."""
+    return max(4, utils.numpy_dtype(dtype).itemsize)
+
+
+def dense_intermediate_bytes(lead_elems: int, size: int, dtype, agg: Aggregation) -> int:
+    """Device-byte estimate of the dense (..., size) intermediates of one
+    single-device reduction (parity: the reference's estimate with one
+    device): one buffer per chunk leg plus the counts leg, three for a
+    variance triple."""
+    per_leg = lead_elems * size * _est_itemsize(dtype)
+    legs = 1  # counts
+    for entry in agg.chunk or ("sum",):
+        name = entry[0] if isinstance(entry, tuple) else entry
+        legs += 3 if name == "var_chunk" else 1
+    return per_leg * legs
+
+
+#: density heuristic of a call left to the dense engine over a universe past
+#: ``sort_engine_min_groups``: the sort engine's overheads (a host unique
+#: pass, a compact relabel, the host scatter) pay once the dense accumulators
+#: outweigh the compact ones 8x, i.e. at most 1/8 of the universe is present
+_HIGHCARD_DENSITY_DEN = 8
+
+
+def _route_highcard(engine: str, codes_flat: np.ndarray, arr_flat: torch.Tensor,
+                    lead_shape: tuple, size: int, agg: Aggregation, *, explicit: bool) -> str:
+    """Dense-vs-sort routing of the eager path: "torch" or "sort".
+
+    The ceiling first: a dense (..., size) estimate above
+    ``dense_intermediate_bytes_max`` sends a call left to the dense engine to
+    the sort engine, and raises ``ValueError`` naming ``engine='sort'`` for an
+    explicit ``engine="torch"`` (explicit choices are never second-guessed),
+    or when even the compact domain is over the ceiling. Below it, universes
+    past ``sort_engine_min_groups`` go to the sort engine when at most
+    1/:data:`_HIGHCARD_DENSITY_DEN` of them is present.
+    """
+    lead_elems = int(np.prod(lead_shape)) if lead_shape else 1
+    ceiling = OPTIONS["dense_intermediate_bytes_max"]
+    est = dense_intermediate_bytes(lead_elems, size, arr_flat.dtype, agg)
+    over = est > ceiling
+    if engine == "torch" and not over and (explicit or size < OPTIONS["sort_engine_min_groups"]):
+        return "torch"  # the common case pays neither a unique pass nor routing
+    present = kernels.present_groups(codes_flat, size)  # memoized; the sort path reuses it
+    ncap = kernels.present_cap(len(present), size)
+    if over:
+        est_sort = dense_intermediate_bytes(lead_elems, ncap, arr_flat.dtype, agg)
+        if est_sort > ceiling or (engine == "torch" and explicit):
+            sort_note = (
+                f"even the sort engine's compact domain ({ncap} present-group slots, "
+                f"~{utils.fmt_bytes(est_sort)}) exceeds the ceiling"
+                if est_sort > ceiling
+                else "engine='sort' (set_options(default_engine='sort')) reduces over "
+                f"only the {len(present)} groups actually present"
+            )
+            raise ValueError(
+                f"{agg.name!r} over {size} groups needs ~{utils.fmt_bytes(est)} of dense "
+                f"(..., size) device intermediates, above the {utils.fmt_bytes(ceiling)} "
+                f"dense_intermediate_bytes_max ceiling; {sort_note}. Options: reduce "
+                "expected_groups; use engine='sort'; or raise "
+                "set_options(dense_intermediate_bytes_max=...) if the device really has "
+                "the headroom."
+            )
+        return "sort"
+    if engine == "sort":
+        return "sort"
+    return "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "torch"
+
+
+def _redevice_scattered(result: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The dense result of the sort engine, scattered on the host, back on
+    the call's device: one copy of the one dense buffer. It stays a CPU
+    tensor when it alone is over ``dense_intermediate_bytes_max``: there the
+    dense engine's alternative was an exception, and a host result is the
+    usable degradation."""
+    nbytes = result.numel() * result.element_size()
+    if nbytes > OPTIONS["dense_intermediate_bytes_max"]:
+        return result
+    return result.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +332,9 @@ def groupby_reduce(
         )
     if reindex not in (None, True, False):
         raise NotImplementedError("reindex strategies are not ported yet; ROADMAP A6")
+    # explicit engine choices are never second-guessed: only a defaulted
+    # dense engine may re-route to the sort engine (_route_highcard)
+    engine_explicit = engine is not None
     engine = _choose_engine(engine)
     nby = len(by)
     if any(type(b).__name__ == "Prefactorized" for b in by):
@@ -292,9 +391,22 @@ def groupby_reduce(
     span = int(np.prod(keep_by_shape + nred_shape)) if (keep_by_shape or nred_shape) else 1
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
     arr_flat = arr.reshape(lead_shape + (span,))
-    codes_flat = torch.as_tensor(np.asarray(codes).reshape(-1), device=dev)
+    codes_host = np.asarray(codes).reshape(-1)
 
-    result = _reduce_blockwise(arr_flat, codes_flat, agg, size=size, engine=engine)
+    engine = _route_highcard(engine, codes_host, arr_flat, lead_shape, size, agg,
+                             explicit=engine_explicit)
+    if engine == "sort":
+        # compact once, reduce over the banded capacity with the unchanged
+        # kernels, scatter the dense layout on the host at the very end:
+        # device accumulators track the groups present, not the universe
+        present = kernels.present_groups(codes_host, size)
+        ncap = kernels.present_cap(len(present), size)
+        ccodes = torch.as_tensor(kernels.compact_codes(codes_host, present), device=dev)
+        result_c = _reduce_blockwise(arr_flat, ccodes, agg, size=ncap, engine="torch")
+        result = _redevice_scattered(kernels.scatter_present_dense(result_c, present, size), dev)
+    else:
+        codes_flat = torch.as_tensor(codes_host, device=dev)
+        result = _reduce_blockwise(arr_flat, codes_flat, agg, size=size, engine=engine)
 
     # -- reshape: (..., size) -> (..., *keep_by, *grp_shape) ---------------
     result = result.reshape(lead_shape + keep_by_shape + grp_shape)

@@ -45,7 +45,7 @@ extern "C" {
 int flox_segment_sum(const void* data, int dtype, const int* codes, long long K, long long N,
                      int size, int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
                      void* stream) {
-  return flox::dispatch_segment_reduce<false>(data, dtype, codes, K, N, size, accum, sums,
+  return flox::dispatch_segment_reduce<false, false>(data, dtype, codes, K, N, size, accum, sums,
                                               nan_c, pos_c, neg_c, nullptr, nullptr, stream);
 }
 

@@ -11,8 +11,11 @@ kernel (``cuda_kernels.segment_multistat``). Each result equals the
 corresponding ``groupby_reduce(..., func=f)`` call.
 
 The chain is ``core.groupby_reduce``'s up to the kernels: labels normalized
-and factorized on the host, data flattened to (..., N) on the device. Branches
-that later slices port raise ``NotImplementedError`` naming the ROADMAP item.
+and factorized on the host, data flattened to (..., N) on the device. As in
+the reference, ``engine="sort"`` runs this dense fused path, and a plan whose
+dense (..., size) intermediates would pass ``dense_intermediate_bytes_max``
+raises. Branches that later slices port raise ``NotImplementedError`` naming
+the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from .core import (
     _normalize_expected,
     _normalize_isbin,
     _normalize_reduce_axes,
+    dense_intermediate_bytes,
 )
+from .options import OPTIONS
 from .types import Bins
 
 __all__ = ["FUSABLE_FUNCS", "finalize_many", "groupby_aggregate_many"]
@@ -166,7 +171,21 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
     codes_flat = torch.as_tensor(np.asarray(codes).reshape(-1), device=dev)
     out_shape = lead_shape + keep_by_shape + grp_shape
 
-    inters = fused_chunk_stats(fused, codes_flat, arr_flat, size=size, engine=engine)
+    lead_elems = int(np.prod(lead_shape)) if lead_shape else 1
+    est = dense_intermediate_bytes(lead_elems, size, arr_flat.dtype, fused)
+    ceiling = OPTIONS["dense_intermediate_bytes_max"]
+    if est > ceiling:
+        raise ValueError(
+            f"{fused.name!r} over {size} groups needs ~{utils.fmt_bytes(est)} "
+            f"of dense (..., size) device intermediates, above the "
+            f"{utils.fmt_bytes(ceiling)} dense_intermediate_bytes_max ceiling. "
+            "Options: reduce expected_groups; or raise "
+            "set_options(dense_intermediate_bytes_max=...)."
+        )
+
+    # the fused plan is dense whatever the engine ("sort" included, as in the
+    # reference)
+    inters = fused_chunk_stats(fused, codes_flat, arr_flat, size=size, engine="torch")
     out = finalize_many(fused, fused.finalize_fused(inters), out_shape)
     groups = tuple(g.values() if isinstance(g, Bins) else np.asarray(g) for g in found_groups)
     return (out,) + groups

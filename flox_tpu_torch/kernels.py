@@ -14,32 +14,51 @@ because XLA's segment ops reduce axis 0. Here the reduced axis stays last:
 the data is viewed as (K, N), which is the layout the CUDA kernels stream in
 place, and segment results are (K, size).
 
-Routing (``_seg``) follows the reference with "kernel" in the place of
-"pallas": float32/bfloat16 sums over at most ``pallas_num_groups_max`` groups
-go to the segment-sum kernel, float32/bfloat16/int32 min/max over at most
-``pallas_minmax_num_groups_max`` groups to the segment-min/max kernel, and
-everything else (float64, integer sums, more groups) to ``index_add_`` /
-``scatter_reduce``, as the reference sends it to XLA's scatter. Group counts
-between 512 and 16384, which the reference gives to its radix-binning kernel,
-go to ``index_add_`` until that kernel is ported (ROADMAP A5). Several
-statistics of one float array (sums, counts, min and max) share one pass of
-the multi-statistic kernel (``_fused_stats``), and float32/bfloat16 grouped
-cumsums over at most ``pallas_scan_num_groups_max`` groups (the missing-label
-group included) go to the segmented-cumsum kernel (``_scan_impl_choice``);
-other scans run a sort plus a log-depth segmented scan of torch ops.
+Routing (``_seg``) follows the reference's TPU heuristic with "kernel" in
+the place of "pallas": float32/bfloat16 sums over at most
+``pallas_num_groups_max`` groups go to the segment-sum kernel, over at most
+``radixbin_num_groups_max`` groups to the radix-binning kernel,
+float32/bfloat16/int32 min/max over at most ``pallas_minmax_num_groups_max``
+groups to the segment-min/max kernel, and everything else (float64, integer
+sums, more groups) to ``index_add_`` / ``scatter_reduce``, as the reference
+sends it to XLA's scatter. Several statistics of one float array (sums,
+counts, min and max) share one kernel pass (``_fused_stats``), and
+float32/bfloat16 grouped cumsums over at most ``pallas_scan_num_groups_max``
+groups (the missing-label group included) go to the segmented-cumsum kernel
+(``_scan_impl_choice``); other scans run a sort plus a log-depth segmented
+scan of torch ops.
+
+The sort engine (the last section) serves huge label universes: it compacts
+the codes to the groups actually present and runs the kernels above over a
+small banded capacity.
 """
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from . import cuda_kernels, utils
-from .multiarray import MultiArray
+from .multiarray import MultiArray, PresentGroups
 from .options import OPTIONS
 
-__all__ = ["KERNELS", "fused_segment_stats", "generic_kernel", "minmax_identity", "var_chunk"]
+__all__ = [
+    "KERNELS",
+    "compact_codes",
+    "fused_segment_stats",
+    "generic_kernel",
+    "minmax_identity",
+    "present_cap",
+    "present_groups",
+    "scatter_present_dense",
+    "sort_kernel",
+    "sort_segment_reduce",
+    "var_chunk",
+]
 
 _KERNEL_SUM_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_MINMAX_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -86,16 +105,26 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
 
 
 def _segment_sum_impl(data: torch.Tensor, size: int) -> str:
-    """"kernel" or "scatter" for a segment-sum of ``data`` (K, N)."""
+    """"kernel", "radixbin" or "scatter" for a segment-sum of ``data`` (K, N).
+
+    The reference's TPU dispatch: "auto" takes the segment-sum kernel within
+    its group cap, else the radix-binning kernel within its own, else
+    scatter; "kernel" and "radixbin" take their kernel within its cap, else
+    scatter.
+    """
     policy = OPTIONS["segment_sum_impl"]
     if policy == "scatter" or not data.is_floating_point():
         return "scatter"
-    ok = (
-        data.dtype in _KERNEL_SUM_DTYPES
-        and size <= OPTIONS["pallas_num_groups_max"]
-        and data.shape[-1] >= 8
-    )
-    return "kernel" if ok else "scatter"
+    guards = data.dtype in _KERNEL_SUM_DTYPES and data.shape[-1] >= 8
+    kernel_ok = guards and size <= OPTIONS["pallas_num_groups_max"]
+    radixbin_ok = guards and size <= OPTIONS["radixbin_num_groups_max"]
+    if policy == "kernel":
+        return "kernel" if kernel_ok else "scatter"
+    if policy == "radixbin":
+        return "radixbin" if radixbin_ok else "scatter"
+    if kernel_ok:
+        return "kernel"
+    return "radixbin" if radixbin_ok else "scatter"
 
 
 def _segment_minmax_impl(data: torch.Tensor, size: int) -> str:
@@ -118,8 +147,18 @@ def _seg(op: str, data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.T
     """
     if op in ("max", "min") and _segment_minmax_impl(data, size) == "kernel":
         return cuda_kernels.segment_minmax(data, codes, size, op).T
-    if op == "sum" and _segment_sum_impl(data, size) == "kernel":
-        return cuda_kernels.segment_sum(data, codes, size).T
+    if op == "sum":
+        impl = _segment_sum_impl(data, size)
+        if impl == "kernel":
+            return cuda_kernels.segment_sum(data, codes, size).T
+        if impl == "radixbin":
+            return cuda_kernels.segment_sum_radixbin(data, codes, size).T
+    return _seg_scatter(op, data, codes, size)
+
+
+def _seg_scatter(op: str, data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor:
+    """The ``index_add_`` / ``scatter_reduce`` leg of :func:`_seg`: the same
+    contract, no kernel."""
     k = data.shape[0]
     idx = codes.to(torch.int64)
     if op in ("sum", "prod") and data.is_floating_point():
@@ -282,9 +321,12 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
     per skipna mode) and the non-NaN counts as ``rowcount(codes) - nan_c``;
     with a min or max leg the pass is the multi-statistic kernel, whose
     NaN-skipping extrema serve nanmin/nanmax directly and min/max with NaN
-    re-injected where ``nan_c > 0``. Returns ``{name: (K, size)}``, or None
-    when the policy resolves to scatter or a guard fails (callers then run the
-    per-leg reductions).
+    re-injected where ``nan_c > 0``. Past the segment-sum kernel's cap, sum
+    and count legs come from one radix-binning pass (the reference runs those
+    legs one by one there; the sums are the same kernel's and the counts
+    exact below 2^24, so the numbers are the same). Returns ``{name: (K,
+    size)}``, or None when the policy resolves to scatter or a guard fails
+    (callers then run the per-leg reductions).
     """
     want = tuple(want)
     if not set(want) <= _FUSABLE_LEG_NAMES:
@@ -295,16 +337,21 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
         return None  # counts alone never justify a pass over the data
     if not data.is_floating_point() or data.shape[-1] >= 2**24:
         return None  # 2^24: the f32 marker-count exactness guard
-    if _segment_sum_impl(data, size) != "kernel":
+    impl = _segment_sum_impl(data, size)
+    if impl == "scatter":
         return None
     if minmaxish:
-        if size > min(OPTIONS["pallas_num_groups_max"], OPTIONS["pallas_minmax_num_groups_max"]):
+        if impl != "kernel" or size > min(
+            OPTIONS["pallas_num_groups_max"], OPTIONS["pallas_minmax_num_groups_max"]
+        ):
             return None
         sums, nan_c, pos_c, neg_c, mins, maxs = (
             t.T for t in cuda_kernels.segment_multistat(data, codes, size)
         )
     else:
-        sums, nan_c, pos_c, neg_c = (t.T for t in cuda_kernels.segment_sum_raw(data, codes, size))
+        raw = (cuda_kernels.segment_sum_raw if impl == "kernel"
+               else cuda_kernels.segment_sum_radixbin_raw)
+        sums, nan_c, pos_c, neg_c = (t.T for t in raw(data, codes, size))
     out: dict[str, torch.Tensor] = {}
     if "sum" in want:
         out["sum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=False)
@@ -614,6 +661,152 @@ KERNELS: dict[str, Callable[..., Any]] = {
     "ffill": ffill,
     "bfill": bfill,
 }
+
+
+# ---------------------------------------------------------------------------
+# sort engine: present-groups execution (the high-cardinality regime)
+#
+# Every kernel above is dense over the label universe ``size``, which runs
+# out of memory when ``size`` is millions while a call touches a few thousand
+# groups (user IDs, station IDs, days of a century). The sort engine finds the
+# groups actually present once (a unique pass on the host), relabels the codes
+# into the compact [0, n_present) domain, runs the unchanged kernels above
+# over a small banded capacity, and scatters back to the dense layout on the
+# host. Elements are never permuted (only the codes are relabelled,
+# monotonically), so each result equals the dense engine's on the present
+# groups bit for bit WHEN both domains resolve to the same segment-sum
+# lowering. The compact domain may cross a size gate (segment-sum kernel,
+# radix-binning kernel, scatter) that the dense one did not, which
+# reassociates float sums within those lowerings' accuracy: the caveat of any
+# ``segment_sum_impl`` flip.
+# ---------------------------------------------------------------------------
+
+#: host memo of present-group tables, keyed on a content fingerprint of the
+#: codes: repeated calls over the same factorized codes skip the unique pass
+_PRESENT_CACHE: OrderedDict = OrderedDict()
+_PRESENT_CACHE_MAX = 64
+
+#: capacity bands are powers of two, so calls whose present-group counts
+#: drift reuse the same shapes
+_PRESENT_CAP_MIN = 8
+
+#: the sort key of a missing label: after every valid code
+_BIG = np.iinfo(np.int32).max
+
+
+def _codes_fingerprint(codes: np.ndarray, size: int) -> tuple:
+    """Content key of the present-table memo: blake2b over the code bytes,
+    with their shape, dtype and the universe size."""
+    h = hashlib.blake2b(np.ascontiguousarray(codes).view(np.uint8), digest_size=16)
+    return (h.hexdigest(), codes.shape, str(codes.dtype), int(size))
+
+
+def present_groups(codes, size: int) -> np.ndarray:
+    """Sorted unique valid codes of a host code array (the "present" table),
+    int64. ``codes``: integer codes, -1 meaning "missing label". Memoized on
+    content (an LRU of :data:`_PRESENT_CACHE_MAX` tables)."""
+    codes = np.asarray(codes).reshape(-1)
+    key = _codes_fingerprint(codes, size)
+    hit = _PRESENT_CACHE.get(key)
+    if hit is not None:
+        _PRESENT_CACHE.move_to_end(key)
+        return hit
+    present = np.unique(codes[codes >= 0]).astype(np.int64, copy=False)
+    _PRESENT_CACHE[key] = present
+    if len(_PRESENT_CACHE) > _PRESENT_CACHE_MAX:
+        _PRESENT_CACHE.popitem(last=False)
+    return present
+
+
+def compact_codes(codes, present: np.ndarray) -> np.ndarray:
+    """Relabel host ``codes`` into the compact [0, n_present) domain, int32.
+
+    Monotone (``present`` is sorted) and order-preserving, and -1 (missing)
+    stays -1: per-group element order, and so every accumulation order, is
+    the dense path's.
+    """
+    codes = np.asarray(codes).reshape(-1)
+    out = np.searchsorted(present, codes).astype(np.int32)
+    out[codes < 0] = -1
+    return np.ascontiguousarray(out)
+
+
+def present_cap(n_present: int, size: int) -> int:
+    """Banded compact-domain capacity: the next power of two above
+    ``n_present``, with at least one empty pad slot whenever the dense
+    universe has absent groups. The pad slot makes the compact reduction
+    hold an empty group exactly when the dense one does, so the empty-fill
+    dtype promotions fire alike on both paths, and its value, the dense
+    path's empty-group value, is the dense scatter's fill.
+    """
+    n_present = int(n_present)
+    if n_present >= size:
+        return max(1, n_present)
+    want = max(_PRESENT_CAP_MIN, n_present + 1)
+    cap = 1 << (want - 1).bit_length()
+    return min(cap, size)
+
+
+def scatter_present_dense(result_c: torch.Tensor, present: np.ndarray, size: int):
+    """Expand a compact (..., cap) result to the dense (..., size) layout on
+    the host (:meth:`PresentGroups.scatter_dense`): the dense layout never
+    exists on the device. Absent groups take the compact result's first pad
+    slot, an empty group that went through the same kernels and finalize.
+    Returns a CPU tensor of the result's dtype (bfloat16 moves as its bits:
+    the scatter only copies values).
+    """
+    host = result_c.detach().cpu()
+    if host.dtype == torch.bfloat16:
+        bits = PresentGroups(present, host.view(torch.int16).numpy(), size).scatter_dense()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(PresentGroups(present, host.numpy(), size).scatter_dense())
+
+
+def sort_segment_reduce(op: str, data: torch.Tensor, codes: torch.Tensor, *, ncap: int):
+    """Device-side present-groups segment reduction, for codes that are not
+    on the host: one stable sort of the codes bins the elements by group, run
+    boundaries on the sorted codes give compact segment ids, and one
+    segment-``op`` over ``ncap`` segments reduces each run.
+
+    ``data`` (..., N), the reduced axis last as everywhere in this module;
+    ``codes`` (N,) int, -1 missing. ``ncap`` bounds the number of distinct
+    present groups; runs past it are dropped. Returns ``(present, out,
+    n_present)``: the sorted present codes padded with -1 to (ncap,), the
+    per-present-group reductions (..., ncap), and the count of distinct
+    present groups (a 0-d tensor). The sort is stable, so within a group the
+    data keeps its order and sums add in the dense scatter path's order.
+    """
+    codes = codes.reshape(-1).to(device=data.device, dtype=torch.int64)
+    safe = torch.where(codes < 0, _BIG, codes)
+    sorted_codes, perm = torch.sort(safe, stable=True)
+    valid = sorted_codes != _BIG
+    boundary = torch.cat([valid[:1], valid[1:] & (sorted_codes[1:] != sorted_codes[:-1])])
+    seg = torch.cumsum(boundary.to(torch.int64), 0) - 1  # -1 until the first run
+    n_present = boundary.sum()
+    # missing labels and capacity overflow park in segment ncap
+    seg = torch.where(valid & (seg >= 0) & (seg < ncap), seg, ncap)
+    flat, lead = _flat(data.index_select(-1, perm))
+    out = _unflat(_seg_scatter(op, flat, seg, ncap), lead)  # the reference's _seg_op_dense
+    present = torch.full((ncap + 1,), -1, dtype=torch.int64, device=data.device)
+    present.scatter_reduce_(0, seg, torch.where(valid, sorted_codes, -1), "amax",
+                            include_self=True)
+    return present[:ncap], out, n_present
+
+
+def sort_kernel(func: str, group_idx, array, *, axis=-1, size, fill_value=None,
+                dtype=None, **kwargs):
+    """Entry point of the "sort" engine: host unique + compact relabel, the
+    unchanged kernel over the banded capacity, then the dense scatter back,
+    returned on ``array``'s device. This per-kernel form keeps the dense
+    (..., size) contract of ``generic_aggregate``; ``core.groupby_reduce``
+    compacts once per call and scatters once at the end instead."""
+    host_codes = utils.asarray_host(group_idx).reshape(-1)
+    present = present_groups(host_codes, size)
+    ncap = present_cap(len(present), size)
+    ccodes = torch.as_tensor(compact_codes(host_codes, present), device=array.device)
+    out = generic_kernel(func, ccodes, array, axis=axis, size=ncap, fill_value=fill_value,
+                         dtype=dtype, **kwargs)
+    return scatter_present_dense(out, present, size).to(array.device)
 
 
 def generic_kernel(func: str, group_idx, array, **kwargs):

@@ -1,8 +1,8 @@
 """Global options of the port (counterpart of ``flox_tpu/options.py``).
 
 Only the knobs that the eager reduction path reads are here. The names of the
-accumulation and group-cap knobs are the reference's, so that one option set
-can drive both packages (:func:`from_reference`).
+engine, accumulation, group-cap and ceiling knobs are the reference's, so
+that one option set can drive both packages (:func:`from_reference`).
 """
 
 from __future__ import annotations
@@ -15,10 +15,20 @@ __all__ = ["OPTIONS", "VALID_ACCUMS", "from_reference", "set_options"]
 VALID_ACCUMS = ("plain", "kahan", "dd")
 
 OPTIONS: dict[str, Any] = {
-    # segment-sum implementation: "auto" and "kernel" take the hand-written
-    # segment-sum kernel when its guards pass (f32/bf16 data, at most
-    # ``pallas_num_groups_max`` groups, N >= 8); "scatter" is an explicit
-    # request for ``index_add_`` and is honoured.
+    # engine of a call that names none: "torch" (dense accumulators over the
+    # label universe) or "sort" (the present-groups engine: accumulators over
+    # the groups actually present, for huge label universes)
+    "default_engine": "torch",
+    # label-universe size from which a call left to the dense engine weighs
+    # the sort engine (density heuristic, ``core._route_highcard``)
+    "sort_engine_min_groups": 1 << 16,
+    # segment-sum implementation, for f32/bf16 data with N >= 8:
+    #   "auto"     - the segment-sum kernel up to ``pallas_num_groups_max``
+    #                groups, the radix-binning kernel up to
+    #                ``radixbin_num_groups_max``, else ``index_add_``
+    #   "kernel"   - the segment-sum kernel up to its cap, else ``index_add_``
+    #   "radixbin" - the radix-binning kernel up to its cap, else ``index_add_``
+    #   "scatter"  - ``index_add_``, an explicit request that is honoured
     "segment_sum_impl": "auto",
     # accumulation discipline of the segment-sum kernel:
     #   "plain" - an f32 running sum
@@ -28,6 +38,13 @@ OPTIONS: dict[str, Any] = {
     # group-count ceiling of the segment-sum kernel: its accumulators sit in
     # shared memory, one set per row and group
     "pallas_num_groups_max": 512,
+    # group-count ceiling of the radix-binning kernel: it splits the group
+    # axis into 512-wide blocks, so the bound is output bytes, not memory
+    "radixbin_num_groups_max": 1 << 14,
+    # device-byte ceiling of the dense (..., size) intermediates of one call:
+    # above it a call left to the dense engine goes to the sort engine, and an
+    # explicit dense request raises naming engine="sort"
+    "dense_intermediate_bytes_max": 8 * 2**30,
     # segment-min/max implementation, the same three policies as above
     "segment_minmax_impl": "auto",
     # group-count ceiling of the segment-min/max kernel
@@ -44,10 +61,19 @@ OPTIONS: dict[str, Any] = {
 
 _IMPLS = ("auto", "scatter", "kernel")
 
+
+def _is_int(x) -> bool:
+    return isinstance(x, int) and not isinstance(x, bool)
+
+
 _VALIDATORS = {
-    "segment_sum_impl": lambda x: x in _IMPLS,
+    "default_engine": lambda x: x in ("torch", "sort"),
+    "sort_engine_min_groups": lambda x: _is_int(x) and x >= 1,
+    "segment_sum_impl": lambda x: x in (*_IMPLS, "radixbin"),
     "pallas_accum": lambda x: x in VALID_ACCUMS,
     "pallas_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
+    "radixbin_num_groups_max": lambda x: isinstance(x, int) and x >= 0,
+    "dense_intermediate_bytes_max": lambda x: isinstance(x, int) and x >= 2**20,
     "segment_minmax_impl": lambda x: x in _IMPLS,
     "pallas_minmax_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
     "scan_impl": lambda x: x in ("auto", "segmented", "kernel"),
@@ -85,19 +111,22 @@ class set_options:
 #: reference implementation names with no counterpart in the port, and the
 #: ROADMAP item that will bring one
 _UNPORTED_IMPLS = {
-    "radixbin": "A5 (the radix-binning kernel, Queue B5)",
     "matmul": "none (the one-hot GEMM is not queued; use 'auto' or 'kernel')",
 }
+
+#: the reference's engine names in the port
+_ENGINES = {"jax": "torch", "sort": "sort"}
 
 
 def from_reference(opts: dict) -> dict:
     """The port's options for the reference's ``OPTIONS`` (a plain dict).
 
     Keys the port has are carried over; the reference's ``"pallas"``
-    implementation maps to the port's ``"kernel"``. Keys the port lacks are
-    ignored. An implementation the port has not got, or the reference's
-    measured dispatch (``autotune=True``), raises ``NotImplementedError``
-    naming the ROADMAP item.
+    implementation maps to the port's ``"kernel"`` and its ``"jax"`` engine to
+    ``"torch"``. Keys the port lacks are ignored. An implementation or engine
+    the port has not got, or the reference's measured dispatch
+    (``autotune=True``), raises ``NotImplementedError`` naming the ROADMAP
+    item.
     """
     if opts.get("autotune"):
         raise NotImplementedError(
@@ -110,7 +139,14 @@ def from_reference(opts: dict) -> dict:
         if key not in opts:
             continue
         value = opts[key]
-        if key.endswith("_impl"):
+        if key == "default_engine":
+            if value not in _ENGINES:
+                raise NotImplementedError(
+                    f"default_engine={value!r} has no counterpart in the port yet; ROADMAP "
+                    "item: A6 (the host numpy engine)"
+                )
+            value = _ENGINES[value]
+        elif key.endswith("_impl"):
             if value == "pallas":
                 value = "kernel"
             elif value in _UNPORTED_IMPLS:

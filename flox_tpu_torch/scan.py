@@ -75,7 +75,10 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
         )
     if any(type(b).__name__ == "Prefactorized" for b in by):
         raise NotImplementedError("Prefactorized labels are not ported yet; ROADMAP A6")
-    engine = _choose_engine(engine)
+    # a scan's output is shaped like its input: there is no (..., size)
+    # accumulator for the sort engine to compact, so both engines scan alike
+    _choose_engine(engine)
+    engine = "torch"
     dev = utils.resolve_device(device)
 
     nby = len(by)

@@ -35,6 +35,11 @@ def resolve_device(device: Any = None) -> torch.device:
     return dev
 
 
+def fmt_bytes(n: float) -> str:
+    """Human size for guard messages: GiB above 1, MiB below."""
+    return f"{n / 2**30:.1f} GiB" if n >= 2**30 else f"{n / 2**20:.1f} MiB"
+
+
 def asarray_host(x: Any) -> np.ndarray:
     """Materialize on the host as numpy (labels, metadata)."""
     if isinstance(x, torch.Tensor):

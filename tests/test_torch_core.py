@@ -288,7 +288,7 @@ def test_nanmean_is_one_fused_kernel_pass(monkeypatch):
         ({}, np.float32, 12, 1),
         ({"segment_sum_impl": "scatter"}, np.float32, 12, 0),
         ({}, np.float64, 12, 0),
-        ({}, np.float32, 600, 0),  # past pallas_num_groups_max: index_add_ (until ROADMAP A5)
+        ({}, np.float32, 600, 0),  # past pallas_num_groups_max: the radix-binning kernel
         ({"pallas_num_groups_max": 8}, np.float32, 12, 0),
     ],
 )
@@ -353,7 +353,7 @@ def test_result_is_tensor_on_device_and_groups_numpy():
     [
         ({"func": "median"}, "A2"),
         ({"func": "sum", "engine": "numpy"}, "A6"),
-        ({"func": "sum", "engine": "sort"}, "A5"),
+        ({"func": "sum", "engine": "sort", "reindex": "blockwise"}, "A6"),
         ({"func": "sum", "method": "map-reduce"}, "A7"),
     ],
 )
@@ -366,9 +366,10 @@ def test_from_reference_maps_option_names():
     opts = from_reference({"segment_sum_impl": "pallas", "segment_minmax_impl": "scatter",
                            "pallas_accum": "dd", "default_engine": "jax"})
     assert opts == {"segment_sum_impl": "kernel", "segment_minmax_impl": "scatter",
-                    "pallas_accum": "dd"}
-    with pytest.raises(NotImplementedError, match="A5"):
-        from_reference({"segment_sum_impl": "radixbin"})
+                    "pallas_accum": "dd", "default_engine": "torch"}
+    assert from_reference({"segment_sum_impl": "radixbin"}) == {"segment_sum_impl": "radixbin"}
+    with pytest.raises(NotImplementedError, match="A6"):
+        from_reference({"default_engine": "numpy"})
 
 
 def _port_sources():

@@ -440,6 +440,43 @@ def test_autotune_option_names_roadmap_item():
     assert from_reference({"autotune": False}) == {}
 
 
+@pytest.mark.parametrize("funcs", [("nanmean", "nanmax"), ("count", "nanstd")],
+                         ids=lambda f: "+".join(f))
+@pytest.mark.parametrize("engine", ["torch", "sort"])
+def test_dense_intermediate_ceiling(funcs, engine):
+    """Over ``dense_intermediate_bytes_max`` the fused path raises the
+    reference's ValueError, with the reference's estimate, for either engine
+    (the sort engine runs the dense fused path, as in the reference). Only the
+    remedies differ: the port has no mesh= to offer yet (ROADMAP A7)."""
+    rng = np.random.default_rng(12)
+    vals = rng.normal(size=(16, 512))
+    labels = rng.integers(0, 300_000, 512)
+    eg = np.arange(300_000)
+    with flox_tpu.set_options(dense_intermediate_bytes_max=2**20):
+        with pytest.raises(ValueError) as ref_err:
+            flox_tpu.groupby_aggregate_many(vals, labels, funcs=funcs, expected_groups=eg,
+                                            engine={"torch": "jax"}.get(engine, engine))
+    with flox_tpu_torch.set_options(dense_intermediate_bytes_max=2**20):
+        with pytest.raises(ValueError) as port_err:
+            flox_tpu_torch.groupby_aggregate_many(vals, labels, funcs=funcs, expected_groups=eg,
+                                                  engine=engine, device="cpu")
+    assert "dense_intermediate_bytes_max" in str(port_err.value)
+    port_msg, port_remedies = str(port_err.value).split(" Options: ")
+    ref_msg, ref_remedies = str(ref_err.value).split(" Options: ")
+    assert port_msg == ref_msg
+    assert "mesh=" in ref_remedies and "mesh=" not in port_remedies
+    # under the ceiling the same call runs, and the sort engine is the dense path
+    small = np.arange(600)
+    got, _ = flox_tpu_torch.groupby_aggregate_many(vals, labels % 600, funcs=funcs,
+                                                   expected_groups=small, engine=engine,
+                                                   device="cpu")
+    want, _ = flox_tpu_torch.groupby_aggregate_many(vals, labels % 600, funcs=funcs,
+                                                    expected_groups=small, device="cpu")
+    for f in funcs:
+        assert torch.equal(got[f].isnan(), want[f].isnan())
+        assert torch.equal(torch.nan_to_num(got[f]), torch.nan_to_num(want[f]))
+
+
 def test_new_entry_points_import_no_jax_in_fresh_process():
     code = (
         "import sys; sys.modules['pandas'] = None\n"

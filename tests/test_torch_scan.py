@@ -355,7 +355,7 @@ def test_segmented_scan_restarts_at_flags():
     "kw,err,match",
     [
         ({"method": "blelloch"}, NotImplementedError, "A7"),
-        ({"engine": "sort"}, NotImplementedError, "A5"),
+        ({"engine": "numpy"}, NotImplementedError, "A6"),
         ({"axis": (0, 1)}, ValueError, "single axis"),
     ],
 )
