@@ -19,10 +19,12 @@ Phases; any failure exits nonzero:
    segmented-cumsum kernel over {cumsum, nancumsum} x {float32, bfloat16} x
    size {1, 12, 127} within ``n_g * u * cumsum|x|`` plus one ulp, with the
    reference's overflow, NaN and stickiness cases; the radix-binning kernel
-   over {plain, kahan, dd} x {float32, bfloat16} x size {513, 1096, 4096,
-   16384} x {sorted, random codes} at the segment-sum kernel's bars, each
-   512-group block bit-identical to the segment-sum kernel on the block's
-   shifted codes, and bit-identical to it outright at size <= 512;
+   over {plain, kahan, dd} x {float32, bfloat16} x size {12, 512, 513, 1096,
+   4096, 16384} x {sorted, random codes} x {37, 600} rows at the
+   segment-sum kernel's bars with exact markers and bit-identical reruns, on
+   random codes bit-identical to the same data with its columns gathered
+   into code order, and at ({64, 600}, 2048) over 513 groups bit-identical
+   to a float32 column-order emulation of its discipline in torch;
 3. drive the main path on (lat*lon, time) = (65160, 26304) float32 data made
    on the card from ``--seed`` with the month labels of the repo's benchmark
    (12 groups): ``groupby_reduce`` nanmean, nanmax and var;
@@ -38,7 +40,9 @@ Phases; any failure exits nonzero:
    bit);
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
    kernel at the main path's shapes against its bound, its plain version and
-   one library call (or a labelled yardstick), and the end-to-end calls.
+   one library call (or a labelled yardstick), and the end-to-end calls; the
+   radix-binning kernel also on random codes over 4096 groups and on skewed
+   codes, each output first held against the plain version.
 
 It then prints the peak device memory, the card's name and power limit, one
 JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
@@ -48,6 +52,7 @@ Without CUDA it exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -146,7 +151,7 @@ def phase_build() -> float:
     for name, r in report.items():
         print(f"[build] {name}: {r['seconds']:.2f} s")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     for name in _build.SOURCES:
         _build.library(name)  # loads, or raises
@@ -232,50 +237,115 @@ def phase_kernels(seed: int) -> dict:
     return worst
 
 
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _column_order_sums(data, codes, size: int, accum: str):
+    """The radix-binning kernel's function emulated in float32 torch ops:
+    per (group, row), a sequential walk over the group's columns in column
+    order, each non-finite value zero-filled and counted, under the plain,
+    kahan or dd discipline of csrc/segment_radixbin.cu, one torch op per
+    rounded float operation (so nothing is fused or contracted). Step t
+    updates every group's t-th column at once, vectorised over rows.
+    Returns ``(sums, nan_c, pos_c, neg_c)``, each (size, K) float32."""
+    k, n = data.shape
+    dev = data.device
+    x = data.float()
+    idx = torch.where((codes >= 0) & (codes < size), codes, size).long()
+    sidx, order = torch.sort(idx, stable=True)
+    counts = torch.bincount(sidx, minlength=size + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[sidx]
+    hi = torch.zeros((size + 1, k), device=dev)
+    lo, nan_c, pos_c, neg_c = (torch.zeros_like(hi) for _ in range(4))
+    for t in range(int(counts[:size].max())):
+        sel = (rank == t) & (sidx < size)
+        g, v = sidx[sel], x[:, order[sel]].T
+        isnan, ispos, isneg = torch.isnan(v), torch.isposinf(v), torch.isneginf(v)
+        nan_c[g] += isnan.float()
+        pos_c[g] += ispos.float()
+        neg_c[g] += isneg.float()
+        z = torch.where(isnan | ispos | isneg, 0.0, v)
+        h, l = hi[g], lo[g]
+        if accum == "plain":
+            h = h + z
+        elif accum == "kahan":
+            y = z - l
+            tt = h + y
+            l = (tt - h) - y
+            h = tt
+        else:
+            c = z * 4097.0
+            z_hi = c - (c - z)
+            z_lo = z - z_hi
+            huge = z.abs() > 8e34
+            z_hi = torch.where(huge, z, z_hi)
+            z_lo = torch.where(huge, 0.0, z_lo)
+            s, e1 = _two_sum(z_hi, z_lo)
+            h, e2 = _two_sum(h, s)
+            h, l = _two_sum(h, l + (e1 + e2))
+        hi[g], lo[g] = h, l
+    return hi[:size], nan_c[:size], pos_c[:size], neg_c[:size]
+
+
 def _radixbin_sweep(ck, gen, k: int, n: int) -> float:
     """B5 against its plain version at B1's bars, with the markers exact and
-    reruns bit-identical; every 512-group block bit-identical to B1 run on
-    the codes shifted into the block (the others set to -1); and at size <=
-    512, bit-identical to B1 outright. Sorted and random codes, each with -1
-    and out-of-range codes."""
+    reruns bit-identical, over sorted and random codes, each with -1 and
+    out-of-range codes; on random codes, bit-identical to B5 on the same data
+    with its columns gathered by the stable argsort of the codes and the codes
+    sorted (the gather path against the contiguous one); and, at 2048 columns
+    over 513 groups, bit-identical to the column-order emulation of its
+    discipline (:func:`_column_order_sums`). Each check runs at ``k`` rows
+    (within one 256-row tile of the kernel) and at 600 rows (two full tiles
+    and a partial one)."""
     worst = 0.0
-    for size in (12, 512, 513, 1096, 4096, 16384):
+    for rows in (64, 600):
         for dtype in (torch.float32, torch.bfloat16):
-            data, codes = _sum_case(gen, k, n, size, dtype)
+            data, codes = _sum_case(gen, rows, 2048, 513, dtype)
             for order in ("random", "sorted"):
                 if order == "sorted":
                     codes = torch.sort(codes).values
-                scale = abs_sums(data, codes, size)
                 for accum in ("plain", "kahan", "dd"):
-                    tag = f"segment_sum_radixbin size={size} {dtype} {order} {accum}"
-                    got = ck.segment_sum_radixbin_raw(data, codes, size, accum)
-                    again = ck.segment_sum_radixbin_raw(data, codes, size, accum)
-                    want = ck.segment_sum_radixbin_plain(data, codes, size, accum)
-                    if size <= 512:
-                        b1 = ck.segment_sum_raw(data, codes, size, accum)
-                        torch.cuda.synchronize()
-                        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, b1)),
-                              f"{tag}: differs from segment_sum_raw")
-                        continue  # the sweep of segment_sum holds B1 to its plain version
-                    for y in range(-(-size // 512)):
-                        g0, gs = 512 * y, min(512, size - 512 * y)
-                        local = codes - g0
-                        local = torch.where((local >= 0) & (local < gs), local, -1)
-                        b1 = ck.segment_sum_raw(data, local, gs, accum)
-                        check(all(torch.equal(bits(a[g0 : g0 + gs]), bits(b))
-                                  for a, b in zip(got, b1)),
-                              f"{tag}: block {y} differs from segment_sum_raw on its codes")
+                    got = ck.segment_sum_radixbin_raw(data, codes, 513, accum)
+                    want = _column_order_sums(data, codes, 513, accum)
                     torch.cuda.synchronize()
-                    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
-                          f"{tag}: two launches differ")
-                    for i, name in ((1, "nan"), (2, "+inf"), (3, "-inf")):
-                        check(torch.equal(got[i], want[i]), f"{tag}: {name} counts differ")
-                    err = (got[0].double() - want[0].double()).abs()
-                    check(bool((err <= _sum_bar(accum, n, scale, want[0])).all()),
-                          f"{tag}: max |kernel - plain| {err.max().item()}")
-                    worst = max(worst, err.max().item())
-    print("[kernels] radix-binning sweep: B1 bit for bit at size <= 512 and block by block "
-          "above; markers exact; sums within B1's bars")
+                    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+                          f"segment_sum_radixbin ({rows}, 2048) size=513 {dtype} {order} "
+                          f"{accum}: differs from the column-order emulation")
+    for size, rows, dtype in itertools.product((12, 512, 513, 1096, 4096, 16384), (k, 600),
+                                               (torch.float32, torch.bfloat16)):
+        data, codes = _sum_case(gen, rows, n, size, dtype)
+        for order in ("random", "sorted"):
+            if order == "sorted":
+                codes = torch.sort(codes).values
+            scale = abs_sums(data, codes, size)
+            for accum in ("plain", "kahan", "dd"):
+                tag = f"segment_sum_radixbin ({rows}, {n}) size={size} {dtype} {order} {accum}"
+                got = ck.segment_sum_radixbin_raw(data, codes, size, accum)
+                again = ck.segment_sum_radixbin_raw(data, codes, size, accum)
+                want = ck.segment_sum_radixbin_plain(data, codes, size, accum)
+                if order == "random":
+                    sorted_codes, perm = torch.sort(codes, stable=True)
+                    gathered = ck.segment_sum_radixbin_raw(
+                        data[:, perm].contiguous(), sorted_codes, size, accum)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, gathered)),
+                          f"{tag}: differs from the same columns gathered into code order")
+                torch.cuda.synchronize()
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
+                      f"{tag}: two launches differ")
+                for i, name in ((1, "nan"), (2, "+inf"), (3, "-inf")):
+                    check(torch.equal(got[i], want[i]), f"{tag}: {name} counts differ")
+                err = (got[0].double() - want[0].double()).abs()
+                check(bool((err <= _sum_bar(accum, n, scale, want[0])).all()),
+                      f"{tag}: max |kernel - plain| {err.max().item()}")
+                worst = max(worst, err.max().item())
+    print("[kernels] radix-binning sweep: the column-order emulation bit for bit; random codes "
+          "equal to their columns gathered into code order bit for bit; markers exact; sums "
+          "within B1's bars")
     return worst
 
 
@@ -908,26 +978,38 @@ def _sort_breakdown(cut, day) -> None:
           f"{copy_ms!r} ms")
 
 
+def _radixbin_full_check(ck, data, codes, size: int, name: str) -> float:
+    """B5 kahan at the main path's width against its plain version: markers
+    exact, sums within B1's kahan bar. Returns the max |kernel - plain|."""
+    k, n = data.shape
+    got = ck.segment_sum_radixbin_raw(data, codes, size, "kahan")
+    want = ck.segment_sum_radixbin_plain(data, codes, size, "kahan")
+    torch.cuda.synchronize()
+    for i in (1, 2, 3):
+        check(torch.equal(got[i], want[i]), f"{name}: radix-binning marker counts differ")
+    scale = torch.cat([abs_sums(data[r : r + 8192], codes, size) for r in range(0, k, 8192)], 1)
+    err = (got[0].double() - want[0].double()).abs()
+    check(bool((err <= _sum_bar("kahan", n, scale, want[0])).all()),
+          f"{name}: segment_sum_radixbin off its plain version by {err.max().item()}")
+    worst = err.max().item()
+    print(f"[times] segment_sum_radixbin kahan, {name}: max |kernel - plain| {worst!r}, "
+          f"markers exact")
+    del got, want, scale, err
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _radixbin_times(ck, data, reps: int, launches: dict) -> dict:
     """B5 at the daily means' shapes (kahan) against its bound, its plain
-    version and index_add_; then once more on random codes over 4096 groups
-    (8 group blocks, each reading every column), against the same kind of
-    bound."""
+    version and index_add_; then on random codes over 4096 groups (each
+    block gathers its groups' columns) and on skewed codes (the first half of
+    the columns in group 0, the rest daily), each against the same kind of
+    bound. Each code set's output is first held against the plain version
+    at B1's kahan bar, with the markers exact."""
     k, n = data.shape
     day = (torch.arange(n, device=DEVICE) // 24).to(torch.int32)
     size = NDAYS
-    got = ck.segment_sum_radixbin_raw(data, day, size, "kahan")
-    want = ck.segment_sum_radixbin_plain(data, day, size, "kahan")
-    torch.cuda.synchronize()
-    for i in (1, 2, 3):
-        check(torch.equal(got[i], want[i]), "daily shapes: radix-binning marker counts differ")
-    scale = torch.cat([abs_sums(data[r : r + 8192], day, size) for r in range(0, k, 8192)], 1)
-    err = (got[0].double() - want[0].double()).abs()
-    check(bool((err <= _sum_bar("kahan", n, scale, want[0])).all()),
-          f"daily shapes: segment_sum_radixbin off its plain version by {err.max().item()}")
-    rb_err = err.max().item()
-    del got, want, scale, err
-    torch.cuda.empty_cache()
+    rb_err = _radixbin_full_check(ck, data, day, size, "daily codes")
 
     ms = time_ms(lambda: ck.segment_sum_radixbin_raw(data, day, size, "kahan"), reps)
     plain_ms = time_ms(lambda: ck.segment_sum_radixbin_plain(data, day, size, "kahan"),
@@ -948,14 +1030,20 @@ def _radixbin_times(ck, data, reps: int, launches: dict) -> dict:
     gen.manual_seed(1)
     rsize = 4096
     rnd = torch.randint(0, rsize, (n,), generator=gen, device=DEVICE, dtype=torch.int32)
-    rnd_ms = time_ms(lambda: ck.segment_sum_radixbin_raw(data, rnd, rsize, "kahan"),
-                     max(2, reps // 4))
-    torch.cuda.empty_cache()
-    rnd_bytes = data.numel() * data.element_size() + n * 4 + 4 * rsize * k * 4
-    rnd_bound = max(rnd_bytes / HBM_BYTES_PER_S, 2 * data.numel() / F32_FLOPS) * 1e3
-    print(f"[times] segment_sum_radixbin kahan, random codes over {rsize} groups "
-          f"({rsize // 512} group blocks, each reading every column): {rnd_ms!r} ms "
-          f"(bound {rnd_bound!r} ms, one read of the data)")
+    skew = torch.where(torch.arange(n, device=DEVICE) < n // 2, 0, day).to(torch.int32)
+    for name, codes, csize in (
+        (f"random codes over {rsize} groups (gathered columns)", rnd, rsize),
+        (f"skewed codes (columns [0, {n // 2}) in group 0, the rest daily; {size} groups)",
+         skew, size),
+    ):
+        _radixbin_full_check(ck, data, codes, csize, name)
+        c_ms = time_ms(lambda c=codes, s=csize: ck.segment_sum_radixbin_raw(data, c, s, "kahan"),
+                       max(2, reps // 4))
+        torch.cuda.empty_cache()
+        c_bytes = data.numel() * data.element_size() + n * 4 + 4 * csize * k * 4
+        c_bound = max(c_bytes / HBM_BYTES_PER_S, 2 * data.numel() / F32_FLOPS) * 1e3
+        print(f"[times] segment_sum_radixbin kahan, {name}: {c_ms!r} ms (bound {c_bound!r} ms, "
+              f"one read of the data)")
     return {
         "name": "segment_sum_radixbin", "route": "cuda",
         "source": "flox_tpu_torch/csrc/segment_radixbin.cu",

@@ -36,7 +36,7 @@ extern "C" {
 int flox_segment_multistat(const void* data, int dtype, const int* codes, long long K,
                            long long N, int size, int accum, void* sums, void* nan_c,
                            void* pos_c, void* neg_c, void* mins, void* maxs, void* stream) {
-  return flox::dispatch_segment_reduce<true, false>(data, dtype, codes, K, N, size, accum, sums, nan_c,
+  return flox::dispatch_segment_reduce<true>(data, dtype, codes, K, N, size, accum, sums, nan_c,
                                              pos_c, neg_c, mins, maxs, stream);
 }
 

@@ -1,9 +1,8 @@
-// The grouped sum-and-markers reduction shared by segment_sum.cu (B1),
-// segment_multistat.cu (B2) and segment_radixbin.cu (B5), for Hopper
-// (sm_90a).
+// The grouped sum-and-markers reduction shared by segment_sum.cu (B1) and
+// segment_multistat.cu (B2), for Hopper (sm_90a).
 //
-// One template, segment_reduce_kernel<T, ACC, MINMAX, RADIX>, computes per
-// (group, row) of data (K, N) by codes (N,):
+// One template, segment_reduce_kernel<T, ACC, MINMAX>, computes per (group,
+// row) of data (K, N) by codes (N,):
 //
 //   sums, nan_c, pos_c, neg_c  float32: the sum of the finite values (non-
 //         finite values are zero-filled and counted, never added) and the
@@ -40,23 +39,6 @@
 //
 // Shared memory per warp: 5 words per group (hi, lo, three counts), 7 with
 // MINMAX (min, max). At 128 groups x 8 warps x 7 words that is 28.7 KB.
-//
-// RADIX (B5) splits the group axis into kGroupBlock-wide blocks: the block at
-// blockIdx.y owns groups [kGroupBlock * y, kGroupBlock * y + kGroupBlock), and
-// a lane whose code falls outside them counts as invalid, as an out-of-range
-// code does. Per group the walk over N, the butterflies and the lane-0
-// update are the ones above, so B5 at size <= kGroupBlock is B1 bit for bit,
-// and B5's block y is B1 run on the codes shifted by -kGroupBlock * y with
-// the other codes dropped. Two things differ, neither touching a value:
-//   - the skip rule: a warp loads its codes of a 32 * kUnroll-column step
-//     first and loads the data only if one of them falls in its block (one
-//     vote). A skipped step would have changed no accumulator. For sorted
-//     codes each block then reads only the columns of its own groups, so a
-//     launch reads the data about once; for unsorted codes every block reads
-//     every column, kGroupBlock-th of the groups at a time;
-//   - the output: (size, K) is written by the whole block, 8 consecutive rows
-//     of one group per 32-byte sector, instead of one lane per group and row.
-//     At 512 groups x 8 rows x 5 words the accumulators take 80 KB.
 
 #pragma once
 
@@ -67,8 +49,7 @@ namespace flox {
 
 constexpr int kWarps = 8;   // rows per block
 constexpr int kUnroll = 4;  // 32-column chunks loaded before any is reduced
-constexpr int kGroupBlock = 512;  // groups per block: B1's cap, B5's block width
-constexpr long long kMaxGroupBlocks = 65535;  // gridDim.y limit
+constexpr int kGroupBlock = 512;  // groups per block: the cap of B1 and B2
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load_value(const float* p) { return __ldcs(p); }
@@ -188,29 +169,26 @@ __host__ __device__ constexpr int acc_words() {
   return MINMAX ? 7 : 5;  // hi, lo, nan, pos, neg [, min, max]
 }
 
-template <typename T, int ACC, bool MINMAX, bool RADIX>
+template <typename T, int ACC, bool MINMAX>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ codes, long long K,
                       long long N, int size, float* __restrict__ sums,
                       float* __restrict__ nan_c, float* __restrict__ pos_c,
                       float* __restrict__ neg_c, T* __restrict__ mins, T* __restrict__ maxs) {
-  static_assert(!(MINMAX && RADIX), "the group-block write carries no extrema");
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long k = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  // the groups of this block: all of them, or (RADIX) one kGroupBlock slice
-  const int stride = size < kGroupBlock ? size : kGroupBlock;  // words per field per warp
-  const int g0 = RADIX ? static_cast<int>(blockIdx.y) * kGroupBlock : 0;
-  const int gsize = RADIX ? min(kGroupBlock, size - g0) : size;
-  if (!RADIX && k >= K) return;  // whole warp; no block-wide barrier follows
+  // words per field per warp: size, clamped as the launch sizes shared memory
+  const int stride = size < kGroupBlock ? size : kGroupBlock;
+  if (k >= K) return;  // whole warp; no block-wide barrier follows
 
   float* hi = smem + static_cast<size_t>(warp) * stride * acc_words<MINMAX>();
   float* lo = hi + stride;
   unsigned* cnt = reinterpret_cast<unsigned*>(lo + stride);  // nan | pos | neg
   float* mn = lo + 4 * stride;  // MINMAX only
   float* mx = lo + 5 * stride;
-  for (int g = lane; g < gsize; g += 32) {
+  for (int g = lane; g < size; g += 32) {
     hi[g] = 0.0f;
     lo[g] = 0.0f;
     cnt[g] = cnt[stride + g] = cnt[2 * stride + g] = 0u;
@@ -221,68 +199,24 @@ segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ codes,
   }
   __syncwarp();
 
-  if (k < K) {  // warp-uniform
-    const T* row = data + k * N;  // 64-bit offset: K*N exceeds 2^31 at full width
-    for (long long c0 = 0; c0 < N; c0 += 32 * kUnroll) {
-      float x[kUnroll];
-      int code[kUnroll];
-      if (RADIX) {
-        // codes first: the data of a step with no code in this block is not read
-        bool any = false;
+  const T* row = data + k * N;  // 64-bit offset: K*N exceeds 2^31 at full width
+  for (long long c0 = 0; c0 < N; c0 += 32 * kUnroll) {
+    float x[kUnroll];
+    int code[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const long long c = c0 + u * 32 + lane;
-          // block-local code; unsigned arithmetic, so a code below the block
-          // wraps past gsize and drops out like a negative one
-          code[u] = c < N ? static_cast<int>(static_cast<unsigned>(__ldg(codes + c)) -
-                                             static_cast<unsigned>(g0))
-                          : -1;
-          any |= static_cast<unsigned>(code[u]) < static_cast<unsigned>(gsize);
-        }
-        if (!__any_sync(kFull, any)) continue;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const long long c = c0 + u * 32 + lane;
-          x[u] = c < N ? load_value(row + c) : 0.0f;
-        }
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long c = c0 + u * 32 + lane;
+      if (c < N) {
+        x[u] = load_value(row + c);
+        code[u] = __ldg(codes + c);
       } else {
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const long long c = c0 + u * 32 + lane;
-          if (c < N) {
-            x[u] = load_value(row + c);
-            code[u] = __ldg(codes + c);
-          } else {
-            x[u] = 0.0f;
-            code[u] = -1;
-          }
-        }
+        x[u] = 0.0f;
+        code[u] = -1;
       }
+    }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        reduce_chunk<ACC, MINMAX>(x[u], code[u], gsize, stride, lane, hi, lo, cnt, mn, mx);
-    }
-  }
-
-  if (RADIX) {
-    // every warp's accumulators, visible to the whole block; then thread t
-    // writes row k0 + t % 8 of group t / 8, so 8 lanes fill one 32-byte
-    // sector of the (size, K) output
-    __syncthreads();
-    const long long k0 = static_cast<long long>(blockIdx.x) * kWarps;
-    for (int t = threadIdx.x; t < gsize * kWarps; t += kWarps * 32) {
-      const int g = t / kWarps;
-      const int w = t % kWarps;
-      if (k0 + w >= K) continue;
-      const float* whi = smem + static_cast<size_t>(w) * stride * acc_words<MINMAX>();
-      const unsigned* wcnt = reinterpret_cast<const unsigned*>(whi + 2 * stride);
-      const long long o = static_cast<long long>(g0 + g) * K + k0 + w;
-      sums[o] = whi[g];
-      nan_c[o] = static_cast<float>(wcnt[g]);
-      pos_c[o] = static_cast<float>(wcnt[stride + g]);
-      neg_c[o] = static_cast<float>(wcnt[2 * stride + g]);
-    }
-    return;
+    for (int u = 0; u < kUnroll; ++u)
+      reduce_chunk<ACC, MINMAX>(x[u], code[u], size, stride, lane, hi, lo, cnt, mn, mx);
   }
   __syncwarp();  // lane 0's accumulator writes, visible to the whole warp
 
@@ -299,35 +233,32 @@ segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ codes,
   }
 }
 
-template <typename T, int ACC, bool MINMAX, bool RADIX>
+template <typename T, int ACC, bool MINMAX>
 cudaError_t launch_segment_reduce(const void* data, const int* codes, long long K, long long N,
                                   int size, float* sums, float* nan_c, float* pos_c,
                                   float* neg_c, void* mins, void* maxs, cudaStream_t stream) {
   const int stride = size < kGroupBlock ? size : kGroupBlock;
   const size_t smem = static_cast<size_t>(kWarps) * stride * acc_words<MINMAX>() * sizeof(float);
-  auto kernel = segment_reduce_kernel<T, ACC, MINMAX, RADIX>;
+  auto kernel = segment_reduce_kernel<T, ACC, MINMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (K + kWarps - 1) / kWarps;
-  const long long gblocks = RADIX ? (size + kGroupBlock - 1) / kGroupBlock : 1;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(gblocks));
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
       static_cast<const T*>(data), codes, K, N, size, sums, nan_c, pos_c, neg_c,
       static_cast<T*>(mins), static_cast<T*>(maxs));
   return cudaGetLastError();
 }
 
 // The C entry points' dispatch over dtype (0 float32, 1 bfloat16) and accum
-// (0 plain, 1 kahan, 2 dd). B1 and B2 take at most kGroupBlock groups, B5
-// (RADIX) at most kGroupBlock * kMaxGroupBlocks. Returns the cudaError_t of
-// the launch; cudaErrorInvalidValue for a shape, dtype or accum it refuses.
-template <bool MINMAX, bool RADIX>
+// (0 plain, 1 kahan, 2 dd), at most kGroupBlock groups. Returns the
+// cudaError_t of the launch; cudaErrorInvalidValue for a shape, dtype or
+// accum it refuses.
+template <bool MINMAX>
 int dispatch_segment_reduce(const void* data, int dtype, const int* codes, long long K,
                             long long N, int size, int accum, void* sums, void* nan_c,
                             void* pos_c, void* neg_c, void* mins, void* maxs, void* stream) {
-  const long long max_size = RADIX ? kGroupBlock * kMaxGroupBlocks : kGroupBlock;
-  if (K <= 0 || N < 0 || size <= 0 || size > max_size || K > 0x7fffffffLL * kWarps)
+  if (K <= 0 || N < 0 || size <= 0 || size > kGroupBlock || K > 0x7fffffffLL * kWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   float* s = static_cast<float*>(sums);
   float* a = static_cast<float*>(nan_c);
@@ -337,24 +268,24 @@ int dispatch_segment_reduce(const void* data, int dtype, const int* codes, long 
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     if (accum == 0)
-      err = launch_segment_reduce<float, 0, MINMAX, RADIX>(data, codes, K, N, size, s, a, p, m,
-                                                           mins, maxs, st);
+      err = launch_segment_reduce<float, 0, MINMAX>(data, codes, K, N, size, s, a, p, m, mins,
+                                                    maxs, st);
     if (accum == 1)
-      err = launch_segment_reduce<float, 1, MINMAX, RADIX>(data, codes, K, N, size, s, a, p, m,
-                                                           mins, maxs, st);
+      err = launch_segment_reduce<float, 1, MINMAX>(data, codes, K, N, size, s, a, p, m, mins,
+                                                    maxs, st);
     if (accum == 2)
-      err = launch_segment_reduce<float, 2, MINMAX, RADIX>(data, codes, K, N, size, s, a, p, m,
-                                                           mins, maxs, st);
+      err = launch_segment_reduce<float, 2, MINMAX>(data, codes, K, N, size, s, a, p, m, mins,
+                                                    maxs, st);
   } else if (dtype == 1) {
     if (accum == 0)
-      err = launch_segment_reduce<uint16_t, 0, MINMAX, RADIX>(data, codes, K, N, size, s, a, p,
-                                                              m, mins, maxs, st);
+      err = launch_segment_reduce<uint16_t, 0, MINMAX>(data, codes, K, N, size, s, a, p, m,
+                                                       mins, maxs, st);
     if (accum == 1)
-      err = launch_segment_reduce<uint16_t, 1, MINMAX, RADIX>(data, codes, K, N, size, s, a, p,
-                                                              m, mins, maxs, st);
+      err = launch_segment_reduce<uint16_t, 1, MINMAX>(data, codes, K, N, size, s, a, p, m,
+                                                       mins, maxs, st);
     if (accum == 2)
-      err = launch_segment_reduce<uint16_t, 2, MINMAX, RADIX>(data, codes, K, N, size, s, a, p,
-                                                              m, mins, maxs, st);
+      err = launch_segment_reduce<uint16_t, 2, MINMAX>(data, codes, K, N, size, s, a, p, m,
+                                                       mins, maxs, st);
   }
   return static_cast<int>(err);
 }

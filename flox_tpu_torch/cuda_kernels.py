@@ -26,8 +26,7 @@ benchmark array; the cumsum also writes a (K, N) result, 4.09 ms (computed,
 not measured). The radix-binning kernel also writes 4*size*K*4 bytes of
 outputs, which at the 1096 day groups of the daily means is 1.14 GB more,
 2.39 ms in all. The design notes sit at the top of each source; the segment-
-sum, multi-statistic and radix-binning kernels share theirs
-(csrc/segment_reduce.cuh).
+sum and multi-statistic kernels share theirs (csrc/segment_reduce.cuh).
 
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU. For
 a CUDA tensor it launches the kernel or raises; there is no fallback. Each
@@ -69,7 +68,7 @@ _SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MINMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _ACCUM_CODES = {"plain": 0, "kahan": 1, "dd": 2}
 _MAX_GROUPS = 512  # the C entry points of B1-B4 refuse more
-_RADIXBIN_MAX_GROUPS = 512 * 65535  # B5's grid holds no more 512-group blocks
+_RADIXBIN_MAX_GROUPS = 2**31 - 1  # B5 bins the codes in int32, the invalid ones to `size`
 
 
 def reset_launches() -> None:
@@ -205,12 +204,15 @@ def segment_sum_radixbin_raw(data: torch.Tensor, codes: torch.Tensor, size: int,
                              accum: str | None = None):
     """:func:`segment_sum_raw` for any number of groups: the four (size, K)
     float32 tensors ``(sums, nan_c, pos_c, neg_c)`` of ``data`` (K, N) by
-    ``codes`` (N,), with the group axis cut into 512-wide blocks on the card.
+    ``codes`` (N,).
 
     Codes outside [0, size) drop out; ``accum`` as for
-    :func:`segment_sum_raw`. On the card the outputs are bit-identical to
-    :func:`segment_sum_raw`'s at size <= 512, and built for codes sorted along
-    N: unsorted codes cost one read of the data per 512-group block.
+    :func:`segment_sum_raw`. On the card the codes are binned first
+    (:func:`_radixbin_bins`) and the kernel walks each group's columns in
+    column order, one thread per row: per (group, row) the sum is sequential
+    over the group's columns under ``accum``, so it does not depend on where
+    other groups' columns lie, unsorted codes give the bits of the same data
+    with its columns gathered into code order, and reruns are bit-identical.
     """
     accum = OPTIONS["pallas_accum"] if accum is None else accum
     if accum not in VALID_ACCUMS:
@@ -232,18 +234,38 @@ def segment_sum_radixbin(data, codes, size: int, accum: str | None = None, *,
     return reapply_nonfinite(*segment_sum_radixbin_raw(data, codes, size, accum), skipna=skipna)
 
 
+def _radixbin_bins(codes: torch.Tensor, size: int):
+    """The radix-binning kernel's view of ``codes`` (N,): ``(perm,
+    sorted_codes, offsets)``, all int32 on the codes' device.
+
+    ``perm`` orders the columns stably by code, with the codes outside [0,
+    size) mapped to ``size`` and so last; ``sorted_codes`` holds those mapped
+    codes in that order; ``offsets`` (size + 1,) is where each group starts,
+    so group g owns columns ``perm[offsets[g]:offsets[g + 1]]`` in their
+    original order and ``offsets[size]`` counts the valid codes. Device ops
+    over the N codes only, with no host sync; for sorted codes ``perm`` is the
+    identity.
+    """
+    key = torch.where((codes >= 0) & (codes < size), codes, size).to(torch.int32)
+    sorted_codes, perm = torch.sort(key, stable=True)
+    starts = torch.arange(size + 1, dtype=torch.int32, device=codes.device)
+    offsets = torch.searchsorted(sorted_codes, starts, out_int32=True)
+    return perm.to(torch.int32), sorted_codes, offsets
+
+
 def _segment_sum_radixbin_cuda(data, codes, size: int, accum: str):
     _require_cuda("segment_sum_radixbin")
-    lib = _lib("segment_radixbin", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P])
+    lib = _lib("segment_radixbin", [_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P])
     k, n = data.shape
     outs = [torch.empty((size, k), dtype=torch.float32, device=data.device) for _ in range(4)]
     if k == 0:
         return tuple(outs)
     data = data.contiguous()  # one copy for a non-contiguous input, as above
-    codes = _codes_int32(codes, size)
+    perm, sorted_codes, offsets = _radixbin_bins(codes, size)
     err = lib.flox_segment_radixbin(
-        data.data_ptr(), _SUM_DTYPES[data.dtype], codes.data_ptr(), k, n, size,
-        _ACCUM_CODES[accum], *(o.data_ptr() for o in outs), _stream(data.device),
+        data.data_ptr(), _SUM_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
+        offsets.data_ptr(), k, n, size, _ACCUM_CODES[accum], *(o.data_ptr() for o in outs),
+        _stream(data.device),
     )
     _build.check(lib, err, "segment_sum_radixbin launch")
     LAUNCHES["segment_sum_radixbin"] += 1

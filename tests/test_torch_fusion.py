@@ -33,6 +33,7 @@ import pytest
 import torch
 
 import flox_tpu
+from flox_tpu import fusion as ref_fusion
 from flox_tpu import options as ref_options
 from flox_tpu.pallas_kernels import segment_multistat_pallas
 import flox_tpu_torch
@@ -443,7 +444,7 @@ def test_autotune_option_names_roadmap_item():
 @pytest.mark.parametrize("funcs", [("nanmean", "nanmax"), ("count", "nanstd")],
                          ids=lambda f: "+".join(f))
 @pytest.mark.parametrize("engine", ["torch", "sort"])
-def test_dense_intermediate_ceiling(funcs, engine):
+def test_dense_intermediate_ceiling(funcs, engine, monkeypatch):
     """Over ``dense_intermediate_bytes_max`` the fused path raises the
     reference's ValueError, with the reference's estimate, for either engine
     (the sort engine runs the dense fused path, as in the reference). Only the
@@ -452,10 +453,15 @@ def test_dense_intermediate_ceiling(funcs, engine):
     vals = rng.normal(size=(16, 512))
     labels = rng.integers(0, 300_000, 512)
     eg = np.arange(300_000)
-    with flox_tpu.set_options(dense_intermediate_bytes_max=2**20):
-        with pytest.raises(ValueError) as ref_err:
-            flox_tpu.groupby_aggregate_many(vals, labels, funcs=funcs, expected_groups=eg,
-                                            engine={"torch": "jax"}.get(engine, engine))
+    # the reference's ceiling goes into both option dicts it may read:
+    # flox_tpu.fusion bound OPTIONS at import, while set_options and core read
+    # flox_tpu.options.OPTIONS, which a reload of that module (one of the
+    # reference's option tests does one) replaces with another dict
+    for opts in (ref_fusion.OPTIONS, ref_options.OPTIONS):
+        monkeypatch.setitem(opts, "dense_intermediate_bytes_max", 2**20)
+    with pytest.raises(ValueError) as ref_err:
+        flox_tpu.groupby_aggregate_many(vals, labels, funcs=funcs, expected_groups=eg,
+                                        engine={"torch": "jax"}.get(engine, engine))
     with flox_tpu_torch.set_options(dense_intermediate_bytes_max=2**20):
         with pytest.raises(ValueError) as port_err:
             flox_tpu_torch.groupby_aggregate_many(vals, labels, funcs=funcs, expected_groups=eg,

@@ -8,8 +8,8 @@ interpret mode, as tests/test_highcard.py runs it; the port runs with
 are numpy arrays made from a seed.
 
 Tolerances:
-* present tables, compact codes, capacities, scatters, counts, extrema and
-  NaN/+inf/-inf positions: exact;
+* present tables, compact codes, capacities, scatters, counts, extrema,
+  NaN/+inf/-inf positions and the radix-binning kernel's bins: exact;
 * the radix-binning kernel's sums: float32 ``rtol=2e-4``, the bar of the
   reference's ``TestRadixBin`` against a float64 oracle;
 * float32 results of whole calls: ``rtol=1e-5, atol=1e-6`` (the bar of
@@ -252,6 +252,80 @@ def test_radixbin_raw_is_segment_sum_raw_below_the_cap():
         assert torch.equal(a, b)
 
 
+def _np_bins(codes: np.ndarray, size: int):
+    key = np.where((codes >= 0) & (codes < size), codes, size)
+    perm = np.argsort(key, kind="stable")
+    return perm, key[perm], np.searchsorted(key[perm], np.arange(size + 1), side="left")
+
+
+def _bins_case(case: str):
+    rng = np.random.default_rng(11)
+    n = 2000
+    if case == "sorted":
+        return np.arange(n) // 24, 84
+    if case == "random":
+        return rng.integers(0, 700, n), 700
+    if case == "invalid":
+        codes = rng.integers(-3, 1096 + 5, n)
+        codes[:5] = -1
+        return codes, 1096
+    if case == "empty_groups":  # 513 groups, most of them empty
+        return rng.choice([0, 5, 40, 41, 300, 512], n), 513
+    if case == "all_invalid":
+        return np.full(n, -1), 513
+    assert case == "int64_out_of_int32"
+    codes = rng.integers(0, 600, n)
+    codes[::7] = 2**40 + 3  # must drop out, not wrap into [0, size)
+    return codes, 600
+
+
+_BINS_CASES = ["sorted", "random", "invalid", "empty_groups", "all_invalid",
+               "int64_out_of_int32"]
+
+
+@pytest.mark.parametrize("case,dtype", [
+    *((c, d) for c in _BINS_CASES[:-1] for d in (torch.int32, torch.int64)),
+    ("int64_out_of_int32", torch.int64),
+])
+def test_radixbin_bins(case, dtype):
+    """The radix-binning kernel's bins against numpy's stable argsort and
+    searchsorted of the codes with the invalid ones mapped to ``size``."""
+    codes, size = _bins_case(case)
+    perm, sorted_codes, offsets = ck._radixbin_bins(torch.from_numpy(codes).to(dtype), size)
+    want_perm, want_sorted, want_offsets = _np_bins(codes, size)
+    for got in (perm, sorted_codes, offsets):
+        assert got.dtype == torch.int32 and got.is_contiguous()
+    assert tuple(offsets.shape) == (size + 1,)
+    np.testing.assert_array_equal(perm.numpy(), want_perm)
+    np.testing.assert_array_equal(sorted_codes.numpy(), want_sorted)
+    np.testing.assert_array_equal(offsets.numpy(), want_offsets)
+    assert offsets[-1].item() == int(((codes >= 0) & (codes < size)).sum())
+    if case == "sorted":
+        np.testing.assert_array_equal(perm.numpy(), np.arange(codes.size))
+
+
+@pytest.mark.parametrize("width", [1, 7, 8, 32])
+@pytest.mark.parametrize("case", _BINS_CASES)
+def test_radixbin_segment_ranges(case, width):
+    """What the kernel's grid reads: the block over groups [g0, g0 + width)
+    (csrc/segment_radixbin.cu takes 8) reads ``perm[offsets[g0] :
+    offsets[min(g0 + width, size)]]``, which must be exactly the columns whose
+    codes fall in those groups, ordered by code and then by column; the
+    segments together read every valid column once and no invalid one."""
+    codes, size = _bins_case(case)
+    perm, _, offsets = (t.numpy() for t in ck._radixbin_bins(torch.from_numpy(codes), size))
+    seen = []
+    for g0 in range(0, size, width):
+        g1 = min(g0 + width, size)
+        cols = perm[offsets[g0]:offsets[g1]]
+        mine = np.flatnonzero((codes >= g0) & (codes < g1))
+        np.testing.assert_array_equal(cols, mine[np.lexsort((mine, codes[mine]))])
+        seen.append(cols)
+    seen = np.concatenate(seen)
+    np.testing.assert_array_equal(np.sort(seen),
+                                  np.flatnonzero((codes >= 0) & (codes < size)))
+
+
 class _CudaTyped(torch.Tensor):
     """A CPU tensor that reports a CUDA device."""
 
@@ -279,7 +353,7 @@ def test_radixbin_cuda_request_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("kwargs,err", [
     ({"data": torch.zeros(4, 16, dtype=torch.float64)}, TypeError),
     ({"codes": torch.zeros(15, dtype=torch.int32)}, ValueError),
-    ({"size": 512 * 65535 + 1}, ValueError),
+    ({"size": ck._RADIXBIN_MAX_GROUPS + 1}, ValueError),
     ({"size": 0}, ValueError),
     ({"accum": "pairwise"}, ValueError),
 ])
