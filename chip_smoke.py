@@ -9,9 +9,13 @@ Phases; any failure exits nonzero:
    nvcc per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card: the
    segment-sum kernel over {plain, kahan, dd} x {float32, bfloat16} x
-   size {1, 12, 512} with NaN, +-inf and out-of-range codes, plus the
-   reference's Kahan and double-double accuracy bars and run-to-run bit
-   identity; the segment-min/max kernel over {min, max} x {float32,
+   size {1, 12, 512} x {random, sorted codes} with NaN, +-inf and
+   out-of-range codes, bit-identical to the radix-binning kernel on the same
+   input, plus the reference's Kahan and double-double accuracy bars and
+   run-to-run bit identity; the segment-sum and multi-statistic kernels'
+   sums and markers bit-identical to a float32 column-order emulation of
+   their walk at {37, 64, 600} rows (full and partial 256-row tiles), and
+   their empty results at N = 0 without a launch; the segment-min/max kernel over {min, max} x {float32,
    bfloat16, int32} x size {1, 12, 128}, exactly; the multi-statistic kernel
    over {plain, kahan, dd} x {float32, bfloat16} x size {1, 12, 128}, its
    sums and markers bit-identical to the segment-sum kernel's and its
@@ -42,7 +46,13 @@ Phases; any failure exits nonzero:
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls; the
    radix-binning kernel also on random codes over 4096 groups and on skewed
-   codes, each output first held against the plain version.
+   codes, and the segment-sum and multi-statistic kernels on code patterns
+   off the main path (:func:`pattern_times`: hour of day, random codes over
+   12 groups, and for the segment-sum kernel over 512), each output first
+   held against the plain version; then, from a ``torch.profiler`` trace
+   (:func:`device_breakdown`), each kernel wrapper's and end-to-end call's
+   device busy time, the share in this repo's kernels, and the device's
+   idle share.
 
 It then prints the peak device memory, the card's name and power limit, one
 JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
@@ -126,11 +136,12 @@ def abs_sums(data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor
 
 
 def _sum_bar(accum: str, n: int, scale: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """The segment-sum kernel's bar against its plain version, per (group,
-    row), with S = ``scale``: plain, (n + chunks + 5) u S (the kernel's chunk
-    tree and running sum, <= (chunks + 5) u S, plus the plain version's own
-    running sum, <= (n - 1) u S); kahan and dd, 8 u S + 1 ulp (chunk tree
-    <= 5 u S, compensated carry <= 2 u |s|, final rounding)."""
+    """The segment-sum kernels' bar against their plain version, per (group,
+    row), with S = ``scale``: plain, (n + chunks + 5) u S (the plain
+    version's running sum, <= (n - 1) u S, plus the kernel's sequential walk,
+    <= (n_g - 1) u S, with room for the chunk tree of an earlier design);
+    kahan and dd, 8 u S + 1 ulp (the compensated walk's own error, <= 2 u S
+    + O(n u^2) S, the carry, <= 2 u |s|, and the final rounding)."""
     if accum == "plain":
         return (n + -(-n // 32) + 5) * U32 * scale
     return 8 * U32 * scale + want.double().abs() * 2 * U32
@@ -180,32 +191,44 @@ def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     worst = {"segment_sum": 0.0, "segment_minmax": 0.0}
-    k, n = 37, 4099  # odd shapes: ragged chunks and blocks
-    for size in (1, 12, 512):
-        for dtype in (torch.float32, torch.bfloat16):
-            data, codes = _sum_case(gen, k, n, size, dtype)
+    k, n = 37, 4099  # odd shapes: ragged stages and row tiles
+    for size, dtype in itertools.product((1, 12, 512), (torch.float32, torch.bfloat16)):
+        data, codes = _sum_case(gen, k, n, size, dtype)
+        for order in ("random", "sorted"):
+            if order == "sorted":
+                codes = torch.sort(codes).values
             scale = abs_sums(data, codes, size)
             oracle = ck.segment_sum_raw_plain(data, codes, size, "dd")[0]  # f64-accumulated
+            idx = torch.where((codes >= 0) & (codes < size), codes, size).long()
+            n_g = torch.bincount(idx, minlength=size + 1)[:size, None].double()
             for accum in ("plain", "kahan", "dd"):
                 got = ck.segment_sum_raw(data, codes, size, accum)
                 again = ck.segment_sum_raw(data, codes, size, accum)
                 want = ck.segment_sum_raw_plain(data, codes, size, accum)
+                radixbin = ck.segment_sum_radixbin_raw(data, codes, size, accum)
                 torch.cuda.synchronize()
-                tag = f"segment_sum size={size} {dtype} {accum}"
+                tag = f"segment_sum size={size} {dtype} {order} {accum}"
                 check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
                       f"{tag}: two launches differ")
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, radixbin)),
+                      f"{tag}: differs from segment_sum_radixbin_raw")
                 for i, name in ((1, "nan"), (2, "+inf"), (3, "-inf")):
                     check(torch.equal(got[i], want[i]), f"{tag}: {name} counts differ")
                 err = (got[0].double() - want[0].double()).abs()
                 if accum == "plain":
-                    # the kernel alone: its chunk tree and running sum, <= (chunks + 5) u S
+                    # the kernel alone: a sequential f32 sum of the group's
+                    # n_g columns, <= (n_g - 1) u S, plus one ulp for the
+                    # rounding of the float64 sum to float32
                     own = (got[0].double() - oracle.double()).abs()
-                    ulp = torch.abs(want[0]).double() * 2 * U32
-                    check(bool((own <= (-(-n // 32) + 5) * U32 * scale + ulp).all()),
+                    ulp = torch.abs(oracle).double() * 2 * U32
+                    check(bool((own <= (n_g - 1).clamp(min=0) * U32 * scale + ulp).all()),
                           f"{tag}: off the float64 sum by {own.max().item()}")
                 check(bool((err <= _sum_bar(accum, n, scale, want[0])).all()),
                       f"{tag}: max |kernel - plain| {err.max().item()}")
                 worst["segment_sum"] = max(worst["segment_sum"], err.max().item())
+    print("[kernels] segment-sum sweep: bit-identical to the radix-binning kernel on random and "
+          "sorted codes; markers exact; plain within (n_g - 1) u S + 1 ulp of float64")
+    _walk_emulation_sweep(ck, gen)
     _accuracy_bars(ck)
     for size in (1, 12, 128):
         for dtype in (torch.float32, torch.bfloat16, torch.int32):
@@ -244,11 +267,13 @@ def _two_sum(a, b):
 
 
 def _column_order_sums(data, codes, size: int, accum: str):
-    """The radix-binning kernel's function emulated in float32 torch ops:
+    """The function of the segment-sum, multi-statistic and radix-binning
+    kernels' walk emulated in float32 torch ops:
     per (group, row), a sequential walk over the group's columns in column
     order, each non-finite value zero-filled and counted, under the plain,
-    kahan or dd discipline of csrc/segment_radixbin.cu, one torch op per
-    rounded float operation (so nothing is fused or contracted). Step t
+    kahan or dd discipline of csrc/segment_reduce.cuh and
+    csrc/segment_radixbin.cu, one torch op per rounded float operation (so
+    nothing is fused or contracted). Step t
     updates every group's t-th column at once, vectorised over rows.
     Returns ``(sums, nan_c, pos_c, neg_c)``, each (size, K) float32."""
     k, n = data.shape
@@ -289,6 +314,42 @@ def _column_order_sums(data, codes, size: int, accum: str):
             h, l = _two_sum(h, l + (e1 + e2))
         hi[g], lo[g] = h, l
     return hi[:size], nan_c[:size], pos_c[:size], neg_c[:size]
+
+
+def _walk_emulation_sweep(ck, gen) -> None:
+    """B1 and B2 against the column-order emulation of their walk
+    (:func:`_column_order_sums`), bit for bit, sums and markers, at 37, 64
+    and 600 rows (one partial 256-row tile, two full ones and a partial one)
+    over {plain, kahan, dd} x {float32, bfloat16} x {random, sorted codes} x
+    size {1, 12, 128, 512} (B2 to its cap of 128); then both at N = 0, where
+    they return the empty-group values without a launch."""
+    for rows, dtype in itertools.product((37, 64, 600), (torch.float32, torch.bfloat16)):
+        for size in (1, 12, 128, 512):
+            data, codes = _sum_case(gen, rows, 2048, size, dtype)
+            for order in ("random", "sorted"):
+                if order == "sorted":
+                    codes = torch.sort(codes).values
+                for accum in ("plain", "kahan", "dd"):
+                    want = _column_order_sums(data, codes, size, accum)
+                    got = ck.segment_sum_raw(data, codes, size, accum)
+                    multi = ck.segment_multistat(data, codes, size, accum) if size <= 128 else ()
+                    torch.cuda.synchronize()
+                    tag = f"({rows}, 2048) size={size} {dtype} {order} {accum}"
+                    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+                          f"segment_sum {tag}: differs from the column-order emulation")
+                    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(multi[:4], want)),
+                          f"segment_multistat {tag}: differs from the column-order emulation")
+    ck.reset_launches()
+    empty = torch.zeros((37, 0), device=DEVICE)
+    none = torch.zeros(0, dtype=torch.int32, device=DEVICE)
+    sums = ck.segment_sum_raw(empty, none, 12, "kahan")
+    multi = ck.segment_multistat(empty, none, 12, "kahan")
+    check(all(t.shape == (12, 37) and not t.any() for t in (*sums, *multi[:4]))
+          and bool(torch.isposinf(multi[4]).all()) and bool(torch.isneginf(multi[5]).all()),
+          "N = 0: the empty-group values differ")
+    check(not any(ck.LAUNCHES.values()), f"N = 0: launches {ck.LAUNCHES}")
+    print("[kernels] segment-sum and multi-statistic walks: the column-order emulation bit for "
+          "bit at 37, 64 and 600 rows; N = 0 gives the empty-group values with no launch")
 
 
 def _radixbin_sweep(ck, gen, k: int, n: int) -> float:
@@ -624,14 +685,20 @@ def _ffill_cut(ck, data, month, rows: int) -> None:
     print(f"[main] ffill on the first {rows} rows (30% NaN): exact")
 
 
+def make_data(seed: int) -> torch.Tensor:
+    """The (lat*lon, time) float32 benchmark array, random normal from ``seed``,
+    made on the card."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return torch.randn((NLAT * NLON, NTIME), generator=gen, device=DEVICE, dtype=torch.float32)
+
+
 def phase_main_path(seed: int):
     import flox_tpu_torch
     from flox_tpu_torch import cuda_kernels as ck
 
-    k, n = NLAT * NLON, NTIME
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed)
-    data = torch.randn((k, n), generator=gen, device=DEVICE, dtype=torch.float32)
+    data = make_data(seed)
+    k, n = data.shape
     month = month_labels(n)
     codes = torch.from_numpy(month).to(DEVICE)
     print(f"[main] data {tuple(data.shape)} float32, {data.numel() * 4 / 1e9:.2f} GB, "
@@ -920,6 +987,7 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
           f"function) {library_ms!r} ms")
 
     entries.append(_radixbin_times(ck, data, reps, launches))
+    pattern_times(data, reps)
 
     day = np.arange(n, dtype=np.int64) // 24
     nbytes = data.numel() * data.element_size()
@@ -945,6 +1013,11 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
         torch.cuda.empty_cache()
         gbps = nbytes / (e2e_ms * 1e-3) / 1e9
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
+    device_breakdown({
+        "segment_sum_raw kahan": lambda: ck.segment_sum_raw(data, codes32, size, "kahan"),
+        "segment_multistat kahan": lambda: ck.segment_multistat(data, codes32, size, "kahan"),
+        **{name: calls[name] for name in list(calls)[:5]},
+    })
     cut = data[:SORT_ROWS]
     e2e_ms = time_ms(lambda: flox_tpu_torch.groupby_reduce(
         cut, DAY0 + day, func="nanmean", expected_groups=np.arange(NUNIVERSE), engine="sort"),
@@ -954,6 +1027,99 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
           f"host scatter included): {e2e_ms!r} ms, {gbps!r} GB/s of input")
     _sort_breakdown(cut, day)
     return entries
+
+
+_OUR_KERNELS = ("segment_reduce_kernel", "segment_minmax_kernel", "segment_cumsum_kernel",
+                "radixbin_kernel")
+
+
+def device_breakdown(calls: dict, reps: int = 3) -> None:
+    """Where each call's time goes, from a ``torch.profiler`` trace of
+    ``reps`` calls after a warm-up: the host-clock wall time per call (the
+    calls end in a synchronize), the device's busy time (all kernels and
+    copies), the share of it in this repo's kernels, and the idle share,
+    1 - busy / wall. Tracing adds a few microseconds per launch to the wall
+    time. Prints "not measured" when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not events:
+            print(f"[profile] {name}: device time not measured (the trace holds none)")
+            continue
+        mine = [e for e in events if any(k in e.name for k in _OUR_KERNELS)]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+        ours = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / reps
+        print(f"[profile] {name}: wall {wall!r} ms a call (host clock, traced), device busy "
+              f"{busy!r} ms ({ours!r} in this repo's kernels, {busy - ours!r} in "
+              f"{(len(events) - len(mine)) // reps} other device ops), idle share "
+              f"{1 - busy / wall!r}")
+        torch.cuda.empty_cache()
+
+
+def pattern_times(data, reps: int) -> dict:
+    """B1 and B2 (kahan) on code patterns off the main path, at the width of
+    ``data``: hour of day (``arange(N) % 24``, 24 groups, runs of one
+    column), random codes over 12 groups, and, for B1 alone (B2 caps at 128
+    groups), random codes over 512. Each output is first held against the
+    plain version (markers exact, sums at B1's kahan bar, extrema exact).
+    Uses only the wrappers' Python signatures, which the kernels' earlier
+    designs share, so it also times a checkout of an earlier commit:
+    ``python3 -c "import chip_smoke as c; c.pattern_times(c.make_data(0), 10)"``
+    run there with this file on ``sys.path`` first. Returns ``{name: ms}``."""
+    from flox_tpu_torch import cuda_kernels as ck
+
+    k, n = data.shape
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    patterns = (
+        ("hour of day (24 groups, runs of 1)", torch.arange(n, device=DEVICE) % 24, 24),
+        ("random codes over 12 groups", torch.randint(0, 12, (n,), generator=gen,
+                                                      device=DEVICE), 12),
+        ("random codes over 512 groups", torch.randint(0, 512, (n,), generator=gen,
+                                                       device=DEVICE), 512),
+    )
+    times = {}
+    for name, codes, size in patterns:
+        codes = codes.to(torch.int32)
+        kernels = [("segment_sum", ck.segment_sum_raw, ck.segment_sum_raw_plain)]
+        if size <= 128:
+            kernels.append(("segment_multistat", ck.segment_multistat,
+                            ck.segment_multistat_plain))
+        for kname, fn, plain in kernels:
+            got = fn(data, codes, size, "kahan")
+            want = plain(data, codes, size, "kahan")
+            torch.cuda.synchronize()
+            tag = f"{kname}, {name}"
+            check(all(torch.equal(a, b) for a, b in zip(got[1:4], want[1:4])),
+                  f"{tag}: marker counts differ from the plain version")
+            check(all(same(a, b) for a, b in zip(got[4:], want[4:])),
+                  f"{tag}: extrema differ from the plain version")
+            scale = torch.cat([abs_sums(data[r : r + 8192], codes, size)
+                               for r in range(0, k, 8192)], 1)
+            err = (got[0].double() - want[0].double()).abs()
+            check(bool((err <= _sum_bar("kahan", n, scale, want[0])).all()),
+                  f"{tag}: off its plain version by {err.max().item()}")
+            del got, want, scale
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda f=fn, c=codes, sz=size: f(data, c, sz, "kahan"), max(2, reps // 2))
+            torch.cuda.empty_cache()
+            outs = 6 if kname == "segment_multistat" else 4
+            nbytes = data.numel() * data.element_size() + n * 4 + outs * size * k * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            times[tag] = ms
+            print(f"[times] {kname} kahan, {name}: {ms!r} ms (bound {bound!r} ms), max |kernel - "
+                  f"plain| {err.max().item()!r}")
+    return times
 
 
 def _sort_breakdown(cut, day) -> None:

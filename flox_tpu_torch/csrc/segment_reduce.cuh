@@ -8,37 +8,87 @@
 //         finite values are zero-filled and counted, never added) and the
 //         counts of NaN, +inf and -inf;
 //   mins, maxs (MINMAX only)   in the data dtype: the NaN-skipping min and
-//         max. NaN is parked at the op's identity, so a group whose values
+//         max. NaN is parked at each op's identity, so a group whose values
 //         are all NaN, or an empty group, comes out at +inf (min) / -inf
 //         (max); callers re-inject NaN from nan_c where they propagate it.
-//
-// Both kernels are instances of the same code, so B2's sums and markers are
-// bit-identical to B1's on the same input and accumulation: the min/max legs
-// only add work beside the sum path, in the same walk over the chunk.
 //
 // Accumulation along N, per (group, row), under ACC:
 //   0 plain  an f32 running sum
 //   1 kahan  compensated (Kahan) summation
 //   2 dd     a double-double (hi, lo) f32 pair: each addend is Dekker-split
-//            by 4097 (values above 8e34 stay whole), the halves are reduced
-//            separately and merged with Knuth two_sum, as the Pallas kernel
-//            does per tile
+//            by 4097 (values above 8e34 stay whole) and merged with Knuth
+//            two_sum
 //
-// Design. One warp per row k; 8 rows per block. Lanes stride over N with
-// coalesced loads of data and codes, 4 chunks of 32 columns in flight per
-// warp. For each chunk the warp walks the distinct codes present: the
-// lowest lane not yet served names a group g, a ballot finds its lanes, and
-// a fixed butterfly (xor-shuffle) tree sums their values into every lane (and,
-// with MINMAX, takes their min and max the same way); popcounts of ballots
-// give the marker counts. Lane 0 alone then folds the chunk's partials into
-// the warp's per-group accumulators in shared memory, under the chosen
-// discipline. Every step has a fixed order given the input, and there are no
-// atomics, so two launches give bit-identical outputs. All float arithmetic
-// in the discipline uses the _rn intrinsics, which nvcc never contracts into
-// FMAs: a contracted Dekker split or two_sum would lose the error terms.
+// The codes reach the kernel binned (cuda_kernels._radixbin_bins, device ops
+// over the N codes only, no host sync): perm, the columns in stable order of
+// their code (invalid codes last); scodes, the codes in that order; offsets
+// (size + 1,), so that group g owns columns perm[offsets[g] : offsets[g + 1]]
+// in their original order. For sorted codes perm is the identity; on the
+// month codes it joins each month's runs (three of ~730 hourly columns a
+// month over 26304 hours), so a stage's 32 columns stay a 128-byte row
+// segment but where a run ends.
 //
-// Shared memory per warp: 5 words per group (hi, lo, three counts), 7 with
-// MINMAX (min, max). At 128 groups x 8 warps x 7 words that is 28.7 KB.
+// Design. Block b owns a tile of kRows = 256 rows, one thread per row, and a
+// segment of `groups` whole consecutive groups; the segment index is the
+// fastest (b % nseg), so the segments of one row tile run together and share
+// its rows in L2. The block streams its segment's columns, perm[offsets[g0] :
+// offsets[g0 + groups]], in stages of kCols = 32: each stage is a (kRows,
+// kCols + 1) float tile in shared memory, the pitch of 33 words making
+// thread r's reads of column c conflict-free, filled by cp.async gathers
+// data[k0 + r, perm[j]] (warps fill along the row, lane = column), with the
+// stage's codes beside it. Stage s + 1 is in flight while stage s is walked
+// (bfloat16, below cp.async's 4-byte minimum, is loaded into registers a
+// stage ahead and stored to its tile after the walk). Thread r walks the
+// stage's columns in order with one group's accumulators in registers,
+// (hi, lo, nan, pos, neg) and with MINMAX (min, max), run by run: one ballot
+// per stage marks the columns where the code changes. At a change it writes
+// the finished group's outputs at out[g * K + k] (a warp writes 32
+// consecutive k) and the empty-group values (zeros; +inf / -inf for min /
+// max) for any group it passes; at the segment's end it writes every group
+// left. Every (group, row) output is written exactly once, nothing is
+// atomic, and every thread walks the same columns, so all branching is
+// block-uniform but for the rare non-finite value.
+//
+// Groups per block. The wrapper derives it from size, K and N
+// (cuda_kernels._groups_per_block), and it is no option: one group per
+// block, so that the size blocks of a row tile (the segment index is the
+// fastest) walk its rows together and share them in L2; unless the groups
+// average less than one 32-column stage each, where a block's set-up would
+// outweigh its walk: then the fewest groups that average a stage, but never
+// so many that the grid holds fewer blocks than the card's resident slots
+// (the __launch_bounds__ below: 3 float32 blocks or 2 bfloat16 ones per SM,
+// times the SM count). The reason, measured on the H100 (PERF.md): at
+// the main path's 12 month groups and K = 65160 one group per block gives
+// 3060 blocks, faster than the 765 blocks of 4 groups; on hour-of-day codes
+// (runs of one column) it is about three times faster than 8 groups,
+// because the 24 blocks of a tile gather the same 32-byte sectors at about
+// the same time; only groups of a few columns each pay more for a block's
+// set-up than they save. Every split reads the data once: a segment reads
+// only its own groups' columns.
+//
+// Invariants (checked on the card by chip_smoke.py):
+//   - per (group, row), the sum is sequential over the group's columns in
+//     column order, under the discipline applied per element exactly as in
+//     segment_radixbin.cu (zero-fill and count the non-finite values; plain
+//     __fadd_rn; kahan's _rn compensated update; dd's Dekker split by 4097
+//     with the 8e34 guard, then two_sum merges). Everything goes through _rn
+//     intrinsics, so nvcc contracts nothing into FMAs. The result does not
+//     depend on where other groups' columns lie, nor on the groups per block;
+//   - hence B1 equals the radix-binning kernel (B5) bit for bit on the same
+//     data, codes and accum at any size <= 512: both walk the same order
+//     under the same discipline;
+//   - B2's sums and markers equal B1's bit for bit: the min/max legs only
+//     add fminf / fmaxf in registers beside the sum;
+//   - B2's extrema equal the segment-min/max kernel's (B3) on NaN-parked
+//     data: fminf(m, NaN) = m, and min and max are exact in any order;
+//   - two launches give the same bits.
+//
+// Bound on the card: one read of the data, K*N*itemsize bytes (plus the
+// binned codes, 3*N*4, and the outputs, 4*size*K*4, with MINMAX
+// 2*size*K*itemsize more). At the benchmark width, 65160 x 26304 float32 =
+// 6.86 GB, that is at least 2.05 ms at the H100's 3.35 TB/s (computed, not
+// measured). The work per element is a shared-memory load, a finiteness
+// test and the discipline's adds (two more ops with MINMAX).
 
 #pragma once
 
@@ -47,17 +97,29 @@
 
 namespace flox {
 
-constexpr int kWarps = 8;   // rows per block
-constexpr int kUnroll = 4;  // 32-column chunks loaded before any is reduced
-constexpr int kGroupBlock = 512;  // groups per block: the cap of B1 and B2
+constexpr int kRows = 256;  // rows per block, one thread each
+constexpr int kWarps = kRows / 32;
+constexpr int kCols = 32;  // columns per stage: one per lane when filling
+constexpr int kPitch = kCols + 1;
+constexpr int kTileWords = kRows * kPitch;
+constexpr int kRowsPerWarp = kRows / kWarps;
+constexpr int kGroupCap = 512;  // the groups B1 and B2 take (cuda_kernels._MAX_GROUPS)
+
+// segment_cumsum.cu (one warp per row, 8 rows per block) also takes kWarps,
+// kFull, kUnroll, load_value and pos_inf / neg_inf from here
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kUnroll = 4;  // its 32-column chunks loaded before any is scanned
+
+__device__ __forceinline__ float widen(uint16_t v) {
+  // bfloat16 is the top half of a float32: widening is exact
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
 
 __device__ __forceinline__ float load_value(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_value(const uint16_t* p) { return widen(__ldcs(p)); }
 
-__device__ __forceinline__ float load_value(const uint16_t* p) {
-  // bfloat16 is the top half of a float32: widening is exact
-  return __uint_as_float(static_cast<unsigned>(__ldcs(p)) << 16);
-}
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
 
@@ -66,200 +128,256 @@ __device__ __forceinline__ void store_value(uint16_t* p, float v) {
   *p = static_cast<uint16_t>(__float_as_uint(v) >> 16);
 }
 
-__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
 __device__ __forceinline__ void two_sum(float a, float b, float& s, float& err) {
   s = __fadd_rn(a, b);
-  float bb = __fsub_rn(s, a);
+  const float bb = __fsub_rn(s, a);
   err = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, s));
-  return v;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// The same butterfly, with the same fminf / fmaxf, as segment_minmax.cu: the
-// values here hold no NaN, so B2's extrema equal B3's on NaN-parked data.
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, s));
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, s));
-  return v;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One (group, row)'s accumulators; mn and mx only live with MINMAX.
+struct Acc {
+  float hi, lo;
+  unsigned nan, pos, neg;
+  float mn, mx;
+};
+
+__device__ __forceinline__ Acc empty_acc() {
+  return {0.0f, 0.0f, 0u, 0u, 0u, pos_inf(), neg_inf()};
 }
 
 template <int ACC, bool MINMAX>
-__device__ __forceinline__ void reduce_chunk(float x, int code, int size, int stride, int lane,
-                                             float* hi, float* lo, unsigned* cnt, float* mn,
-                                             float* mx) {
-  const bool valid = static_cast<unsigned>(code) < static_cast<unsigned>(size);
-  const bool is_nan = isnan(x);
-  const bool is_pos = x == pos_inf();
-  const bool is_neg = x == neg_inf();
-  const float z = (is_nan || is_pos || is_neg) ? 0.0f : x;
-  float z_hi = z, z_lo = 0.0f;
-  if (ACC == 2) {
+__device__ __forceinline__ void add(Acc& a, float x) {
+  if (MINMAX) {
+    // fminf / fmaxf return the other operand for a NaN: NaN parked at the
+    // op's identity
+    a.mn = fminf(a.mn, x);
+    a.mx = fmaxf(a.mx, x);
+  }
+  float z = x;
+  if (__builtin_expect(!(fabsf(x) < pos_inf()), 0)) {  // NaN or +-inf: rare
+    a.nan += isnan(x);
+    a.pos += x == pos_inf();
+    a.neg += x == neg_inf();
+    z = 0.0f;
+  }
+  if (ACC == 0) {
+    a.hi = __fadd_rn(a.hi, z);
+  } else if (ACC == 1) {
+    const float y = __fsub_rn(z, a.lo);
+    const float t = __fadd_rn(a.hi, y);
+    a.lo = __fsub_rn(__fsub_rn(t, a.hi), y);
+    a.hi = t;
+  } else {
     // Dekker split 24 -> 12 + 12 bits; the split constant overflows above
     // f32max / 4097 ~ 8.3e34, so such values stay whole
     const float c = __fmul_rn(z, 4097.0f);
-    z_hi = __fsub_rn(c, __fsub_rn(c, z));
-    z_lo = __fsub_rn(z, z_hi);
+    float z_hi = __fsub_rn(c, __fsub_rn(c, z));
+    float z_lo = __fsub_rn(z, z_hi);
     if (fabsf(z) > 8e34f) {
       z_hi = z;
       z_lo = 0.0f;
     }
-  }
-  const unsigned nan_b = __ballot_sync(kFull, valid && is_nan);
-  const unsigned pos_b = __ballot_sync(kFull, valid && is_pos);
-  const unsigned neg_b = __ballot_sync(kFull, valid && is_neg);
-  unsigned todo = __ballot_sync(kFull, valid);
-  while (todo) {  // warp-uniform: todo comes from a ballot
-    const int leader = __ffs(todo) - 1;
-    const int g = __shfl_sync(kFull, code, leader);
-    const bool mine = valid && code == g;
-    const unsigned peers = __ballot_sync(kFull, mine);
-    const float s_hi = warp_sum(mine ? z_hi : 0.0f);
-    float s_lo = 0.0f;
-    if (ACC == 2) s_lo = warp_sum(mine ? z_lo : 0.0f);
-    float g_min = 0.0f, g_max = 0.0f;
-    if (MINMAX) {
-      // NaN parked at each op's identity: the skipna extrema
-      g_min = warp_min(mine && !is_nan ? x : pos_inf());
-      g_max = warp_max(mine && !is_nan ? x : neg_inf());
-    }
-    if (lane == 0) {
-      cnt[g] += __popc(nan_b & peers);
-      cnt[stride + g] += __popc(pos_b & peers);
-      cnt[2 * stride + g] += __popc(neg_b & peers);
-      if (ACC == 0) {
-        hi[g] = __fadd_rn(hi[g], s_hi);
-      } else if (ACC == 1) {
-        const float y = __fsub_rn(s_hi, lo[g]);
-        const float t = __fadd_rn(hi[g], y);
-        lo[g] = __fsub_rn(__fsub_rn(t, hi[g]), y);
-        hi[g] = t;
-      } else {
-        float s, e1, h, e2, h2, l2;
-        two_sum(s_hi, s_lo, s, e1);
-        two_sum(hi[g], s, h, e2);
-        const float l = __fadd_rn(lo[g], __fadd_rn(e1, e2));
-        // Knuth two_sum, not Fast2Sum: after cancellation |l| may exceed |h|
-        two_sum(h, l, h2, l2);
-        hi[g] = h2;
-        lo[g] = l2;
-      }
-      if (MINMAX) {
-        mn[g] = fminf(mn[g], g_min);
-        mx[g] = fmaxf(mx[g], g_max);
-      }
-    }
-    todo &= ~peers;
+    float s, e1, h, e2, h2, l2;
+    two_sum(z_hi, z_lo, s, e1);
+    two_sum(a.hi, s, h, e2);
+    const float l = __fadd_rn(a.lo, __fadd_rn(e1, e2));
+    // Knuth two_sum, not Fast2Sum: after cancellation |l| may exceed |h|
+    two_sum(h, l, h2, l2);
+    a.hi = h2;
+    a.lo = l2;
   }
 }
 
-template <bool MINMAX>
-__host__ __device__ constexpr int acc_words() {
-  return MINMAX ? 7 : 5;  // hi, lo, nan, pos, neg [, min, max]
-}
+template <typename T, bool MINMAX>
+struct Out {
+  float *sums, *nan_c, *pos_c, *neg_c;
+  T *mins, *maxs;  // MINMAX only
+  long long K;
+
+  __device__ __forceinline__ void put(int g, long long k, const Acc& a) const {
+    const long long o = static_cast<long long>(g) * K + k;
+    sums[o] = a.hi;
+    nan_c[o] = static_cast<float>(a.nan);
+    pos_c[o] = static_cast<float>(a.pos);
+    neg_c[o] = static_cast<float>(a.neg);
+    if (MINMAX) {
+      store_value(mins + o, a.mn);
+      store_value(maxs + o, a.mx);
+    }
+  }
+};
 
 template <typename T, int ACC, bool MINMAX>
-__global__ void __launch_bounds__(kWarps * 32)
-segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ codes, long long K,
-                      long long N, int size, float* __restrict__ sums,
-                      float* __restrict__ nan_c, float* __restrict__ pos_c,
-                      float* __restrict__ neg_c, T* __restrict__ mins, T* __restrict__ maxs) {
-  extern __shared__ float smem[];
+// resident blocks per SM: 3 float32 blocks (3 x 67.8 KB of tiles), 2
+// bfloat16 ones (their register loads a stage ahead need more registers);
+// cuda_kernels._BLOCKS_PER_SM mirrors it
+__global__ void __launch_bounds__(kRows, sizeof(T) == 4 ? 3 : 2)
+segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ perm,
+                      const int* __restrict__ scodes, const int* __restrict__ offsets, long long N,
+                      int size, int groups, int nseg, Out<T, MINMAX> out) {
+  extern __shared__ float smem[];  // 2 tiles of kRows x kPitch, then 2 x kCols codes
+  int* codes_s = reinterpret_cast<int*>(smem + 2 * kTileWords);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long k = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  // words per field per warp: size, clamped as the launch sizes shared memory
-  const int stride = size < kGroupBlock ? size : kGroupBlock;
-  if (k >= K) return;  // whole warp; no block-wide barrier follows
+  const int seg = static_cast<int>(blockIdx.x % nseg);
+  const long long k0 = static_cast<long long>(blockIdx.x / nseg) * kRows;
+  const long long K = out.K;
+  const int rows = static_cast<int>(K - k0 < kRows ? K - k0 : kRows);  // rows of this tile
+  const long long k = k0 + threadIdx.x;
+  const bool row_ok = threadIdx.x < rows;
+  const int g_begin = seg * groups;  // < size
+  const int g_end = size - g_begin < groups ? size : g_begin + groups;
+  const int j_begin = __ldg(offsets + g_begin);
+  const int j_end = __ldg(offsets + g_end);
+  const int nstages = (j_end - j_begin + kCols - 1) / kCols;
 
-  float* hi = smem + static_cast<size_t>(warp) * stride * acc_words<MINMAX>();
-  float* lo = hi + stride;
-  unsigned* cnt = reinterpret_cast<unsigned*>(lo + stride);  // nan | pos | neg
-  float* mn = lo + 4 * stride;  // MINMAX only
-  float* mx = lo + 5 * stride;
-  for (int g = lane; g < size; g += 32) {
-    hi[g] = 0.0f;
-    lo[g] = 0.0f;
-    cnt[g] = cnt[stride + g] = cnt[2 * stride + g] = 0u;
-    if (MINMAX) {
-      mn[g] = pos_inf();
-      mx[g] = neg_inf();
+  // the fill of stage s: lane = column, warp w takes rows w, w + 8, ...;
+  // bfloat16 goes through `held` (registers) and land() stores it
+  uint16_t held[sizeof(T) == 4 ? 1 : kRowsPerWarp];
+  int held_code = 0;
+  auto fill = [&](int s) {
+    const int j = j_begin + s * kCols + lane;
+    if (j >= j_end) {
+      if (sizeof(T) == 4) cp_async_commit();
+      return;
     }
-  }
-  __syncwarp();
-
-  const T* row = data + k * N;  // 64-bit offset: K*N exceeds 2^31 at full width
-  for (long long c0 = 0; c0 < N; c0 += 32 * kUnroll) {
-    float x[kUnroll];
-    int code[kUnroll];
+    const long long col = __ldg(perm + j);
+    const T* src = data + (k0 + warp) * N + col;  // 64-bit: K*N exceeds 2^31 at full width
+    if constexpr (sizeof(T) == 4) {
+      float* dst = smem + (s & 1) * kTileWords + warp * kPitch + lane;
+#pragma unroll 8
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        if (warp + i * kWarps < rows) cp_async4(dst + i * kWarps * kPitch, src + i * kWarps * N);
+      if (warp == 0) cp_async4(codes_s + (s & 1) * kCols + lane, scodes + j);
+      cp_async_commit();
+    } else {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long c = c0 + u * 32 + lane;
-      if (c < N) {
-        x[u] = load_value(row + c);
-        code[u] = __ldg(codes + c);
-      } else {
-        x[u] = 0.0f;
-        code[u] = -1;
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        held[i] = warp + i * kWarps < rows ? __ldg(src + i * kWarps * N) : uint16_t(0);
+      if (warp == 0) held_code = __ldg(scodes + j);
+    }
+  };
+  auto land = [&](int s) {  // bfloat16 only: the registers of stage s into its tile
+    if constexpr (sizeof(T) == 2) {
+      if (j_begin + s * kCols + lane >= j_end) return;
+      float* dst = smem + (s & 1) * kTileWords + warp * kPitch + lane;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) dst[i * kWarps * kPitch] = widen(held[i]);
+      if (warp == 0) codes_s[(s & 1) * kCols + lane] = held_code;
+    }
+  };
+  // the outputs of group `from`, then the empty-group values of the groups
+  // in (from, to)
+  auto finish = [&](int from, int to, const Acc& a) {
+    if (!row_ok) return;
+    out.put(from, k, a);
+    for (int e = from + 1; e < to; ++e) out.put(e, k, empty_acc());
+  };
+
+  Acc acc = empty_acc();
+  int cur = g_begin;  // the group whose accumulators acc holds
+  if (nstages > 0) {
+    fill(0);
+    land(0);
+  }
+  for (int s = 0; s < nstages; ++s) {
+    if constexpr (sizeof(T) == 4) cp_async_wait_all();  // this thread's copies of stage s
+    // every thread's stage s is in its tile, and every thread is done with
+    // stage s - 1, whose buffer the next fill takes
+    __syncthreads();
+    const bool ahead = s + 1 < nstages;
+    if (ahead) fill(s + 1);
+    const float* x = smem + (s & 1) * kTileWords + threadIdx.x * kPitch;
+    const int* code = codes_s + (s & 1) * kCols;
+    const int ncols = min(kCols, j_end - j_begin - s * kCols);
+    // bit c of `starts`: column c begins another group than the column
+    // before it (for c = 0, than cur). Every warp computes the same mask, so
+    // the walk below goes run by run, block-uniformly, with no per-column test
+    const int mine = lane < ncols ? code[lane] : 0;
+    const int prev = lane == 0 ? cur : code[lane - 1];
+    const unsigned starts = __ballot_sync(kFull, lane < ncols && mine != prev);
+    int c = 0;
+    while (c < ncols) {
+      if ((starts >> c) & 1u) {
+        const int g = code[c];
+        finish(cur, g, acc);
+        acc = empty_acc();
+        cur = g;
       }
+      const unsigned later = c == kCols - 1 ? 0u : starts >> (c + 1);
+      const int e = later ? min(c + __ffs(later), ncols) : ncols;  // the run's end
+#pragma unroll 4
+      for (; c < e; ++c) add<ACC, MINMAX>(acc, x[c]);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      reduce_chunk<ACC, MINMAX>(x[u], code[u], size, stride, lane, hi, lo, cnt, mn, mx);
+    if (ahead) land(s + 1);
   }
-  __syncwarp();  // lane 0's accumulator writes, visible to the whole warp
-
-  for (int g = lane; g < size; g += 32) {
-    const long long o = static_cast<long long>(g) * K + k;
-    sums[o] = hi[g];
-    nan_c[o] = static_cast<float>(cnt[g]);
-    pos_c[o] = static_cast<float>(cnt[stride + g]);
-    neg_c[o] = static_cast<float>(cnt[2 * stride + g]);
-    if (MINMAX) {
-      store_value(mins + o, mn[g]);
-      store_value(maxs + o, mx[g]);
-    }
-  }
+  finish(cur, g_end, acc);
 }
 
 template <typename T, int ACC, bool MINMAX>
-cudaError_t launch_segment_reduce(const void* data, const int* codes, long long K, long long N,
-                                  int size, float* sums, float* nan_c, float* pos_c,
-                                  float* neg_c, void* mins, void* maxs, cudaStream_t stream) {
-  const int stride = size < kGroupBlock ? size : kGroupBlock;
-  const size_t smem = static_cast<size_t>(kWarps) * stride * acc_words<MINMAX>() * sizeof(float);
+cudaError_t launch(const void* data, const int* perm, const int* scodes, const int* offsets,
+                   long long N, int size, int groups, int nseg, long long blocks,
+                   const Out<T, MINMAX>& out, cudaStream_t stream) {
+  constexpr size_t smem = (2 * kTileWords + 2 * kCols) * sizeof(float);
   auto kernel = segment_reduce_kernel<T, ACC, MINMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (K + kWarps - 1) / kWarps;
-  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(data), codes, K, N, size, sums, nan_c, pos_c, neg_c,
-      static_cast<T*>(mins), static_cast<T*>(maxs));
+  // all of the SM's unified memory that can be shared: 3 blocks of 68 KB
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kRows, smem, stream>>>(
+      static_cast<const T*>(data), perm, scodes, offsets, N, size, groups, nseg, out);
   return cudaGetLastError();
 }
 
+template <typename T, bool MINMAX>
+cudaError_t launch_accum(int accum, const void* data, const int* perm, const int* scodes,
+                         const int* offsets, long long N, int size, int groups, int nseg,
+                         long long blocks, const Out<T, MINMAX>& out, cudaStream_t st) {
+  if (accum == 0)
+    return launch<T, 0, MINMAX>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, out,
+                                st);
+  if (accum == 1)
+    return launch<T, 1, MINMAX>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, out,
+                                st);
+  if (accum == 2)
+    return launch<T, 2, MINMAX>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, out,
+                                st);
+  return cudaErrorInvalidValue;
+}
+
 // The C entry points' dispatch over dtype (0 float32, 1 bfloat16) and accum
-// (0 plain, 1 kahan, 2 dd), at most kGroupBlock groups. Returns the
-// cudaError_t of the launch; cudaErrorInvalidValue for a shape, dtype or
-// accum it refuses.
+// (0 plain, 1 kahan, 2 dd). perm, scodes (N,) and offsets (size + 1,) int32
+// are the binned codes (see above), so N stays below 2^31 - 32; at most
+// kGroupCap groups, `groups` of them per block. Returns the cudaError_t of
+// the launch; cudaErrorInvalidValue for a shape, dtype or accum it refuses.
 template <bool MINMAX>
-int dispatch_segment_reduce(const void* data, int dtype, const int* codes, long long K,
-                            long long N, int size, int accum, void* sums, void* nan_c,
-                            void* pos_c, void* neg_c, void* mins, void* maxs, void* stream) {
-  if (K <= 0 || N < 0 || size <= 0 || size > kGroupBlock || K > 0x7fffffffLL * kWarps)
+int dispatch_segment_reduce(const void* data, int dtype, const int* perm, const int* scodes,
+                            const int* offsets, long long K, long long N, int size, int groups,
+                            int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
+                            void* mins, void* maxs, void* stream) {
+  // perm and offsets index the columns in int32, a stage past the last one
+  if (K <= 0 || N < 0 || N > 0x7fffffffLL - kCols || size <= 0 || size > kGroupCap ||
+      groups <= 0 || groups > size)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int nseg = (size + groups - 1) / groups;
+  const long long blocks = (K + kRows - 1) / kRows * nseg;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   float* s = static_cast<float*>(sums);
   float* a = static_cast<float*>(nan_c);
   float* p = static_cast<float*>(pos_c);
@@ -267,25 +385,15 @@ int dispatch_segment_reduce(const void* data, int dtype, const int* codes, long 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (accum == 0)
-      err = launch_segment_reduce<float, 0, MINMAX>(data, codes, K, N, size, s, a, p, m, mins,
-                                                    maxs, st);
-    if (accum == 1)
-      err = launch_segment_reduce<float, 1, MINMAX>(data, codes, K, N, size, s, a, p, m, mins,
-                                                    maxs, st);
-    if (accum == 2)
-      err = launch_segment_reduce<float, 2, MINMAX>(data, codes, K, N, size, s, a, p, m, mins,
-                                                    maxs, st);
+    const Out<float, MINMAX> out = {s, a, p, m, static_cast<float*>(mins),
+                                    static_cast<float*>(maxs), K};
+    err = launch_accum<float, MINMAX>(accum, data, perm, scodes, offsets, N, size, groups, nseg,
+                                      blocks, out, st);
   } else if (dtype == 1) {
-    if (accum == 0)
-      err = launch_segment_reduce<uint16_t, 0, MINMAX>(data, codes, K, N, size, s, a, p, m,
-                                                       mins, maxs, st);
-    if (accum == 1)
-      err = launch_segment_reduce<uint16_t, 1, MINMAX>(data, codes, K, N, size, s, a, p, m,
-                                                       mins, maxs, st);
-    if (accum == 2)
-      err = launch_segment_reduce<uint16_t, 2, MINMAX>(data, codes, K, N, size, s, a, p, m,
-                                                       mins, maxs, st);
+    const Out<uint16_t, MINMAX> out = {s, a, p, m, static_cast<uint16_t*>(mins),
+                                       static_cast<uint16_t*>(maxs), K};
+    err = launch_accum<uint16_t, MINMAX>(accum, data, perm, scodes, offsets, N, size, groups,
+                                         nseg, blocks, out, st);
   }
   return static_cast<int>(err);
 }

@@ -36,6 +36,7 @@ small banded capacity.
 from __future__ import annotations
 
 import hashlib
+import math
 from collections import OrderedDict
 from typing import Any, Callable
 
@@ -70,9 +71,10 @@ _KERNEL_MINMAX_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 
 
 def _flat(array: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
-    """(..., N) -> (K, N), and the leading shape to restore."""
+    """(..., N) -> (K, N), and the leading shape to restore. K is the product
+    of the leading shape, not -1: a zero-length N leaves -1 undefined."""
     lead = tuple(array.shape[:-1])
-    return array.reshape(-1, array.shape[-1]), lead
+    return array.reshape(math.prod(lead), array.shape[-1]), lead
 
 
 def _unflat(out: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:

@@ -124,6 +124,20 @@ def test_func_sweep(func, dtype_name):
     np.testing.assert_array_equal(pg[0], rg[0])
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(3, 0), (0,)], ids=str)
+@pytest.mark.parametrize("func", ["sum", "nanmean", "max", "count"])
+def test_zero_length_axis(func, shape, dtype):
+    """A reduced axis of length 0 (ROADMAP C1): every group is empty, and the
+    port gives the reference's result exactly, in shape and dtype (zeros for
+    sum and count, NaN for nanmean and max)."""
+    got, ref, pg, rg = _both(np.zeros(shape, dtype), np.zeros(0, int), func=func,
+                             expected_groups=np.arange(6))
+    assert tuple(got.shape) == shape[:-1] + (6,)
+    _check(got, ref, exact=True)
+    np.testing.assert_array_equal(pg[0], rg[0])
+
+
 @pytest.mark.parametrize("func", ["sum", "nansum", "mean", "count", "min", "max", "nanmin",
                                   "nanmax"])
 def test_int32_exact(func):

@@ -255,6 +255,20 @@ def test_aggregate_many_matches_reference(funcs, dtype_name):
         _check(got[f], ref[f], exact=f in EXACT, label=f)
 
 
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("shape", [(3, 0), (0,)], ids=str)
+def test_aggregate_many_zero_length_axis(shape, dtype_name):
+    """The trio over a reduced axis of length 0 (ROADMAP C1): every group is
+    empty, and each statistic is the reference's exactly, in shape and dtype
+    (NaN throughout)."""
+    funcs = ("nanmean", "nanmin", "nanmax")
+    got, ref = _both(np.zeros(shape, dtype_name), np.zeros(0, int), funcs=funcs,
+                     expected_groups=np.arange(6))
+    for f in funcs:
+        assert tuple(got[f].shape) == shape[:-1] + (6,)
+        _check(got[f], ref[f], exact=True, label=f)
+
+
 @pytest.mark.parametrize(
     "funcs,kw",
     [

@@ -380,3 +380,195 @@ class TestNoFallbackNewKernels(TestNoFallback):
         assert sums.tolist() == [[32.0, 32.0]] and mins.tolist() == maxs.tolist() == [[1.0, 1.0]]
         assert ck.segment_cumsum(data, codes, 1, skipna=False)[0, -1].item() == 32.0
         assert ck.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2 on binned codes (csrc/segment_reduce.cuh): the host side of the
+# launch, on the CPU. The kernels themselves are held on the card by
+# chip_smoke.py (bit for bit against the radix-binning kernel and against a
+# column-order emulation of their walk).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("size,k,n,slots,want", [
+    (12, 65160, 26304, 396, 1),  # the main path's months: 3060 blocks
+    (12, 65160, 26304, 264, 1),  # the same in bfloat16 (2 blocks an SM)
+    (24, 65160, 26304, 396, 1),  # hour of day
+    (512, 65160, 26304, 396, 1),  # 51 columns a group
+    (512, 65160, 2048, 396, 8),  # 4 columns a group: 8 make a stage
+    (512, 600, 2048, 396, 3),  # ... but 3 row tiles need 132 segments to fill 396 slots
+    (512, 37, 2048, 396, 1),  # one row tile: a block per group
+    (12, 65160, 100, 264, 4),
+    (1, 5, 3, 396, 1),
+])
+def test_groups_per_block(size, k, n, slots, want):
+    assert ck._groups_per_block(size, k, n, slots) == want
+
+
+@pytest.mark.parametrize("size", [1, 2, 5, 12, 24, 100, 128, 511, 512])
+def test_groups_per_block_rule(size):
+    """The derived groups per block: one while the groups average a
+    32-column stage; else no more than make a stage, and as many as make
+    one unless the grid would then drop below the resident slots."""
+    for k in (1, 37, 256, 257, 600, 8192, 65160, 10**6):
+        for n in (1, 8, 100, 2048, 26304):
+            for slots in (264, 396):
+                g = ck._groups_per_block(size, k, n, slots)
+                tiles = -(-k // 256)
+                assert 1 <= g <= size
+                if n >= 32 * size:
+                    assert g == 1
+                assert g == 1 or (g - 1) * n < 32 * size  # no more than make a stage
+                if g < min(-(-32 * size // n), size):  # fewer than make a stage
+                    assert g == max(1, size * tiles // slots)  # ... to keep the grid full
+
+
+@pytest.mark.parametrize("pattern", ["months", "hour_of_day", "random12", "random512"])
+def test_segments_read_each_column_once(pattern):
+    """With g groups per block, the block over groups [g0, g0 + g) reads
+    ``perm[offsets[g0] : offsets[min(g0 + g, size)]]``: exactly the columns
+    whose codes fall in those groups, in code order and then column order;
+    together the segments read every valid column once."""
+    n = 26304
+    rng = np.random.default_rng(5)
+    codes, size = {
+        "months": (((np.arange(n) // 24 % 365) // 30.44).astype(np.int64) % 12, 12),
+        "hour_of_day": (np.arange(n) % 24, 24),
+        "random12": (rng.integers(-1, 13, n), 12),
+        "random512": (rng.integers(0, 520, n), 512),
+    }[pattern]
+    perm, _, offsets = (t.numpy() for t in ck._radixbin_bins(torch.from_numpy(codes), size))
+    for g in (1, 4, 7):
+        seen = []
+        for g0 in range(0, size, g):
+            g1 = min(g0 + g, size)
+            cols = perm[offsets[g0]:offsets[g1]]
+            mine = np.flatnonzero((codes >= g0) & (codes < g1))
+            np.testing.assert_array_equal(cols, mine[np.lexsort((mine, codes[mine]))])
+            seen.append(cols)
+        np.testing.assert_array_equal(np.sort(np.concatenate(seen)),
+                                      np.flatnonzero((codes >= 0) & (codes < size)))
+
+
+class _FakeLib:
+    """Stands in for a kernel's library: records each entry-point call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("flox_segment"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The launch path of the B1/B2 wrappers on CPU tensors, with the
+    library, the stream and the card's SM count faked; returns the fake
+    library and the bins the wrapper made."""
+    lib = _FakeLib()
+    bins = []
+    real_bins = ck._radixbin_bins
+
+    def record_bins(codes, size):
+        bins.append(real_bins(codes, size))
+        return bins[-1]
+
+    class _Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: _Props())
+    monkeypatch.setattr(ck, "_lib", lambda name, argtypes: lib)
+    monkeypatch.setattr(ck, "_stream", lambda device: None)
+    monkeypatch.setattr(ck, "_radixbin_bins", record_bins)
+    return lib, bins
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat"])
+def test_binned_launch_arguments(fake_card, name, dtype):
+    """What the wrapper hands the C entry point: the data in place, the
+    binned codes of :func:`_radixbin_bins`, (K, N, size), the derived groups
+    per block (3 float32 blocks or 2 bfloat16 ones on each of 132 SMs), the
+    accum code and the outputs it returns; one launch counted."""
+    lib, bins = fake_card
+    rng = np.random.default_rng(6)
+    k, n, size = 600, 300, 12
+    data = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dtype)
+    codes = torch.from_numpy(rng.integers(-1, size + 2, n))
+    before = dict(ck.LAUNCHES)
+    outs = ck._segment_reduce_cuda(name, data, codes, size, "dd")
+    assert ck.LAUNCHES[name] == before[name] + 1
+    assert {kk: v for kk, v in ck.LAUNCHES.items() if kk != name} == {
+        kk: v for kk, v in before.items() if kk != name}
+    ((entry, args),) = lib.calls
+    assert entry == f"flox_{name}"
+    perm, sorted_codes, offsets = bins[0]
+    slots = 132 * (3 if dtype == torch.float32 else 2)
+    assert args[:10] == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype],
+                         perm.data_ptr(), sorted_codes.data_ptr(), offsets.data_ptr(), k, n,
+                         size, ck._groups_per_block(size, k, n, slots), 2)
+    assert args[10:-1] == tuple(o.data_ptr() for o in outs)
+    assert len(outs) == (6 if name == "segment_multistat" else 4)
+    for o in outs[:4]:
+        assert o.dtype == torch.float32 and tuple(o.shape) == (size, k)
+    for o in outs[4:]:
+        assert o.dtype == dtype and tuple(o.shape) == (size, k)
+
+
+@pytest.mark.parametrize("shape", [(5, 0), (0, 7), (0, 0)], ids=str)
+@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat"])
+def test_binned_launch_nothing_to_read(fake_card, name, shape):
+    """With no rows or no columns there is no launch: every group is empty,
+    so the sums and markers are zeros and the extrema the identities."""
+    lib, _ = fake_card
+    before = dict(ck.LAUNCHES)
+    outs = ck._segment_reduce_cuda(name, torch.zeros(shape), torch.zeros(shape[1],
+                                   dtype=torch.int32), 3, "kahan")
+    assert lib.calls == [] and ck.LAUNCHES == before
+    for o in outs[:4]:
+        assert tuple(o.shape) == (3, shape[0]) and not o.any()
+    if name == "segment_multistat":
+        assert torch.isposinf(outs[4]).all() and torch.isneginf(outs[5]).all()
+
+
+@pytest.mark.parametrize("wrapper", ["segment_sum_raw", "segment_multistat"])
+@pytest.mark.parametrize("kwargs,err", [
+    ({"n": ck._MAX_BINNED_COLS + 1}, ValueError),  # int32 column indices past a stage
+    ({"size": ck._MAX_GROUPS + 1}, ValueError),
+    ({"size": 0}, ValueError),
+    ({"dtype": torch.float64}, TypeError),
+    ({"accum": "pairwise"}, ValueError),
+], ids=["columns", "groups", "no-groups", "dtype", "accum"])
+def test_binned_argument_checks(wrapper, kwargs, err):
+    """The B1/B2 wrappers refuse what their C entry points refuse, before
+    any device dispatch (a stride-0 view stands in for 2^31 columns)."""
+    args = {"n": 16, "size": 3, "dtype": torch.float32, "accum": "kahan"}
+    args.update(kwargs)
+    data = torch.zeros((1, 1), dtype=args["dtype"]).expand(1, args["n"])
+    codes = torch.zeros(1, dtype=torch.int32).expand(args["n"])
+    with pytest.raises(err):
+        getattr(ck, wrapper)(data, codes, args["size"], args["accum"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["auto", "kernel", "radixbin"])
+def test_zero_length_axis_reaches_no_kernel(policy, dtype):
+    """A zero-length reduced axis (ROADMAP C1) routes every reduction and scan
+    off the kernels, so no wrapper launches at N = 0."""
+    from flox_tpu_torch import kernels as pk
+
+    data = torch.zeros((3, 0), dtype=dtype)
+    codes = torch.zeros(0, dtype=torch.int32)
+    with set_options(segment_sum_impl=policy, segment_minmax_impl="kernel", scan_impl="kernel"):
+        assert pk._segment_sum_impl(data, 12) == "scatter"
+        assert pk._segment_minmax_impl(data, 12) == "scatter"
+        assert pk._scan_impl_choice(data, 12) == "segmented"
+        assert pk._fused_stats(data, codes, 12, ("nansum", "nanlen", "nanmin")) is None

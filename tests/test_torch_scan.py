@@ -343,6 +343,18 @@ def test_ffill_bfill_reversal():
     np.testing.assert_array_equal(b, f_rev)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(3, 0), (0,)], ids=str)
+@pytest.mark.parametrize("func", ["nancumsum", "cumsum", "ffill"])
+def test_zero_length_axis(func, shape, dtype):
+    """A scanned axis of length 0 (ROADMAP C1): an empty result of the
+    reference's shape and dtype."""
+    got, ref = _scan_both(np.zeros(shape, dtype), np.zeros(0, int), func=func,
+                          expected_groups=np.arange(6))
+    assert got.shape == shape
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_segmented_scan_restarts_at_flags():
     values = torch.tensor([[1.0, 2.0, 3.0, np.inf, 5.0, 6.0, np.nan, 8.0]])
     flags = torch.tensor([True, False, False, True, False, True, False, True])
