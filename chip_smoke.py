@@ -15,14 +15,20 @@ Phases; any failure exits nonzero:
    run-to-run bit identity; the segment-sum and multi-statistic kernels'
    sums and markers bit-identical to a float32 column-order emulation of
    their walk at {37, 64, 600} rows (full and partial 256-row tiles), and
-   their empty results at N = 0 without a launch; the segment-min/max kernel over {min, max} x {float32,
-   bfloat16, int32} x size {1, 12, 128}, exactly; the multi-statistic kernel
+   their empty results at N = 0 without a launch; the segment-min/max kernel
+   over {min, max} x {float32, bfloat16, int32} x size {1, 12, 128, 512} x
+   {random, sorted, hour-of-day codes}, exactly, NaN propagating and empty
+   groups at the identity; the multi-statistic kernel
    over {plain, kahan, dd} x {float32, bfloat16} x size {1, 12, 128}, its
    sums and markers bit-identical to the segment-sum kernel's and its
    extrema to the segment-min/max kernel's on NaN-parked data; the
    segmented-cumsum kernel over {cumsum, nancumsum} x {float32, bfloat16} x
    size {1, 12, 127} within ``n_g * u * cumsum|x|`` plus one ulp, with the
-   reference's overflow, NaN and stickiness cases; the radix-binning kernel
+   reference's overflow, NaN and stickiness cases, and bit-identical to a
+   float32 column-order emulation of its walk over {cumsum, nancumsum} x
+   {float32, bfloat16} x size {1, 12, 127, 511} x {random, sorted codes} x
+   {37, 300} rows x {128, 256} rows per block, with NaN, +-inf and
+   overflowing values; the radix-binning kernel
    over {plain, kahan, dd} x {float32, bfloat16} x size {12, 512, 513, 1096,
    4096, 16384} x {sorted, random codes} x {37, 600} rows at the
    segment-sum kernel's bars with exact markers and bit-identical reruns, on
@@ -46,10 +52,12 @@ Phases; any failure exits nonzero:
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls; the
    radix-binning kernel also on random codes over 4096 groups and on skewed
-   codes, and the segment-sum and multi-statistic kernels on code patterns
-   off the main path (:func:`pattern_times`: hour of day, random codes over
-   12 groups, and for the segment-sum kernel over 512), each output first
-   held against the plain version; then, from a ``torch.profiler`` trace
+   codes, the segmented-cumsum kernel with 128 and with 256 rows per block,
+   and the segment-sum, multi-statistic, segment-min/max and
+   segmented-cumsum kernels on code patterns off the main path
+   (:func:`pattern_times`: hour of day, random codes over 12 groups, and for
+   the segment-sum kernel over 512), each output first held against the
+   plain version; then, from a ``torch.profiler`` trace
    (:func:`device_breakdown`), each kernel wrapper's and end-to-end call's
    device busy time, the share in this repo's kernels, and the device's
    idle share.
@@ -230,34 +238,65 @@ def phase_kernels(seed: int) -> dict:
           "sorted codes; markers exact; plain within (n_g - 1) u S + 1 ulp of float64")
     _walk_emulation_sweep(ck, gen)
     _accuracy_bars(ck)
-    for size in (1, 12, 128):
-        for dtype in (torch.float32, torch.bfloat16, torch.int32):
-            if dtype == torch.int32:
-                data = torch.randint(-10**6, 10**6, (k, n), generator=gen, device=DEVICE,
-                                     dtype=torch.int32)
-            else:
-                data = torch.randn((k, n), generator=gen, device=DEVICE)
-                data[torch.rand((k, n), generator=gen, device=DEVICE) < 0.001] = float("nan")
-                data = data.to(dtype)
-            codes = torch.randint(-1, size + 3, (n,), generator=gen, device=DEVICE,
-                                  dtype=torch.int32)
-            for op in ("min", "max"):
-                got = ck.segment_minmax(data, codes, size, op)
-                again = ck.segment_minmax(data, codes, size, op)
-                want = ck.segment_minmax_plain(data, codes, size, op)
-                torch.cuda.synchronize()
-                tag = f"segment_minmax size={size} {dtype} {op}"
-                check(same(got, again), f"{tag}: two launches differ")
-                check(same(got, want), f"{tag}: differs from the plain version")
+    for rows in (k, 600):  # a partial tile of 256 rows; two full ones and a partial one
+        _minmax_sweep(ck, gen, rows, n)
     worst["segment_multistat"] = _multistat_sweep(ck, gen, k, n)
     worst["segment_cumsum"] = _cumsum_sweep(ck, gen, k, n)
     _scan_semantics(ck)
+    _scan_emulation_sweep(ck, gen)
     worst["segment_sum_radixbin"] = _radixbin_sweep(ck, gen, k, n)
     print(f"[kernels] all sweeps agree; max |segment_sum - plain| {worst['segment_sum']!r}, "
           f"|segment_multistat - plain| {worst['segment_multistat']!r}, "
           f"|segment_cumsum - plain| {worst['segment_cumsum']!r}, "
           f"|segment_sum_radixbin - plain| {worst['segment_sum_radixbin']!r}")
     return worst
+
+
+def _minmax_sweep(ck, gen, k: int, n: int) -> None:
+    """B3 against its plain version, exactly, over {min, max} x {float32,
+    bfloat16, int32} x size {1, 12, 128, 512} x {random, sorted, hour-of-day
+    codes}: floats with NaN (which propagates to its group), random codes
+    with -1 and out-of-range codes and, from 3 groups up, group 1 left empty
+    (it must hold the op's identity); reruns identical."""
+    from flox_tpu_torch.cuda_kernels import minmax_identity
+
+    for size, dtype in itertools.product((1, 12, 128, 512),
+                                         (torch.float32, torch.bfloat16, torch.int32)):
+        if dtype == torch.int32:
+            data = torch.randint(-10**6, 10**6, (k, n), generator=gen, device=DEVICE,
+                                 dtype=torch.int32)
+        else:
+            data = torch.randn((k, n), generator=gen, device=DEVICE)
+            data[torch.rand((k, n), generator=gen, device=DEVICE) < 0.001] = float("nan")
+            data = data.to(dtype)
+        codes = torch.randint(-1, size + 3, (n,), generator=gen, device=DEVICE,
+                              dtype=torch.int32)
+        if size > 2:
+            codes[codes == 1] = 0
+        for order in ("random", "sorted", "hour of day"):
+            if order == "sorted":
+                codes = torch.sort(codes).values
+            elif order == "hour of day":
+                codes = (torch.arange(n, device=DEVICE) % 24).to(torch.int32)
+            for op in ("min", "max"):
+                got = ck.segment_minmax(data, codes, size, op)
+                again = ck.segment_minmax(data, codes, size, op)
+                want = ck.segment_minmax_plain(data, codes, size, op)
+                torch.cuda.synchronize()
+                tag = f"segment_minmax ({k}, {n}) size={size} {dtype} {order} {op}"
+                check(same(got, again), f"{tag}: two launches differ")
+                check(same(got, want), f"{tag}: differs from the plain version")
+                if size > 2 and order != "hour of day":
+                    check(bool((got[1] == minmax_identity(op, dtype)).all()),
+                          f"{tag}: the empty group is not at the identity")
+                if dtype != torch.int32:
+                    idx = torch.where((codes >= 0) & (codes < size), codes, size).long()
+                    nans = torch.zeros((size + 1, k), device=DEVICE).index_add_(
+                        0, idx, torch.isnan(data).T.float())
+                    check(torch.equal(torch.isnan(got), nans[:size] > 0),
+                          f"{tag}: NaN does not propagate to just its groups")
+    print(f"[kernels] segment-min/max sweep at ({k}, {n}): equal to the plain version on random, "
+          "sorted and hour-of-day codes; NaN propagates; empty groups at the identity")
 
 
 def _two_sum(a, b):
@@ -500,6 +539,83 @@ def _cumsum_sweep(ck, gen, k: int, n: int) -> float:
     return worst
 
 
+def _scan_column_order(data, codes, size: int, skipna: bool):
+    """The function of the segmented-cumsum kernel's walk (csrc/
+    segment_cumsum.cu) emulated in float32 torch ops: per (group, row), a
+    sequential running sum of the finite values in column order, one torch
+    op per rounding; NaN (unless ``skipna``), +inf and -inf set sticky
+    markers, as does the first overflow of the running sum while the group
+    has none; NaN beats inf and +inf with -inf is NaN; bfloat16 is rounded
+    back per element. The missing labels scan as group ``size``. Step t
+    takes every group's t-th column at once, vectorised over rows. Returns
+    (K, N) in the data dtype."""
+    k, n = data.shape
+    dev = data.device
+    x = data.float()
+    idx = torch.where((codes >= 0) & (codes < size), codes, size).long()
+    sidx, order = torch.sort(idx, stable=True)
+    counts = torch.bincount(sidx, minlength=size + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[sidx]
+    run = torch.zeros((size + 1, k), device=dev)
+    seen_n, seen_p, seen_m = (torch.zeros((size + 1, k), dtype=torch.bool, device=dev)
+                              for _ in range(3))
+    out = torch.empty((k, n), device=dev)
+    for t in range(int(counts.max()) if n else 0):
+        sel = rank == t
+        g, cols = sidx[sel], order[sel]
+        v = x[:, cols].T
+        r = torch.where(torch.isfinite(v), run[g] + v, run[g])
+        fresh = ~(seen_n[g] | seen_p[g] | seen_m[g])
+        ovf = fresh & torch.isinf(r)
+        p = seen_p[g] | torch.isposinf(v) | (ovf & (r > 0))
+        m = seen_m[g] | torch.isneginf(v) | (ovf & (r < 0))
+        nn = seen_n[g] if skipna else seen_n[g] | torch.isnan(v)
+        run[g], seen_n[g], seen_p[g], seen_m[g] = r, nn, p, m
+        res = torch.where(p, float("inf"), r)
+        res = torch.where(m, float("-inf"), res)
+        out[:, cols] = torch.where(nn | (p & m), float("nan"), res).T
+    return out.to(data.dtype)
+
+
+def _scan_emulation_sweep(ck, gen) -> None:
+    """B4 against the column-order emulation of its walk
+    (:func:`_scan_column_order`), bit for bit, and two launches identical,
+    over {cumsum, nancumsum} x {float32, bfloat16} x size {1, 12, 127, 511}
+    x {random, sorted codes} at (37, 300) and (300, 300): a partial tile of
+    128 rows, and two full ones plus a partial one. The data holds NaN, +-inf
+    and values of +-3e38, whose running sums overflow."""
+    for rows, dtype in itertools.product((37, 300), (torch.float32, torch.bfloat16)):
+        for size in (1, 12, 127, 511):
+            data = torch.randn((rows, 300), generator=gen, device=DEVICE) * 10
+            r = torch.rand((rows, 300), generator=gen, device=DEVICE)
+            data[r < 0.01] = float("nan")
+            data[(r >= 0.01) & (r < 0.015)] = float("inf")
+            data[(r >= 0.015) & (r < 0.02)] = float("-inf")
+            data[(r >= 0.02) & (r < 0.03)] = 3e38
+            data[(r >= 0.03) & (r < 0.04)] = -3e38
+            data = data.to(dtype)
+            codes = torch.randint(-1, size + 3, (300,), generator=gen, device=DEVICE,
+                                  dtype=torch.int32)
+            for order, skipna in itertools.product(("random", "sorted"), (False, True)):
+                if order == "sorted":
+                    codes = torch.sort(codes).values
+                got = ck.segment_cumsum(data, codes, size, skipna)
+                again = ck.segment_cumsum(data, codes, size, skipna)
+                want = _scan_column_order(data, codes, size, skipna)
+                torch.cuda.synchronize()
+                tag = f"segment_cumsum ({rows}, 300) size={size} {dtype} {order} skipna={skipna}"
+                check(torch.equal(bits(got), bits(again)), f"{tag}: two launches differ")
+                bad = torch.nonzero(bits(got) != bits(want))
+                check(bad.numel() == 0,
+                      f"{tag}: differs from the column-order emulation at {bad.shape[0]} "
+                      f"places, first {bad[:1].tolist()}: "
+                      f"{got[tuple(bad[0])].item() if bad.numel() else None!r} against "
+                      f"{want[tuple(bad[0])].item() if bad.numel() else None!r}")
+    print("[kernels] segmented-cumsum walk: the column-order emulation bit for bit at 37 and 300 "
+          "rows, sizes 1 to 511, with NaN, inf and overflow")
+
+
 def _scan_semantics(ck) -> None:
     """The reference's IEEE cases for its scan kernel (tests/test_kernels.py,
     TestPallasScan), on the CUDA kernel."""
@@ -643,13 +759,14 @@ def _check_close(name, out, ref, tol_rel=1e-5):
     print(f"[main] {name}: max |err| vs float64 {err.max().item()!r}")
 
 
-def _check_scan_full(name, out, data, codes, want=None):
-    """A full-width grouped cumsum of finite data against ``want`` (default: a
-    float64 ``torch.cumsum`` of each group's gathered columns), group by group,
-    within ``n_g * u * cumsum|x|`` plus one ulp. Returns the max |error|."""
+def _check_scan_full(name, out, data, codes, want=None, groups=NGROUPS):
+    """A full-width grouped cumsum of finite data over ``groups`` groups
+    against ``want`` (default: a float64 ``torch.cumsum`` of each group's
+    gathered columns), group by group, within ``n_g * u * cumsum|x|`` plus
+    one ulp. Returns the max |error|."""
     check(out.shape == data.shape and out.dtype == data.dtype, f"{name}: {out.dtype}")
     worst = 0.0
-    for g in range(NGROUPS):
+    for g in range(groups):
         cols = torch.nonzero(codes == g).squeeze(1)
         x = data.index_select(1, cols).double()
         ref = torch.cumsum(x, dim=1) if want is None else want.index_select(1, cols).double()
@@ -993,6 +1110,7 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
     nbytes = data.numel() * data.element_size()
     calls = {
         "nanmean": lambda: flox_tpu_torch.groupby_reduce(data, month, func="nanmean"),
+        "nanmax": lambda: flox_tpu_torch.groupby_reduce(data, month, func="nanmax"),
         "daily nanmean (1096 groups)": lambda: flox_tpu_torch.groupby_reduce(
             data, day, func="nanmean"),
         "aggregate_many(nanmean, nanmin, nanmax)": lambda: flox_tpu_torch.groupby_aggregate_many(
@@ -1013,11 +1131,7 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
         torch.cuda.empty_cache()
         gbps = nbytes / (e2e_ms * 1e-3) / 1e9
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
-    device_breakdown({
-        "segment_sum_raw kahan": lambda: ck.segment_sum_raw(data, codes32, size, "kahan"),
-        "segment_multistat kahan": lambda: ck.segment_multistat(data, codes32, size, "kahan"),
-        **{name: calls[name] for name in list(calls)[:5]},
-    })
+    device_breakdown({**wrapper_calls(data), **{name: calls[name] for name in list(calls)[:6]}})
     cut = data[:SORT_ROWS]
     e2e_ms = time_ms(lambda: flox_tpu_torch.groupby_reduce(
         cut, DAY0 + day, func="nanmean", expected_groups=np.arange(NUNIVERSE), engine="sort"),
@@ -1029,8 +1143,28 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
     return entries
 
 
+# B1-B3 are instances of segment_reduce_kernel; segment_minmax_kernel is B3's
+# symbol before it was one, so that the profile of an earlier checkout
+# (see pattern_times) counts it too
 _OUR_KERNELS = ("segment_reduce_kernel", "segment_minmax_kernel", "segment_cumsum_kernel",
                 "radixbin_kernel")
+
+
+def wrapper_calls(data) -> dict:
+    """The kernel wrappers at the main path's month codes, as
+    :func:`device_breakdown` takes them: B1 and B2 kahan, B3 max (nanmax's
+    call) and B4 nancumsum. Only the wrappers' Python signatures, which the
+    kernels' earlier designs share, so that it also profiles an earlier
+    checkout (see :func:`pattern_times`)."""
+    from flox_tpu_torch import cuda_kernels as ck
+
+    codes = torch.from_numpy(month_labels(data.shape[1])).to(DEVICE).to(torch.int32)
+    return {
+        "segment_sum_raw kahan": lambda: ck.segment_sum_raw(data, codes, NGROUPS, "kahan"),
+        "segment_multistat kahan": lambda: ck.segment_multistat(data, codes, NGROUPS, "kahan"),
+        "segment_minmax max": lambda: ck.segment_minmax(data, codes, NGROUPS, "max"),
+        "segment_cumsum nancumsum": lambda: ck.segment_cumsum(data, codes, NGROUPS, True),
+    }
 
 
 def device_breakdown(calls: dict, reps: int = 3) -> None:
@@ -1067,14 +1201,17 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
 
 
 def pattern_times(data, reps: int) -> dict:
-    """B1 and B2 (kahan) on code patterns off the main path, at the width of
-    ``data``: hour of day (``arange(N) % 24``, 24 groups, runs of one
-    column), random codes over 12 groups, and, for B1 alone (B2 caps at 128
-    groups), random codes over 512. Each output is first held against the
-    plain version (markers exact, sums at B1's kahan bar, extrema exact).
-    Uses only the wrappers' Python signatures, which the kernels' earlier
-    designs share, so it also times a checkout of an earlier commit:
-    ``python3 -c "import chip_smoke as c; c.pattern_times(c.make_data(0), 10)"``
+    """B1 and B2 (kahan), B3 (max) and B4 (nancumsum) on code patterns off
+    the main path, at the width of ``data``: hour of day (``arange(N) % 24``,
+    24 groups, runs of one column), random codes over 12 groups, and random
+    codes over 512 for B1 and B3 (B1-B3 take at most 512 groups, B4 at most
+    511; B2 walks as B1 does, so B1 stands for it there). Each output
+    is first held against the plain version (markers exact, sums at B1's
+    kahan bar, extrema exact, running sums within ``n_g u cumsum|x|`` plus
+    one ulp). Uses only the wrappers' Python signatures, which the kernels'
+    earlier designs share, so it also times a checkout of an earlier commit:
+    ``python3 -c "import chip_smoke as c; d = c.make_data(0);
+    c.pattern_times(d, 10); c.device_breakdown(c.wrapper_calls(d))"``
     run there with this file on ``sys.path`` first. Returns ``{name: ms}``."""
     from flox_tpu_torch import cuda_kernels as ck
 
@@ -1119,6 +1256,31 @@ def pattern_times(data, reps: int) -> dict:
             times[tag] = ms
             print(f"[times] {kname} kahan, {name}: {ms!r} ms (bound {bound!r} ms), max |kernel - "
                   f"plain| {err.max().item()!r}")
+        got = ck.segment_minmax(data, codes, size, "max")
+        check(same(got, ck.segment_minmax_plain(data, codes, size, "max")),
+              f"segment_minmax, {name}: differs from the plain version")
+        del got
+        ms = time_ms(lambda c=codes, sz=size: ck.segment_minmax(data, c, sz, "max"),
+                     max(2, reps // 2))
+        bound = (data.numel() * data.element_size() + n * 4 + size * k * 4) / HBM_BYTES_PER_S * 1e3
+        times[f"segment_minmax, {name}"] = ms
+        print(f"[times] segment_minmax max, {name}: {ms!r} ms (bound {bound!r} ms), exact")
+        torch.cuda.empty_cache()
+        if size + 1 > 512:
+            continue
+        got = ck.segment_cumsum(data, codes, size, True)
+        want = ck.segment_cumsum_plain(data, codes, size, True)
+        err = _check_scan_full(f"segment_cumsum, {name}", got, data, codes, want=want,
+                               groups=size)
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda c=codes, sz=size: ck.segment_cumsum(data, c, sz, True),
+                     max(2, reps // 2))
+        torch.cuda.empty_cache()
+        bound = (2 * data.numel() * data.element_size() + n * 4) / HBM_BYTES_PER_S * 1e3
+        times[f"segment_cumsum, {name}"] = ms
+        print(f"[times] segment_cumsum nancumsum, {name}: {ms!r} ms (bound {bound!r} ms), max "
+              f"|kernel - plain| {err!r}")
     return times
 
 

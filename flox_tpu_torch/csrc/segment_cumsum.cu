@@ -9,57 +9,85 @@
 //         missing labels scan among themselves as one extra group, `size`
 //   out   (K, N) in the data dtype: per row, each value's running sum over
 //         the earlier values of its group, accumulated in float32 (bfloat16
-//         is rounded back per element, to nearest even)
+//         is rounded back per element, to nearest even, as torch rounds on
+//         the card)
+//   state (size + 1, K) pairs of 32-bit words, scratch: per (group, row) the
+//         float32 running sum and the marker bits between the group's runs
 //
 // IEEE prefix semantics, per group, as the Pallas kernel gives them:
 //   - NaN beats inf; +inf together with -inf is NaN;
 //   - nancumsum (SKIPNA) skips NaN values only; inf still propagates;
-//   - a running sum that overflows becomes +-inf (NaN if the tree order
-//     below forms opposite infinities) and stays so.
-// The state is sticky: a lane of group g that reports a non-finite value is
-// never followed by a finite lane of g. Non-finite values are zero-filled
-// before the additions and tracked as per-group marker bits instead (NaN,
-// +inf, -inf), carried across chunks next to the finite running sum; an
-// arithmetic overflow is recorded as a marker only while the group has none
-// (a true +-inf running sum absorbs finite addends and cannot overflow
-// again), and within a chunk the first overflowing lane decides the sign.
+//   - a running sum that overflows becomes +-inf and stays so.
+// The state is sticky: once a group reports a non-finite value, every later
+// value of the group does. Non-finite values are never added: they set
+// marker bits (NaN, +inf, -inf) beside the finite running sum, and the
+// output is resolved from the markers while any is set. An overflow of the
+// running sum sets the marker of its sign only while the group has none (a
+// true +-inf running sum absorbs finite addends and cannot overflow again).
 //
-// Design. One warp per row k, 8 rows per block; the warp walks N in order in
-// 32-column chunks (4 loaded before any is scanned) and keeps, in shared
-// memory, a float32 carry and the marker bits of each of its size + 1 groups.
-// For each distinct code in a chunk, a warp inclusive scan (__shfl_up_sync,
-// Hillis-Steele, 5 steps) over that group's lanes -- the others contribute 0
-// -- is added to the group's carry; the group's last lane writes the new
-// carry and markers back. Outputs are written coalesced, one column per lane.
-// The in-chunk order is a fixed tree, not sequential, so a partial sum can
-// overflow where the sequential one does not: the same boundary as the
-// Pallas kernel's matrix-unit contraction (pallas_kernels.py:547-553). The
-// sticky markers keep the group state consistent whatever that order does.
+// Design. Block b owns a tile of kRows = 128 rows, one thread per row, and
+// walks all N columns in their original order in stages of 32: each stage is
+// a (kRows, 33) float tile in shared memory
+// (the pitch of 33 words makes thread r's reads of column c, and a warp's
+// reads of a row, conflict-free), filled by cp.async from 128-byte row
+// segments (warps fill along the row, lane = column), double-buffered, with
+// the stage's codes beside it; bfloat16, below cp.async's 4-byte minimum, is
+// loaded into registers a stage ahead and stored widened to its tile after
+// the stage is written back. Thread r walks the stage's 32 columns in order
+// with the current group's running sum and markers in registers; one ballot
+// per stage marks the columns where the code changes, and at a change the
+// thread stores the finished group's (sum, markers) to state[g * K + k] and
+// loads the next group's (a warp moves 32 consecutive k: 256 bytes). Each
+// row's state is its thread's alone, so nothing is atomic and nothing
+// races; the kernel zeroes it first, with no launch of its own. The scanned
+// value overwrites its input in the tile (bfloat16 already rounded), and
+// after a barrier the warps store the tile, lane = column, to out with
+// streaming stores. There is no binning: the output lands in column order,
+// so the stores, like the loads, stay 128-byte row segments. On the month
+// codes (runs of ~730 columns) the state moves about once every 23 stages,
+// and at 13 groups it is 6.8 MB, resident in L2.
+//
+// Rows per block. Every block walks all of N, so the grid is one wave, and
+// at K = 65160 an SM holds at most 512 rows either way (510 blocks of 128
+// or 255 of 256 on 132 SMs). Measured on the H100 (PERF.md, PR 7), 128 rows
+// ran faster than 256; the likely reason, not measured: a block waits at two
+// barriers a stage, and four smaller blocks an SM overlap their waits better
+// than two.
+//
+// Invariants (checked on the card by chip_smoke.py):
+//   - per (group, row), the running sum is sequential in column order, one
+//     __fadd_rn per finite value (nvcc contracts nothing); an overflow is
+//     seen on that sequential float32 sum. The Pallas kernel's boundary of
+//     overflow in a reordered (matrix-unit) sum (pallas_kernels.py:547-553)
+//     does not apply here; nor can finite + finite give NaN, so an overflow
+//     is always +-inf;
+//   - hence the output equals a float32 column-order emulation of the walk
+//     (one torch op per rounding) bit for bit, and two launches give the
+//     same bits; against the plain version (a float64 cumsum rounded to
+//     float32) it lies within n_g * u * cumsum|x| plus one ulp.
 //
 // Bound on the card: one read and one write of the data, 2*K*N*itemsize
-// bytes (plus N*4 of codes). At the benchmark width of 65160 x 26304 float32
-// that is 13.71 GB, at least 4.09 ms at 3.35 TB/s (computed, not measured).
+// bytes (plus N*4 of codes; the state, 8*(size + 1)*K bytes, stays in L2 at
+// small sizes). At the benchmark width of 65160 x 26304 float32 that is
+// 13.71 GB, at least 4.09 ms at 3.35 TB/s (computed, not measured). The
+// work per element is a shared-memory load and store, a finiteness test, an
+// add and the overflow test.
+
+#include <cuda_bf16.h>
 
 #include "segment_reduce.cuh"
 
 namespace {
 
+using flox::kCols;
 using flox::kFull;
-using flox::kUnroll;
-using flox::kWarps;
+using flox::kPitch;
+
+constexpr int kRows = 128;  // rows per block, one thread each
 
 constexpr unsigned kNaN = 1u;
 constexpr unsigned kPos = 2u;
 constexpr unsigned kNeg = 4u;
-
-__device__ __forceinline__ void store_out(float* p, float v) { __stcs(p, v); }
-
-__device__ __forceinline__ void store_out(uint16_t* p, float v) {
-  // float32 -> bfloat16, round to nearest even (as torch rounds); NaN stays NaN
-  const unsigned u = __float_as_uint(v);
-  const unsigned r = isnan(v) ? 0x7fc00000u : u + 0x7fffu + ((u >> 16) & 1u);
-  *p = static_cast<uint16_t>(r >> 16);
-}
 
 __device__ __forceinline__ float resolve(unsigned seen, float r) {
   if ((seen & kNaN) || (seen & (kPos | kNeg)) == (kPos | kNeg))
@@ -69,119 +97,167 @@ __device__ __forceinline__ float resolve(unsigned seen, float r) {
   return r;
 }
 
-// Scans one 32-column chunk; returns this lane's output. `code` is in
-// [0, size] for a real column and -1 for padding past N.
-template <bool SKIPNA>
-__device__ __forceinline__ float scan_chunk(float x, int code, int lane, unsigned le,
-                                            float* carry, unsigned* state) {
-  const bool valid = code >= 0;
-  const bool is_nan = isnan(x);
-  const bool is_pos = x == flox::pos_inf();
-  const bool is_neg = x == flox::neg_inf();
-  const float z = (is_nan || is_pos || is_neg) ? 0.0f : x;
-  const unsigned nan_b = SKIPNA ? 0u : __ballot_sync(kFull, valid && is_nan);
-  const unsigned pos_b = __ballot_sync(kFull, valid && is_pos);
-  const unsigned neg_b = __ballot_sync(kFull, valid && is_neg);
-  float res = 0.0f;
-  unsigned todo = __ballot_sync(kFull, valid);
-  while (todo) {  // warp-uniform: todo comes from a ballot
-    const int leader = __ffs(todo) - 1;
-    const int g = __shfl_sync(kFull, code, leader);
-    const bool mine = valid && code == g;
-    const unsigned peers = __ballot_sync(kFull, mine);
-    float v = mine ? z : 0.0f;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float t = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v = __fadd_rn(v, t);
-    }
-    const float r = __fadd_rn(carry[g], v);
-    // markers of the group's values at or before this lane, and its state
-    unsigned seen = state[g];
-    const unsigned upto = peers & le;
-    if (nan_b & upto) seen |= kNaN;
-    if (pos_b & upto) seen |= kPos;
-    if (neg_b & upto) seen |= kNeg;
-    // an overflow counts only while the group has no marker; the first
-    // overflowing lane of the group decides the sign for all later lanes
-    const unsigned ovf = __ballot_sync(kFull, mine && seen == 0u && !isfinite(r));
-    if (ovf) {  // warp-uniform
-      const int first = __ffs(ovf) - 1;
-      const float rf = __shfl_sync(kFull, r, first);
-      const unsigned ev =
-          isnan(rf) ? (SKIPNA ? (kPos | kNeg) : kNaN) : (rf > 0.0f ? kPos : kNeg);
-      if (lane >= first) seen |= ev;
-    }
-    if (mine) res = resolve(seen, r);
-    const int last = 31 - __clz(peers);
-    __syncwarp();  // every lane has read carry[g] and state[g]
-    if (lane == last) {
-      state[g] = seen;
-      carry[g] = seen ? 0.0f : r;  // with a marker the carry is never read
-    }
-    __syncwarp();  // the write, visible to the whole warp
-    todo &= ~peers;
+// float32 -> the nearest bfloat16, ties to even, as a float32: CUDA's own
+// conversion, which torch's takes on the card (a NaN becomes 0x7fff)
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { __stcs(p, v); }
+
+__device__ __forceinline__ void store_out(uint16_t* p, float v) {
+  // exact: v is already a bfloat16 value
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         static_cast<unsigned short>(__float_as_uint(v) >> 16));
+}
+
+// One value x of the group whose running sum is r and markers seen; returns
+// the group's running result, in the output dtype's precision.
+template <typename T, bool SKIPNA>
+__device__ __forceinline__ float step(float& r, unsigned& seen, float x) {
+  if (__builtin_expect(fabsf(x) < flox::pos_inf(), 1)) {
+    r = __fadd_rn(r, x);
+    // an overflow counts only while the group has no marker
+    if (__builtin_expect(!(fabsf(r) < flox::pos_inf()), 0) && seen == 0u)
+      seen = r > 0.0f ? kPos : kNeg;
+  } else if (isnan(x)) {
+    if (!SKIPNA) seen |= kNaN;
+  } else {
+    seen |= x > 0.0f ? kPos : kNeg;
   }
-  return res;
+  const float v = seen ? resolve(seen, r) : r;
+  return sizeof(T) == 2 ? round_bf16(v) : v;
 }
 
 template <typename T, bool SKIPNA>
-__global__ void __launch_bounds__(kWarps * 32)
+// 512 threads per SM: at the benchmark's K = 65160 the blocks are all
+// resident at once, as each walks all of N
+__global__ void __launch_bounds__(kRows, 512 / kRows)
 segment_cumsum_kernel(const T* __restrict__ data, const int* __restrict__ codes, long long K,
-                      long long N, int size, T* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int groups = size + 1;  // the last one holds the missing labels
+                      long long N, int size, uint2* __restrict__ state, T* __restrict__ out) {
+  constexpr int kWarps = kRows / 32;
+  constexpr int kTile = kRows * kPitch;
+  // warp w moves rows w, w + kWarps, ...: 32 of them
+  constexpr int kRowsPerWarp = kRows / kWarps;
+  extern __shared__ float smem[];  // 2 tiles of kRows x kPitch, then 2 x kCols codes
+  int* codes_s = reinterpret_cast<int*>(smem + 2 * kTile);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long k = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (k >= K) return;  // whole warp; no block-wide barrier follows
+  const long long k0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(K - k0 < kRows ? K - k0 : kRows);  // rows of this tile
+  const bool row_ok = threadIdx.x < rows;
+  const long long nstages = (N + kCols - 1) / kCols;
+  uint2* const st = state + k0 + threadIdx.x;  // group g's state of this row: st[g * K]
 
-  float* carry = smem + static_cast<size_t>(warp) * groups * 2;
-  unsigned* state = reinterpret_cast<unsigned*>(carry + groups);
-  for (int g = lane; g < groups; g += 32) {
-    carry[g] = 0.0f;
-    state[g] = 0u;
+  uint16_t held[sizeof(T) == 4 ? 1 : kRowsPerWarp];
+  int held_code = 0;
+  auto fill = [&](long long s) {  // lane = column; bfloat16 into `held`, land() stores it
+    const long long col = s * kCols + lane;
+    if (col >= N) {
+      if (sizeof(T) == 4) flox::cp_async_commit();
+      return;
+    }
+    const T* src = data + (k0 + warp) * N + col;  // 64-bit: K*N exceeds 2^31 at full width
+    if constexpr (sizeof(T) == 4) {
+      float* dst = smem + (s & 1) * kTile + warp * kPitch + lane;
+#pragma unroll 8
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        if (warp + i * kWarps < rows)
+          flox::cp_async4(dst + i * kWarps * kPitch, src + i * kWarps * N);
+      if (warp == 0) flox::cp_async4(codes_s + (s & 1) * kCols + lane, codes + col);
+      flox::cp_async_commit();
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        held[i] = warp + i * kWarps < rows ? __ldg(src + i * kWarps * N) : uint16_t(0);
+      if (warp == 0) held_code = __ldg(codes + col);
+    }
+  };
+  auto land = [&](long long s) {  // bfloat16 only: the registers of stage s into its tile
+    if constexpr (sizeof(T) == 2) {
+      if (s * kCols + lane >= N) return;
+      float* dst = smem + (s & 1) * kTile + warp * kPitch + lane;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) dst[i * kWarps * kPitch] = flox::widen(held[i]);
+      if (warp == 0) codes_s[(s & 1) * kCols + lane] = held_code;
+    }
+  };
+  auto store = [&](long long s) {  // the scanned tile of stage s to out, lane = column
+    const long long col = s * kCols + lane;
+    if (col >= N) return;
+    const float* src = smem + (s & 1) * kTile + warp * kPitch + lane;
+    T* dst = out + (k0 + warp) * N + col;
+#pragma unroll 8
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      if (warp + i * kWarps < rows) store_out(dst + i * kWarps * N, src[i * kWarps * kPitch]);
+  };
+
+  if (row_ok)
+    for (int g = 0; g <= size; ++g) st[g * K] = make_uint2(0u, 0u);
+  float r = 0.0f;     // the running sum of group cur
+  unsigned seen = 0u;  // and its markers
+  int cur = 0;
+  if (nstages > 0) {
+    fill(0);
+    land(0);
   }
-  __syncwarp();
-
-  const unsigned le = (2u << lane) - 1u;  // this lane and the ones before it
-  const T* row = data + k * N;  // 64-bit offsets: K*N exceeds 2^31 at full width
-  T* orow = out + k * N;
-  for (long long c0 = 0; c0 < N; c0 += 32 * kUnroll) {
-    float x[kUnroll];
-    int code[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long c = c0 + u * 32 + lane;
-      if (c < N) {
-        x[u] = flox::load_value(row + c);
-        const int cd = __ldg(codes + c);
-        code[u] = static_cast<unsigned>(cd) < static_cast<unsigned>(size) ? cd : size;
-      } else {
-        x[u] = 0.0f;
-        code[u] = -1;
+  for (long long s = 0; s < nstages; ++s) {
+    if constexpr (sizeof(T) == 4) flox::cp_async_wait_all();  // this thread's copies of stage s
+    // every thread's stage s is in its tile, and every thread has stored
+    // stage s - 1, whose buffer the next fill takes
+    __syncthreads();
+    const bool ahead = s + 1 < nstages;
+    if (ahead) fill(s + 1);
+    float* x = smem + (s & 1) * kTile + threadIdx.x * kPitch;
+    const int* code = codes_s + (s & 1) * kCols;
+    const int ncols = static_cast<int>(N - s * kCols < kCols ? N - s * kCols : kCols);
+    auto group = [&](int c) {  // the missing labels are group `size`
+      const int v = code[c];
+      return static_cast<unsigned>(v) < static_cast<unsigned>(size) ? v : size;
+    };
+    // bit c of `starts`: column c is of another group than the column before
+    // it (for c = 0, than cur); block-uniform, so the walk goes run by run
+    const int mine = lane < ncols ? group(lane) : 0;
+    const int prev = lane == 0 ? cur : group(lane - 1);
+    const unsigned starts = __ballot_sync(kFull, lane < ncols && mine != prev);
+    int c = 0;
+    while (c < ncols) {
+      if ((starts >> c) & 1u) {
+        const int g = group(c);
+        if (row_ok) {
+          st[static_cast<long long>(cur) * K] = make_uint2(__float_as_uint(r), seen);
+          const uint2 v = st[static_cast<long long>(g) * K];
+          r = __uint_as_float(v.x);
+          seen = v.y;
+        }
+        cur = g;
       }
+      const unsigned later = c == kCols - 1 ? 0u : starts >> (c + 1);
+      const int e = later ? min(c + __ffs(later), ncols) : ncols;  // the run's end
+#pragma unroll 4
+      for (; c < e; ++c) x[c] = step<T, SKIPNA>(r, seen, x[c]);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float r = scan_chunk<SKIPNA>(x[u], code[u], lane, le, carry, state);
-      const long long c = c0 + u * 32 + lane;
-      if (c < N) store_out(orow + c, r);
-    }
+    __syncthreads();  // every row of stage s scanned
+    store(s);
+    if (ahead) land(s + 1);
   }
 }
 
 template <typename T, bool SKIPNA>
 cudaError_t launch(const void* data, const int* codes, long long K, long long N, int size,
-                   void* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kWarps) * (size + 1) * 2 * sizeof(float);
+                   void* state, void* out, cudaStream_t stream) {
+  constexpr size_t smem = (2 * kRows * kPitch + 2 * kCols) * sizeof(float);
   auto kernel = segment_cumsum_kernel<T, SKIPNA>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (K + kWarps - 1) / kWarps;
-  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(data), codes, K, N, size, static_cast<T*>(out));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (K + kRows - 1) / kRows;
+  kernel<<<static_cast<unsigned>(blocks), kRows, smem, stream>>>(
+      static_cast<const T*>(data), codes, K, N, size, static_cast<uint2*>(state),
+      static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -189,21 +265,23 @@ cudaError_t launch(const void* data, const int* codes, long long K, long long N,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. skipna: 0 cumsum, 1 nancumsum.
-// size + 1 groups (the missing-label group included), at most 512.
-// Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 float32, 1 bfloat16. skipna: 0 cumsum, 1 nancumsum. size + 1
+// groups (the missing-label group included), at most 512. state:
+// (size + 1) * K * 8 bytes of scratch, 8-byte aligned. Returns the
+// cudaError_t of the launch (0 on success).
 int flox_segment_cumsum(const void* data, int dtype, const int* codes, long long K, long long N,
-                        int size, int skipna, void* out, void* stream) {
-  if (K <= 0 || N < 0 || size <= 0 || size + 1 > 512 || K > 0x7fffffffLL * kWarps)
+                        int size, int skipna, void* state, void* out, void* stream) {
+  if (K <= 0 || N < 0 || size <= 0 || size + 1 > flox::kGroupCap ||
+      (K + kRows - 1) / kRows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = skipna ? launch<float, true>(data, codes, K, N, size, out, st)
-                 : launch<float, false>(data, codes, K, N, size, out, st);
+    err = skipna ? launch<float, true>(data, codes, K, N, size, state, out, st)
+                 : launch<float, false>(data, codes, K, N, size, state, out, st);
   } else if (dtype == 1) {
-    err = skipna ? launch<uint16_t, true>(data, codes, K, N, size, out, st)
-                 : launch<uint16_t, false>(data, codes, K, N, size, out, st);
+    err = skipna ? launch<uint16_t, true>(data, codes, K, N, size, state, out, st)
+                 : launch<uint16_t, false>(data, codes, K, N, size, state, out, st);
   }
   return static_cast<int>(err);
 }

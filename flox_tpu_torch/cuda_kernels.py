@@ -26,7 +26,8 @@ benchmark array; the cumsum also writes a (K, N) result, 4.09 ms (computed,
 not measured). The radix-binning kernel also writes 4*size*K*4 bytes of
 outputs, which at the 1096 day groups of the daily means is 1.14 GB more,
 2.39 ms in all. The design notes sit at the top of each source; the segment-
-sum and multi-statistic kernels share theirs (csrc/segment_reduce.cuh).
+sum, multi-statistic and segment-min/max kernels share theirs
+(csrc/segment_reduce.cuh).
 
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU. For
 a CUDA tensor it launches the kernel or raises; there is no fallback. Each
@@ -67,20 +68,31 @@ LAUNCHES = {"segment_sum": 0, "segment_minmax": 0, "segment_multistat": 0, "segm
 _SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MINMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _ACCUM_CODES = {"plain": 0, "kahan": 1, "dd": 2}
+_OP_CODES = {"min": 0, "max": 1}
 _MAX_GROUPS = 512  # the C entry points of B1-B4 refuse more
 _RADIXBIN_MAX_GROUPS = 2**31 - 1  # B5 bins the codes in int32, the invalid ones to `size`
-#: B1, B2 and B5 index the binned columns in int32, a 32-column stage past the last
+#: B1, B2, B3 and B5 index the binned columns in int32, a 32-column stage past the last
 _MAX_BINNED_COLS = 2**31 - 33
 #: csrc/segment_reduce.cuh: rows per block, columns per stage, and resident
 #: blocks per SM (its __launch_bounds__) by data dtype
 _ROWS_PER_BLOCK = 256
 _STAGE_COLS = 32
-_BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 2}
+_BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 2, torch.int32: 3}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def minmax_identity(op: str, dtype: torch.dtype):
+    """Identity of grouped min/max for ``dtype``: -inf (floats) / iinfo.min
+    (ints) for max, +inf / iinfo.max for min. The absorbing element — what NaN
+    maps to so that it wins — is the other op's identity."""
+    if dtype.is_floating_point:
+        return float("-inf") if op == "max" else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if op == "max" else info.max
 
 
 def _check_args(data: torch.Tensor, codes: torch.Tensor, size: int, dtypes, what: str,
@@ -170,7 +182,7 @@ def segment_sum(data, codes, size: int, accum: str | None = None, *, skipna: boo
 
 
 def _groups_per_block(size: int, k: int, n: int, slots: int) -> int:
-    """Groups per block of B1 and B2 (csrc/segment_reduce.cuh) for ``size``
+    """Groups per block of B1, B2 and B3 (csrc/segment_reduce.cuh) for ``size``
     groups over (``k``, ``n``) data, with ``slots`` blocks resident on the
     card at once.
 
@@ -187,27 +199,32 @@ def _groups_per_block(size: int, k: int, n: int, slots: int) -> int:
     return max(1, min(stage, fill, size))
 
 
-_SUM_ARGTYPES = [_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _P]
+_REDUCE_ARGTYPES = [_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I]
 
 
-def _segment_reduce_cuda(name: str, data, codes, size: int, accum: str):
-    """Launch B1 (``name`` "segment_sum") or B2 ("segment_multistat") on
-    binned codes: their four or six (size, K) outputs."""
+def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
+    """Launch B1 (``name`` "segment_sum"), B2 ("segment_multistat") or B3
+    ("segment_minmax") on binned codes: their four, six or one (size, K)
+    outputs. ``mode`` is the accumulation of B1 and B2 and B3's op."""
     _require_cuda(name)
-    minmax = name == "segment_multistat"
     k, n = data.shape
-    outs = [torch.empty((size, k), dtype=torch.float32, device=data.device) for _ in range(4)]
-    if minmax:
-        outs += [torch.empty((size, k), dtype=data.dtype, device=data.device) for _ in range(2)]
+    if name == "segment_minmax":
+        outs = [torch.empty((size, k), dtype=data.dtype, device=data.device)]
+        code = _OP_CODES[mode]
+        empty = [minmax_identity(mode, data.dtype)]
+    else:
+        outs = [torch.empty((size, k), dtype=torch.float32, device=data.device) for _ in range(4)]
+        code = _ACCUM_CODES[mode]
+        empty = [0.0] * 4
+        if name == "segment_multistat":
+            outs += [torch.empty((size, k), dtype=data.dtype, device=data.device) for _ in range(2)]
+            empty += [float("inf"), float("-inf")]
     if k == 0 or n == 0:
         # nothing to read, so no launch: every group is empty
-        for o in outs[:4]:
-            o.zero_()
-        if minmax:
-            outs[4].fill_(float("inf"))
-            outs[5].fill_(float("-inf"))
+        for o, v in zip(outs, empty):
+            o.fill_(v)
         return tuple(outs)
-    lib = _lib(name, _SUM_ARGTYPES + [_P] * (3 if minmax else 1))
+    lib = _lib(name, _REDUCE_ARGTYPES + [_P] * (len(outs) + 1))
     # the kernel gathers rows of (K, N) row-major: a non-contiguous input is
     # copied once here; a contiguous one (the usual case) is read in place
     data = data.contiguous()
@@ -215,8 +232,8 @@ def _segment_reduce_cuda(name: str, data, codes, size: int, accum: str):
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
     groups = _groups_per_block(size, k, n, sms * _BLOCKS_PER_SM[data.dtype])
     err = getattr(lib, f"flox_{name}")(
-        data.data_ptr(), _SUM_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
-        offsets.data_ptr(), k, n, size, groups, _ACCUM_CODES[accum],
+        data.data_ptr(), _MINMAX_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
+        offsets.data_ptr(), k, n, size, groups, code,
         *(o.data_ptr() for o in outs), _stream(data.device),
     )
     _build.check(lib, err, f"{name} launch")
@@ -338,39 +355,22 @@ def segment_minmax(data: torch.Tensor, codes: torch.Tensor, size: int, op: str):
     (size, K) tensor in the data dtype (float32, bfloat16 or int32).
 
     Codes outside [0, size) drop out; an empty group comes out at the op's
-    identity. A NaN propagates to its group's result.
+    identity. A NaN propagates to its group's result. On the card the codes
+    are binned first (:func:`_radixbin_bins`) and the kernel folds each
+    group's columns in column order, one thread per row, as the segment-sum
+    kernel walks them.
     """
-    if op not in ("min", "max"):
+    if op not in _OP_CODES:
         raise ValueError(f"op must be 'min' or 'max'; got {op!r}")
-    _check_args(data, codes, size, _MINMAX_DTYPES, "segment_minmax")
+    _check_args(data, codes, size, _MINMAX_DTYPES, "segment_minmax", max_cols=_MAX_BINNED_COLS)
     if data.device.type == "cpu":
         return segment_minmax_plain(data, codes, size, op)
-    return _segment_minmax_cuda(data, codes, int(size), op)
-
-
-def _segment_minmax_cuda(data, codes, size: int, op: str):
-    _require_cuda("segment_minmax")
-    lib = _lib("segment_minmax", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P])
-    k, n = data.shape
-    out = torch.empty((size, k), dtype=data.dtype, device=data.device)
-    if k == 0:
-        return out
-    data = data.contiguous()  # one copy for a non-contiguous input, as above
-    codes = _codes_int32(codes, size)
-    err = lib.flox_segment_minmax(
-        data.data_ptr(), _MINMAX_DTYPES[data.dtype], codes.data_ptr(), k, n, size,
-        int(op == "max"), out.data_ptr(), _stream(data.device),
-    )
-    _build.check(lib, err, "segment_minmax launch")
-    LAUNCHES["segment_minmax"] += 1
-    return out
+    return _segment_reduce_cuda("segment_minmax", data, codes, int(size), op)[0]
 
 
 def segment_minmax_plain(data: torch.Tensor, codes: torch.Tensor, size: int, op: str):
     """Plain PyTorch version of :func:`segment_minmax`: ``scatter_reduce``
     (amax/amin, ``include_self=True``) into an identity-filled output."""
-    from .kernels import minmax_identity
-
     k, n = data.shape
     idx = torch.where((codes >= 0) & (codes < size), codes, size).to(torch.int64)
     out = torch.full((k, size + 1), minmax_identity(op, data.dtype), dtype=data.dtype,
@@ -428,7 +428,9 @@ def segment_cumsum(data: torch.Tensor, codes: torch.Tensor, size: int, skipna: b
     Codes outside [0, size) are missing labels; they scan among themselves as
     one extra group. IEEE prefix semantics per group: NaN beats inf, +inf with
     -inf is NaN, nancumsum skips only NaN, and an overflowing running sum
-    turns into +-inf and stays so.
+    turns into +-inf and stays so. On the card the kernel walks each row's
+    columns in their order, one thread per row: per (group, row) the running
+    sum is sequential in float32, so reruns are bit-identical.
     """
     _check_args(data, codes, size, _SUM_DTYPES, "segment_cumsum")
     if int(size) + 1 > _MAX_GROUPS:
@@ -440,18 +442,26 @@ def segment_cumsum(data: torch.Tensor, codes: torch.Tensor, size: int, skipna: b
     return _segment_cumsum_cuda(data, codes, int(size), bool(skipna))
 
 
+def _cumsum_state(size: int, k: int, device) -> torch.Tensor:
+    """B4's scratch: per (group, row) the float32 running sum and the marker
+    bits between the group's runs, the missing-label group included, as
+    (size + 1, K, 2) int32 words; the kernel zeroes it."""
+    return torch.empty((size + 1, k, 2), dtype=torch.int32, device=device)
+
+
 def _segment_cumsum_cuda(data, codes, size: int, skipna: bool):
     _require_cuda("segment_cumsum")
-    lib = _lib("segment_cumsum", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P])
     k, n = data.shape
     data = data.contiguous()  # one copy for a non-contiguous input, as above
     out = torch.empty_like(data)
-    if k == 0:
-        return out
+    if k == 0 or n == 0:
+        return out  # nothing to scan, so no launch
+    lib = _lib("segment_cumsum", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P, _P])
     codes = _codes_int32(codes, size)
+    state = _cumsum_state(size, k, data.device)
     err = lib.flox_segment_cumsum(
         data.data_ptr(), _SUM_DTYPES[data.dtype], codes.data_ptr(), k, n, size, int(skipna),
-        out.data_ptr(), _stream(data.device),
+        state.data_ptr(), out.data_ptr(), _stream(data.device),
     )
     _build.check(lib, err, "segment_cumsum launch")
     LAUNCHES["segment_cumsum"] += 1

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from . import cuda_kernels, utils
+from .cuda_kernels import minmax_identity
 from .multiarray import MultiArray, PresentGroups
 from .options import OPTIONS
 
@@ -86,16 +87,6 @@ def _safe_codes(group_idx: torch.Tensor, size: int) -> torch.Tensor:
     the extra segment that is sliced off."""
     codes = group_idx.reshape(-1)
     return torch.where((codes < 0) | (codes >= size), size, codes).to(torch.int32)
-
-
-def minmax_identity(op: str, dtype: torch.dtype):
-    """Identity of grouped min/max for ``dtype``: -inf (floats) / iinfo.min
-    (ints) for max, +inf / iinfo.max for min. The absorbing element — what NaN
-    maps to so that it wins — is the other op's identity."""
-    if dtype.is_floating_point:
-        return float("-inf") if op == "max" else float("inf")
-    info = torch.iinfo(dtype)
-    return info.min if op == "max" else info.max
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:

@@ -524,19 +524,74 @@ def test_binned_launch_arguments(fake_card, name, dtype):
 
 
 @pytest.mark.parametrize("shape", [(5, 0), (0, 7), (0, 0)], ids=str)
-@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat"])
+@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat", "segment_minmax"])
 def test_binned_launch_nothing_to_read(fake_card, name, shape):
     """With no rows or no columns there is no launch: every group is empty,
     so the sums and markers are zeros and the extrema the identities."""
     lib, _ = fake_card
     before = dict(ck.LAUNCHES)
+    mode = "max" if name == "segment_minmax" else "kahan"
     outs = ck._segment_reduce_cuda(name, torch.zeros(shape), torch.zeros(shape[1],
-                                   dtype=torch.int32), 3, "kahan")
+                                   dtype=torch.int32), 3, mode)
     assert lib.calls == [] and ck.LAUNCHES == before
+    if name == "segment_minmax":
+        (out,) = outs
+        assert tuple(out.shape) == (3, shape[0]) and torch.isneginf(out).all()
+        return
     for o in outs[:4]:
         assert tuple(o.shape) == (3, shape[0]) and not o.any()
     if name == "segment_multistat":
         assert torch.isposinf(outs[4]).all() and torch.isneginf(outs[5]).all()
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_minmax_launch_arguments(fake_card, dtype, op):
+    """B3 on the card is an instance of the B1/B2 template: the wrapper hands
+    its C entry point the data in place, the binned codes of
+    :func:`_radixbin_bins`, (K, N, size), the derived groups per block (3
+    blocks of float32 or int32, 2 of bfloat16, on each of 132 SMs), the op
+    code and the one (size, K) output in the data dtype it returns; one launch
+    counted, through the public wrapper's route."""
+    lib, bins = fake_card
+    rng = np.random.default_rng(7)
+    k, n, size = 600, 300, 12
+    data = torch.from_numpy(rng.integers(-50, 50, size=(k, n)).astype(np.int32)).to(dtype)
+    codes = torch.from_numpy(rng.integers(-1, size + 2, n))
+    before = dict(ck.LAUNCHES)
+    (out,) = ck._segment_reduce_cuda("segment_minmax", data, codes, size, op)
+    assert ck.LAUNCHES["segment_minmax"] == before["segment_minmax"] + 1
+    assert {kk: v for kk, v in ck.LAUNCHES.items() if kk != "segment_minmax"} == {
+        kk: v for kk, v in before.items() if kk != "segment_minmax"}
+    ((entry, args),) = lib.calls
+    assert entry == "flox_segment_minmax"
+    perm, sorted_codes, offsets = bins[0]
+    slots = 132 * {torch.float32: 3, torch.bfloat16: 2, torch.int32: 3}[dtype]
+    assert args == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}[dtype],
+                    perm.data_ptr(), sorted_codes.data_ptr(), offsets.data_ptr(), k, n, size,
+                    ck._groups_per_block(size, k, n, slots), {"min": 0, "max": 1}[op],
+                    out.data_ptr(), None)
+    assert out.dtype == dtype and tuple(out.shape) == (size, k)
+
+
+@pytest.mark.parametrize("kwargs,err", [
+    ({"n": ck._MAX_BINNED_COLS + 1}, ValueError),  # int32 column indices past a stage
+    ({"size": ck._MAX_GROUPS + 1}, ValueError),
+    ({"size": 0}, ValueError),
+    ({"dtype": torch.float64}, TypeError),
+    ({"dtype": torch.int64}, TypeError),
+    ({"op": "mean"}, ValueError),
+], ids=["columns", "groups", "no-groups", "dtype", "int64", "op"])
+def test_minmax_argument_checks(kwargs, err):
+    """The B3 wrapper refuses what its C entry point refuses, before any
+    device dispatch: since B3 walks binned codes it takes B1's column cap (a
+    stride-0 view stands in for 2^31 columns)."""
+    args = {"n": 16, "size": 3, "dtype": torch.float32, "op": "max"}
+    args.update(kwargs)
+    data = torch.zeros((1, 1), dtype=args["dtype"]).expand(1, args["n"])
+    codes = torch.zeros(1, dtype=torch.int32).expand(args["n"])
+    with pytest.raises(err):
+        ck.segment_minmax(data, codes, args["size"], args["op"])
 
 
 @pytest.mark.parametrize("wrapper", ["segment_sum_raw", "segment_multistat"])

@@ -380,3 +380,186 @@ def test_datetime_scan_names_roadmap_item():
     dates = np.array(["2020-01-01", "NaT", "2020-01-03"], dtype="datetime64[ns]")
     with pytest.raises(NotImplementedError, match="A2"):
         flox_tpu_torch.groupby_scan(dates, np.zeros(3), func="ffill", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the kernel (csrc/segment_cumsum.cu): its order against the reference, and
+# the host side of its launch, on the CPU. The kernel itself is held on the
+# card by chip_smoke.py, bit for bit against a float32 column-order
+# emulation of its walk.
+# ---------------------------------------------------------------------------
+
+
+def _walk_f32(values, codes, size, skipna):
+    """What the CUDA kernel computes, in numpy float32: per row, each group's
+    running sum of its finite values, sequential in column order (one float32
+    add each), with sticky NaN (unless ``skipna``), +inf and -inf markers and
+    the first overflow of the running sum while the group has none."""
+    k, n = values.shape
+    idx = np.where((codes >= 0) & (codes < size), codes, size)
+    run = np.zeros((size + 1, k), np.float32)
+    nan_s, pos_s, neg_s = (np.zeros((size + 1, k), bool) for _ in range(3))
+    out = np.empty((k, n), np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for c in range(n):
+            g, x = idx[c], values[:, c]
+            r = np.where(np.isfinite(x), run[g] + x, run[g])
+            ovf = ~(nan_s[g] | pos_s[g] | neg_s[g]) & np.isinf(r)
+            pos_s[g] |= np.isposinf(x) | (ovf & (r > 0))
+            neg_s[g] |= np.isneginf(x) | (ovf & (r < 0))
+            if not skipna:
+                nan_s[g] |= np.isnan(x)
+            run[g] = r
+            res = np.where(pos_s[g], np.inf, np.where(neg_s[g], -np.inf, r))
+            out[:, c] = np.where(nan_s[g] | (pos_s[g] & neg_s[g]), np.nan, res)
+    return out
+
+
+@pytest.mark.parametrize("skipna", [False, True])
+@pytest.mark.parametrize("k,n,size", [(3, 300, 5), (2, 700, 1), (2, 257, 40), (4, 90, 127)])
+def test_kernel_order_within_reference_bar(skipna, k, n, size):
+    """The kernel's order, a sequential float32 running sum per (group, row)
+    in column order, lies within the bar the plain version is held to
+    against the Pallas kernel (interpret mode): the same non-finite
+    positions, and each finite running sum within ``n_g * u * cumsum|x|``
+    plus one ulp; against the plain version too."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(k * n + size + 1)
+    values = (rng.normal(size=(k, n)) * 10).astype(np.float32)
+    values[rng.random((k, n)) < 0.05] = np.nan
+    values[0, n // 3] = np.inf
+    values[-1, n // 2] = -np.inf
+    codes = rng.integers(-1, size + 2, n).astype(np.int32)
+    got = _walk_f32(values, codes, size, skipna).astype(np.float64)
+    pallas = np.asarray(segment_cumsum_pallas(jnp.asarray(values.T), codes, size, skipna=skipna,
+                                              interpret=True)).T.astype(np.float64)
+    plain = ck.segment_cumsum_plain(torch.from_numpy(values), torch.from_numpy(codes), size,
+                                    skipna).double().numpy()
+    bound = _scan_bound(np.where(np.isfinite(values), values, 0.0).astype(np.float64), codes,
+                        size)
+    for want in (pallas, plain):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isinf(got) * np.sign(got), np.isinf(want) * np.sign(want))
+        finite = np.isfinite(want)
+        err = np.abs(got[finite] - want[finite])
+        assert np.all(err <= bound[finite] + np.abs(want[finite]) * 2.0**-23)
+
+
+class _FakeScanLib:
+    """Stands in for the kernel's library: records each entry-point call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flox_segment_cumsum(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_scan_card(monkeypatch):
+    """The launch path of the B4 wrapper on CPU tensors, with the library and
+    the stream faked; returns the fake library and the scratch the wrapper
+    allocated."""
+    lib = _FakeScanLib()
+    states = []
+    real_state = ck._cumsum_state
+
+    def record_state(size, k, device):
+        states.append(real_state(size, k, device))
+        return states[-1]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(ck, "_lib", lambda name, argtypes: lib)
+    monkeypatch.setattr(ck, "_stream", lambda device: None)
+    monkeypatch.setattr(ck, "_cumsum_state", record_state)
+    return lib, states
+
+
+@pytest.mark.parametrize("skipna", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [37, 600, 65160])
+def test_cumsum_launch_arguments(fake_scan_card, dtype, skipna, k):
+    """What the B4 wrapper hands the C entry point: the data in place, the
+    int32 codes, (K, N, size), skipna, the (size + 1, K) scratch of 8-byte
+    (running sum, markers) pairs it allocated, and the (K, N) output in the
+    data dtype it returns; one launch counted."""
+    lib, states = fake_scan_card
+    rng = np.random.default_rng(8)
+    n, size = 40, 12
+    data = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dtype)
+    codes = torch.from_numpy(rng.integers(-1, size + 2, n).astype(np.int32))
+    before = dict(ck.LAUNCHES)
+    out = ck._segment_cumsum_cuda(data, codes, size, skipna)
+    assert ck.LAUNCHES["segment_cumsum"] == before["segment_cumsum"] + 1
+    assert {kk: v for kk, v in ck.LAUNCHES.items() if kk != "segment_cumsum"} == {
+        kk: v for kk, v in before.items() if kk != "segment_cumsum"}
+    ((args,),) = [lib.calls]
+    (state,) = states
+    assert state.dtype == torch.int32 and tuple(state.shape) == (size + 1, k, 2)
+    assert state.numel() * state.element_size() == 8 * (size + 1) * k
+    assert args == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype],
+                    codes.data_ptr(), k, n, size, int(skipna), state.data_ptr(),
+                    out.data_ptr(), None)
+    assert out.dtype == dtype and tuple(out.shape) == (k, n)
+
+
+def test_cumsum_launch_sends_out_of_range_codes_to_the_missing_group(fake_scan_card):
+    """int64 codes reach the kernel as int32, with every code outside [0,
+    size) at -1 first, so that none wraps into a real group."""
+    lib, _ = fake_scan_card
+    seen = []
+    real = ck._codes_int32
+
+    def record(codes, size):
+        seen.append(real(codes, size))
+        return seen[-1]
+
+    codes = torch.tensor([0, 3, 2**32 + 1, -5, 4, 1], dtype=torch.int64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ck, "_codes_int32", record)
+        ck._segment_cumsum_cuda(torch.zeros(2, 6), codes, 4, False)
+    (sent,) = seen
+    assert sent.dtype == torch.int32 and sent.tolist() == [0, 3, -1, -1, -1, 1]
+    assert lib.calls[0][2] == sent.data_ptr()
+
+
+@pytest.mark.parametrize("shape", [(5, 0), (0, 7), (0, 0)], ids=str)
+def test_cumsum_launch_nothing_to_scan(fake_scan_card, shape):
+    """With no rows or no columns there is nothing to scan: no launch, and
+    an empty result of the data's shape and dtype."""
+    lib, states = fake_scan_card
+    before = dict(ck.LAUNCHES)
+    out = ck._segment_cumsum_cuda(torch.zeros(shape, dtype=torch.bfloat16),
+                                  torch.zeros(shape[1], dtype=torch.int32), 3, True)
+    assert lib.calls == [] and states == [] and ck.LAUNCHES == before
+    assert tuple(out.shape) == shape and out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kwargs,err", [
+    ({"size": 512}, ValueError),  # size + 1 groups, the missing one included
+    ({"size": -1}, ValueError),
+    ({"dtype": torch.float64}, TypeError),
+    ({"dtype": torch.int32}, TypeError),
+    ({"codes_dtype": torch.float32}, TypeError),
+    ({"n_codes": 15}, ValueError),
+], ids=["groups", "negative", "float64", "int32", "float-codes", "codes-length"])
+def test_cumsum_argument_checks(kwargs, err):
+    """The B4 wrapper refuses what its C entry point refuses, before any
+    device dispatch."""
+    args = {"size": 3, "dtype": torch.float32, "codes_dtype": torch.int32, "n_codes": 16}
+    args.update(kwargs)
+    data = torch.zeros((2, 16), dtype=args["dtype"])
+    codes = torch.zeros(args["n_codes"], dtype=args["codes_dtype"])
+    with pytest.raises(err):
+        ck.segment_cumsum(data, codes, args["size"], skipna=False)
+
+
+def test_cumsum_largest_size_runs():
+    """size = 511, with the missing-label group 512 groups, is the most the
+    kernel takes; the wrapper accepts it."""
+    data = torch.ones(2, 600)
+    codes = torch.arange(600, dtype=torch.int32) - 44  # -44..-1 missing, 511.. missing
+    out = ck.segment_cumsum(data, codes, 511, skipna=False)
+    assert out[0, 44:555].eq(1.0).all() and out[0, :44].tolist() == list(range(1, 45))
