@@ -43,11 +43,18 @@ Phases; any failure exits nonzero:
    ``groupby_scan`` nancumsum and cumsum; ffill on a cut of 2048 rows; the
    daily means and sums (``np.arange(26304) // 24``, 1096 groups, the
    radix-binning kernel); and the sort engine on a cut of 8192 rows, with
-   the days counted from 1940-01-01 over a 36524-day universe. Each call
-   runs with the launch counts set to 0 just before it, must launch exactly
-   its kernels, and is checked against a float64 (or exact) reduction of the
-   same data on the card (the sort engine against the daily call, bit for
-   bit);
+   the days counted from 1940-01-01 over a 36524-day universe; the rest of
+   the reduction family: nanargmax and argmin, nanfirst and nanlast,
+   nanmedian and nanquantile(q=(0.1, 0.5, 0.9)) by sort and by radix select,
+   and mode of int32 classes 0-9 made from the seed, with each call's peak
+   device memory; datetime64 nanmax/nanfirst, timedelta64 nanmean/ffill and
+   bool sum/any on 2048 rows and string nanfirst/nanlast/count on 16 (host
+   arrays by nature); then the segment-min/max kernel's int32 instance
+   against its plain version at full width. Each call runs with the launch
+   counts set to 0 just before it, must launch exactly its kernels, and is
+   checked against a float64 (or exact) reduction of the same data on the
+   card (the sort engine against the daily call, bit for bit; positions,
+   first/last and mode exactly; the quantiles' two paths bit for bit);
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls; the
@@ -57,10 +64,10 @@ Phases; any failure exits nonzero:
    segmented-cumsum kernels on code patterns off the main path
    (:func:`pattern_times`: hour of day, random codes over 12 groups, and for
    the segment-sum kernel over 512), each output first held against the
-   plain version; then, from a ``torch.profiler`` trace
-   (:func:`device_breakdown`), each kernel wrapper's and end-to-end call's
-   device busy time, the share in this repo's kernels, and the device's
-   idle share.
+   plain version; the reduction family's calls with their launches a call;
+   then, from a ``torch.profiler`` trace (:func:`device_breakdown`), each
+   kernel wrapper's and end-to-end call's device busy time, the share in
+   this repo's kernels, and the device's idle share.
 
 It then prints the peak device memory, the card's name and power limit, one
 JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
@@ -891,8 +898,12 @@ def phase_main_path(seed: int):
     torch.cuda.empty_cache()
     _daily_and_sort(ck, data, totals)
     torch.cuda.empty_cache()
+    _reduction_family(ck, data, month, codes, totals, seed)
+    _round_trips(ck, data, month, totals)
+    torch.cuda.empty_cache()
     print(f"[main] launches over the main path {totals}")
-    print(f"[memory] peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[memory] peak device memory so far "
+          f"{max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9:.2f} GB")
     return data, month, codes, totals, scan_err
 
 
@@ -967,11 +978,252 @@ def _daily_and_sort(ck, data, totals) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the rest of the reduction family at full width
+# ---------------------------------------------------------------------------
+
+#: the highest device memory seen before a per-call peak was taken
+_PEAK_SEEN = [0]
+
+
+def _drive_peak(ck, name: str, fn, want: dict, totals: dict):
+    """:func:`_drive` with the call's own peak device memory printed: the
+    peak above what was held before the call."""
+    torch.cuda.synchronize()
+    _PEAK_SEEN[0] = max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = _drive(ck, name, fn, want, totals)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[memory] {name}: peak {peak / 1e9:.2f} GB, {(peak - held) / 1e9:.2f} GB above the "
+          f"{held / 1e9:.2f} GB held before it")
+    return out
+
+
+def _quantile_oracle(data, cols, qs) -> torch.Tensor:
+    """float64 per-group quantiles of ``data`` (K, N), numpy's linear method:
+    (len(qs), K, groups)."""
+    out = torch.empty((len(qs), data.shape[0], len(cols)), dtype=torch.float64, device=DEVICE)
+    for g, c in enumerate(cols):
+        s = torch.sort(data.index_select(1, c).double(), dim=1).values
+        for i, q in enumerate(qs):
+            h = q * (c.numel() - 1)
+            lo, hi = int(np.floor(h)), int(np.ceil(h))
+            out[i, :, g] = s[:, lo] + (h - lo) * (s[:, hi] - s[:, lo])
+        del s
+    return out
+
+
+def _reduction_family(ck, data, month, codes, totals, seed: int) -> None:
+    """The argreductions, first/last, quantiles by sort and by radix select,
+    and mode at full width, each with its kernels' launches checked:
+    nanargmax 2 segment-min/max launches (float32 values, int32 positions),
+    argmin 3 (and the first-NaN positions), nanfirst and nanlast 1 each
+    (int32 positions), nanmedian and the sorted nanquantile none (torch
+    sort), the selected nanquantile 32 segment-sum launches per row block
+    (one counting pass per bit), mode of int32 classes 2 (int32 run lengths
+    and positions). Then B3's int32 instance against its plain version at
+    full width."""
+    import flox_tpu_torch
+    from flox_tpu_torch import kernels as pk
+
+    k, n = data.shape
+    cols = [torch.nonzero(codes == g).squeeze(1) for g in range(NGROUPS)]
+
+    def reduce(func, arr=data, **kw):
+        out, groups = flox_tpu_torch.groupby_reduce(arr, month, func=func, **kw)
+        check(np.array_equal(groups, np.arange(NGROUPS)), f"{func}: groups {groups}")
+        return out
+
+    am = _drive_peak(ck, "nanargmax", lambda: reduce("nanargmax"), {"segment_minmax": 2}, totals)
+    ai = _drive_peak(ck, "argmin", lambda: reduce("argmin"), {"segment_minmax": 3}, totals)
+    for name, out, op in (("nanargmax", am, torch.argmax), ("argmin", ai, torch.argmin)):
+        check(out.dtype == torch.int64 and tuple(out.shape) == (k, NGROUPS),
+              f"{name}: result {tuple(out.shape)} {out.dtype}")
+        for g, c in enumerate(cols):  # torch.argmax/argmin: the first extreme
+            check(torch.equal(out[:, g], c[op(data.index_select(1, c), dim=1)]),
+                  f"{name}: group {g} differs from the first extreme column")
+    print("[main] nanargmax, argmin: exact (the first column holding each group's extreme)")
+    del am, ai
+    nf = _drive_peak(ck, "nanfirst", lambda: reduce("nanfirst"), {"segment_minmax": 1}, totals)
+    nl = _drive_peak(ck, "nanlast", lambda: reduce("nanlast"), {"segment_minmax": 1}, totals)
+    for name, out, at in (("nanfirst", nf, 0), ("nanlast", nl, -1)):
+        want = data.index_select(1, torch.stack([c[at] for c in cols]))
+        check(out.dtype == torch.float32 and torch.equal(bits(out), bits(want)),
+              f"{name}: differs from each group's {'first' if at == 0 else 'last'} column")
+    print("[main] nanfirst, nanlast: exact")
+    del nf, nl
+    torch.cuda.empty_cache()
+
+    qs = (0.1, 0.5, 0.9)
+    med = _drive_peak(ck, "nanmedian (sort)", lambda: reduce("nanmedian"), {}, totals)
+    with flox_tpu_torch.set_options(quantile_impl="sort"):
+        qsort = _drive_peak(ck, "nanquantile q=(0.1, 0.5, 0.9) (sort)",
+                            lambda: reduce("nanquantile", finalize_kwargs={"q": qs}), {}, totals)
+    blocks = len(pk._quantile_rows(data, len(qs), "linear", True))
+    with flox_tpu_torch.set_options(quantile_impl="select"):
+        qsel = _drive_peak(ck, f"nanquantile q=(0.1, 0.5, 0.9) (select, {blocks} row blocks)",
+                           lambda: reduce("nanquantile", finalize_kwargs={"q": qs}),
+                           {"segment_sum": 32 * blocks}, totals)
+    check(tuple(qsort.shape) == (3, k, NGROUPS) and qsort.dtype == torch.float32,
+          f"nanquantile: result {tuple(qsort.shape)} {qsort.dtype}")
+    check(torch.equal(bits(qsort), bits(qsel)), "nanquantile: sort and select differ")
+    print("[main] nanquantile: the sort and select paths bit-identical")
+    oracle = _quantile_oracle(data, cols, (0.5,) + qs)
+    _check_close("nanmedian", med, oracle[0])
+    for i, q in enumerate(qs):
+        _check_close(f"nanquantile q={q}", qsort[i], oracle[i + 1])
+    del med, qsort, qsel, oracle
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    classes = torch.randint(0, 10, (k, n), generator=gen, device=DEVICE, dtype=torch.int32)
+    mo = _drive_peak(ck, "mode (int32 classes 0-9)", lambda: reduce("mode", arr=classes),
+                     {"segment_minmax": 2}, totals)
+    check(mo.dtype == torch.int32 and tuple(mo.shape) == (k, NGROUPS),
+          f"mode: result {tuple(mo.shape)} {mo.dtype}")
+    for g, c in enumerate(cols):
+        sub = classes.index_select(1, c).long()
+        counts = torch.zeros((k, 10), dtype=torch.int64, device=DEVICE).scatter_add_(
+            1, sub, torch.ones_like(sub))
+        # torch.argmax takes the first of tied counts: the smallest class
+        check(torch.equal(mo[:, g].long(), torch.argmax(counts, dim=1)),
+              f"mode: group {g} differs from the bincount oracle")
+        del sub, counts
+    print("[main] mode: exact (bincount per group, ties to the smallest value)")
+    del mo, classes
+    torch.cuda.empty_cache()
+
+    wide = torch.randint(-2**31, 2**31 - 1, (k, n), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    codes32 = codes.to(torch.int32)
+    for op in ("min", "max"):
+        got = ck.segment_minmax(wide, codes32, NGROUPS, op)
+        check(torch.equal(got, ck.segment_minmax_plain(wide, codes32, NGROUPS, op)),
+              f"full width: segment_minmax int32 {op} differs from its plain version")
+    print(f"[kernels] segment_minmax int32 min and max at full width ({k}, {n}): exact")
+    del wide, got
+    torch.cuda.empty_cache()
+
+
+def _round_trips(ck, data, month, totals, rows: int = 2048) -> None:
+    """Datetime64, timedelta64, bool and string inputs on the first ``rows``
+    rows (16 for strings): these are host numpy arrays by nature (torch has
+    no datetime or string dtype; the port views datetimes as int64 and
+    reduces strings through float64 positions), checked exactly against
+    numpy per-group oracles on the host. Their launches: the datetime
+    nanfirst takes int32 positions (1 segment-min/max launch); int64,
+    float64, bool and position reductions otherwise run on torch ops."""
+    import flox_tpu_torch
+
+    x = data[:rows].cpu().numpy()
+    rows, n = x.shape
+    cols = [np.flatnonzero(month == g) for g in range(NGROUPS)]
+    nat = np.iinfo(np.int64).min
+    hours = (np.arange(n) * 3600 * 10**9).astype("timedelta64[ns]")
+    t = (np.datetime64("2020-01-01T00:00:00", "ns") + hours
+         + (x * 6e10).astype(np.int64).astype("timedelta64[ns]"))
+    t[x > 2.0] = np.datetime64("NaT")
+    ti = t.view("int64")
+
+    def reduce(func, arr, **kw):
+        return flox_tpu_torch.groupby_reduce(arr, month, func=func, **kw)[0]
+
+    got = _drive(ck, "datetime64 nanmax", lambda: reduce("nanmax", t), {}, totals)
+    want = np.stack([np.where(ti[:, c] == nat, nat, ti[:, c]).max(1) for c in cols], 1)
+    check(got.dtype == t.dtype and np.array_equal(got.view("int64"), want),
+          "datetime64 nanmax differs")
+    got = _drive(ck, "datetime64 nanfirst", lambda: reduce("nanfirst", t),
+                 {"segment_minmax": 1}, totals)
+    want = []
+    for c in cols:
+        valid = ti[:, c] != nat
+        first = np.argmax(valid, axis=1)
+        want.append(np.where(valid.any(1), ti[np.arange(rows), c[first]], nat))
+    check(got.dtype == t.dtype and np.array_equal(got.view("int64"), np.stack(want, 1)),
+          "datetime64 nanfirst differs")
+    td = (x * 1e9).astype("int64").view("timedelta64[ns]")
+    td[x < -2.0] = np.timedelta64("NaT")
+    tdi = td.view("int64")
+    got = _drive(ck, "timedelta64 nanmean", lambda: reduce("nanmean", td), {}, totals)
+    want = np.stack([np.nanmean(np.where(tdi[:, c] == nat, np.nan, tdi[:, c].astype(np.float64)),
+                                axis=1) for c in cols], 1)
+    err = np.abs(got.view("int64") - np.round(want)).max()
+    check(got.dtype == td.dtype and err <= 1, f"timedelta64 nanmean off by {err} ns")
+    got = _drive(ck, "timedelta64 ffill", lambda: flox_tpu_torch.groupby_scan(
+        td, month, func="ffill"), {}, totals)
+    want = np.empty_like(tdi)
+    last = np.full((rows, NGROUPS), nat)
+    for c, g in enumerate(month):
+        last[:, g] = np.where(tdi[:, c] == nat, last[:, g], tdi[:, c])
+        want[:, c] = last[:, g]
+    check(got.dtype == td.dtype and np.array_equal(got.view("int64"), want),
+          "timedelta64 ffill differs from the sequential fill")
+    b = x > 0
+    got = _drive(ck, "bool sum", lambda: reduce("sum", b), {}, totals)
+    want = np.stack([b[:, c].sum(1) for c in cols], 1)
+    check(got.dtype == torch.int64 and np.array_equal(got.cpu().numpy(), want), "bool sum differs")
+    got = _drive(ck, "bool any", lambda: reduce("any", b), {}, totals)
+    check(got.dtype == torch.bool and np.array_equal(got.cpu().numpy(), want > 0),
+          "bool any differs")
+    s = np.char.mod("%d", np.round(x[:16] * 100).astype(np.int64))
+    for func, at in (("nanfirst", 0), ("nanlast", -1)):
+        got = _drive(ck, f"string {func} (16 rows)", lambda f=func: reduce(f, s), {}, totals)
+        check(np.array_equal(got, s[:, [c[at] for c in cols]]), f"string {func} differs")
+    got = _drive(ck, "string count (16 rows)", lambda: reduce("count", s), {}, totals)
+    check(np.array_equal(got.cpu().numpy(), np.tile([len(c) for c in cols], (s.shape[0], 1))),
+          "string count differs")
+    print(f"[main] datetime64 nanmax/nanfirst, timedelta64 nanmean/ffill, bool sum/any on "
+          f"{rows} rows and string nanfirst/nanlast/count on 16: exact")
+
+
+def _family_calls(data, month, seed: int) -> dict:
+    """The reduction family's end-to-end calls as phase 3 drives them, for
+    timing and the profile."""
+    import flox_tpu_torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    classes = torch.randint(0, 10, data.shape, generator=gen, device=DEVICE, dtype=torch.int32)
+    qs = {"q": (0.1, 0.5, 0.9)}
+
+    def reduce(func, arr=data, impl="auto", **kw):
+        with flox_tpu_torch.set_options(quantile_impl=impl):
+            return flox_tpu_torch.groupby_reduce(arr, month, func=func, **kw)
+
+    return {
+        "nanargmax": lambda: reduce("nanargmax"),
+        "argmin": lambda: reduce("argmin"),
+        "nanfirst": lambda: reduce("nanfirst"),
+        "nanlast": lambda: reduce("nanlast"),
+        "nanmedian (sort)": lambda: reduce("nanmedian"),
+        "nanquantile q=(0.1, 0.5, 0.9) (sort)": lambda: reduce("nanquantile", impl="sort",
+                                                               finalize_kwargs=qs),
+        "nanquantile q=(0.1, 0.5, 0.9) (select)": lambda: reduce("nanquantile", impl="select",
+                                                                 finalize_kwargs=qs),
+        "mode (int32 classes 0-9)": lambda: reduce("mode", arr=classes),
+    }
+
+
+def _family_times(ck, calls: dict, reps: int) -> None:
+    """Each call's median time (CUDA events, after a warm-up) and its kernel
+    launches a call."""
+    nbytes = NLAT * NLON * NTIME * 4
+    for name, fn in calls.items():
+        ck.reset_launches()
+        e2e_ms = time_ms(fn, reps)
+        per_call = {kk: v // (reps + 1) for kk, v in ck.LAUNCHES.items() if v}
+        torch.cuda.empty_cache()
+        print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {nbytes / (e2e_ms * 1e-3) / 1e9!r} "
+              f"GB/s of input, launches a call {per_call}")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
 
-def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
+def phase_times(data, month, codes, reps: int, launches: dict, seed: int = 0) -> list[dict]:
     import flox_tpu_torch
     from flox_tpu_torch import cuda_kernels as ck
 
@@ -1131,7 +1383,12 @@ def phase_times(data, month, codes, reps: int, launches: dict) -> list[dict]:
         torch.cuda.empty_cache()
         gbps = nbytes / (e2e_ms * 1e-3) / 1e9
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
-    device_breakdown({**wrapper_calls(data), **{name: calls[name] for name in list(calls)[:6]}})
+    family = _family_calls(data, month, seed)
+    _family_times(ck, family, max(2, reps // 4))
+    device_breakdown({**wrapper_calls(data), **{name: calls[name] for name in list(calls)[:6]},
+                      **family})
+    del family
+    torch.cuda.empty_cache()
     cut = data[:SORT_ROWS]
     e2e_ms = time_ms(lambda: flox_tpu_torch.groupby_reduce(
         cut, DAY0 + day, func="nanmean", expected_groups=np.arange(NUNIVERSE), engine="sort"),
@@ -1398,8 +1655,9 @@ def main() -> int:
     phase_build()
     phase_kernels(args.seed)
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
-    entries = phase_times(data, month, codes, args.reps, launches)
-    print(f"[memory] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    entries = phase_times(data, month, codes, args.reps, launches, args.seed)
+    print(f"[memory] peak device memory "
+          f"{max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9:.2f} GB")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     smi = subprocess.run(

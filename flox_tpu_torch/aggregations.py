@@ -4,9 +4,10 @@ eager slice of ``flox_tpu/aggregations.py``).
 An :class:`Aggregation` names the kernels of its eager path, its chunk legs
 (what the fusion planner merges) and its final fill value and dtype.
 :func:`_initialize_aggregation` resolves those against the input's dtype. The
-registry holds the reductions ported so far; the combine stage of the
-reference belongs to the multi-device runtime (ROADMAP A7) and the rest of
-the family to A2.
+registry holds the reference's whole family; the combine stage of the
+reference belongs to the multi-device runtime (ROADMAP A7). Order statistics
+(median, quantile, mode) are blockwise-only (``chunk is None``): they need
+every element of a group at once.
 
 Multi-statistic fusion (:func:`plan_fused`, :func:`fused_chunk_stats`) merges
 N statistics into one deduplicated set of chunk legs for
@@ -36,6 +37,7 @@ __all__ = [
     "fused_chunk_stats",
     "generic_aggregate",
     "plan_fused",
+    "set_nat_final_fill",
     "_initialize_aggregation",
     "_initialize_scan",
 ]
@@ -96,7 +98,9 @@ class Aggregation:
     fill_value: dict[str, Any] = field(default_factory=dict)  # {"intermediate": (...)}
     final_fill_value: Any = dtypes.NA
     final_dtype: Any = None
+    reduction_type: Literal["reduce", "argreduce"] = "reduce"
     preserves_dtype: bool = False
+    new_dims_func: Callable | None = None  # finalize_kwargs -> sizes of new leading dims
     # resolved by _initialize_aggregation:
     finalize_kwargs: dict[str, Any] = field(default_factory=dict)
     min_count: int = 0
@@ -104,6 +108,18 @@ class Aggregation:
     def __post_init__(self):
         if not self.numpy:
             self.numpy = (self.name,)
+
+    @property
+    def blockwise_only(self) -> bool:
+        """Order statistics have no chunk legs: they need every element of a
+        group at once."""
+        return self.chunk is None
+
+    def new_dims(self) -> tuple[int, ...]:
+        """Sizes of the leading dims the result gains (a vector ``q``)."""
+        if self.new_dims_func is None:
+            return ()
+        return self.new_dims_func(**self.finalize_kwargs)
 
 
 AGGREGATIONS: dict[str, Aggregation] = {}
@@ -139,6 +155,48 @@ _register(Aggregation("any", chunk=("any",), fill_value=_inter(False), final_fil
                       final_dtype=np.bool_))
 
 
+def _pick_second(a, b, **kw):
+    """The argreductions' finalize: of the (extreme value, position) legs, the
+    position."""
+    return b
+
+
+def _quantile_new_dims(q=0.5, **kw) -> tuple[int, ...]:
+    return () if np.ndim(q) == 0 else (len(q),)
+
+
+# argreductions: the eager path is the kernel itself; the chunk legs pair the
+# extreme value with its position, for the multi-device combine (A7)
+for _nm in ("argmax", "argmin", "nanargmax", "nanargmin"):
+    _register(Aggregation(_nm, chunk=(_nm.replace("arg", ""), _nm), finalize=_pick_second,
+                          reduction_type="argreduce",
+                          fill_value=_inter(dtypes.NINF if "max" in _nm else dtypes.INF, -1),
+                          final_fill_value=-1, final_dtype=np.intp))
+for _nm in ("first", "last", "nanfirst", "nanlast"):
+    _register(Aggregation(_nm, chunk=(_nm,), fill_value=_inter(dtypes.NA),
+                          final_fill_value=dtypes.NA, preserves_dtype=True))
+# order statistics: blockwise-only (chunk=None), as in the reference
+for _nm in ("median", "nanmedian"):
+    _register(Aggregation(_nm, chunk=None, final_fill_value=dtypes.NA))
+for _nm in ("quantile", "nanquantile"):
+    _register(Aggregation(_nm, chunk=None, final_fill_value=dtypes.NA,
+                          new_dims_func=_quantile_new_dims))
+for _nm in ("mode", "nanmode"):
+    _register(Aggregation(_nm, chunk=None, final_fill_value=dtypes.NA, preserves_dtype=True))
+
+
+def set_nat_final_fill(agg: Aggregation, fill_value) -> None:
+    """Dtype-preserving datetime reductions: the missing marker is NaT
+    (INT64_MIN on the int64 view), never float NaN, which would corrupt
+    nanosecond timestamps; an explicit datetime or NaT fill is viewed as its
+    int64 value. The final dtype is the int64 view."""
+    if fill_value is None:
+        agg.final_fill_value = np.iinfo(np.int64).min
+    elif isinstance(agg.final_fill_value, (np.datetime64, np.timedelta64)):
+        agg.final_fill_value = int(agg.final_fill_value.astype("int64"))
+    agg.final_dtype = torch.int64
+
+
 def _initialize_aggregation(
     func: str | Aggregation,
     dtype,
@@ -160,10 +218,7 @@ def _initialize_aggregation(
         try:
             agg = copy.deepcopy(AGGREGATIONS[func])
         except KeyError:
-            raise NotImplementedError(
-                f"aggregation {func!r} is not ported yet (the rest of the reduction "
-                "family is ROADMAP A2)"
-            ) from None
+            raise ValueError(f"Unsupported aggregation: {func!r}") from None
 
     agg.finalize_kwargs = dict(finalize_kwargs or {})
     agg.min_count = min_count
@@ -196,9 +251,10 @@ def _initialize_aggregation(
     agg.final_dtype = (
         torch.bfloat16 if bf16 and final == np.float32 else utils.torch_dtype(final)
     )
-    # intermediate fills against the working dtype (the input's for the
-    # dtype-preserving min/max, else the final one)
-    work = np_array if agg.preserves_dtype else final
+    # intermediate fills against the working dtype: the input's for the
+    # dtype-preserving reductions and for the argreductions (whose first leg
+    # is the extreme value), else the final one
+    work = np_array if agg.preserves_dtype or agg.reduction_type == "argreduce" else final
     agg.fill_value = {"intermediate": tuple(
         dtypes.get_fill_value(work, fv) if fv in (dtypes.NA, dtypes.INF, dtypes.NINF) else fv
         for fv in agg.fill_value.get("intermediate", ())

@@ -6,7 +6,10 @@ data to (..., N) with the reduced axes last, run the aggregation's kernels
 (``chunk_reduce``), mask by ``min_count`` and cast to the final dtype.
 
 The data lives on one torch device, ``cuda`` unless the caller asks for the
-CPU; labels and group values stay on the host. Two engines reduce: "torch"
+CPU; labels and group values stay on the host. Datetime64/timedelta64 data
+reduces on its int64 view (NaT = INT64_MIN, a missing marker) and string or
+object data through float64 positions; torch has no dtype for either result,
+so those come back as numpy arrays. Two engines reduce: "torch"
 holds dense (..., size) accumulators over the label universe, and "sort"
 (the present-groups engine) compacts the codes to the groups present,
 reduces over a small capacity and scatters the dense result on the host.
@@ -22,12 +25,16 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from . import factorize as fct, kernels, utils
-from .aggregations import Aggregation, _initialize_aggregation, generic_aggregate
+from . import dtypes, factorize as fct, kernels, utils
+from .aggregations import (Aggregation, _initialize_aggregation, generic_aggregate,
+                           set_nat_final_fill)
 from .options import OPTIONS
 from .types import Bins
 
 __all__ = ["chunk_reduce", "dense_intermediate_bytes", "groupby_reduce"]
+
+#: the reductions of string and object data (through positions)
+_NON_NUMERIC_FUNCS = ("first", "last", "nanfirst", "nanlast", "count")
 
 #: engines of the reference, and the ROADMAP item that brings each to the port
 _UNPORTED_ENGINES = {
@@ -219,12 +226,14 @@ def _route_highcard(engine: str, codes_flat: np.ndarray, arr_flat: torch.Tensor,
     return "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "torch"
 
 
-def _redevice_scattered(result: torch.Tensor, device: torch.device) -> torch.Tensor:
+def _redevice_scattered(result, device: torch.device):
     """The dense result of the sort engine, scattered on the host, back on
     the call's device: one copy of the one dense buffer. It stays a CPU
     tensor when it alone is over ``dense_intermediate_bytes_max``: there the
     dense engine's alternative was an exception, and a host result is the
-    usable degradation."""
+    usable degradation. A numpy (datetime) result stays on the host."""
+    if isinstance(result, np.ndarray):
+        return result
     nbytes = result.numel() * result.element_size()
     if nbytes > OPTIONS["dense_intermediate_bytes_max"]:
         return result
@@ -349,13 +358,21 @@ def groupby_reduce(
     # -- host-side label normalization ------------------------------------
     bys = [utils.asarray_host(b) for b in by]
     bys = list(np.broadcast_arrays(*bys)) if nby > 1 else bys
+    datetime_dtype = None
     if not isinstance(array, torch.Tensor):
         host = np.asarray(array)
-        if host.dtype.kind in "OSUmM":
-            raise NotImplementedError(
-                f"{host.dtype} data (non-numeric and datetime reductions) is not ported "
-                "yet; ROADMAP A2"
+        if host.dtype.kind in "OSU":
+            _assert_by_is_aligned(host.shape, bys)
+            _check_non_numeric(func, dtype, finalize_kwargs, host.dtype)
+            return _reduce_non_numeric(
+                host, bys, func, fill_value=fill_value, expected_groups=expected_groups,
+                sort=sort, isbin=isbin, axis=axis, min_count=min_count, engine=engine,
+                reindex=reindex, device=dev,
             )
+        if dtypes.is_datetime_like(host.dtype):
+            # the exact int64 view, NaT = INT64_MIN (a missing marker)
+            datetime_dtype = host.dtype
+            host = host.view("int64")
         array = host
     arr = utils.as_tensor(array, dev)
     _assert_by_is_aligned(tuple(arr.shape), bys)
@@ -386,6 +403,16 @@ def groupby_reduce(
     else:
         min_count_ = min_count
     agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
+    if datetime_dtype is not None and agg.preserves_dtype:
+        set_nat_final_fill(agg, fill_value)
+    elif (datetime_dtype is not None and agg.reduction_type != "argreduce"
+          and agg.name not in ("count", "len", "any", "all")):
+        # float-valued reductions of datetimes (mean, var, median, quantile,
+        # sum): NaT -> NaN once, here, so every skipna and propagation rule
+        # applies unchanged; point-in-time results round back to the datetime
+        # dtype in _astype_final. float64 keeps ~256 ns on epoch values, the
+        # reference's own loss
+        arr = torch.where(arr == kernels._NAT_INT, float("nan"), arr.to(torch.float64))
 
     # -- flatten for the kernels: (..., span) with the reduced span last --
     span = int(np.prod(keep_by_shape + nred_shape)) if (keep_by_shape or nred_shape) else 1
@@ -402,38 +429,90 @@ def groupby_reduce(
         present = kernels.present_groups(codes_host, size)
         ncap = kernels.present_cap(len(present), size)
         ccodes = torch.as_tensor(kernels.compact_codes(codes_host, present), device=dev)
-        result_c = _reduce_blockwise(arr_flat, ccodes, agg, size=ncap, engine="torch")
+        result_c = _reduce_blockwise(arr_flat, ccodes, agg, size=ncap, engine="torch",
+                                     datetime_dtype=datetime_dtype)
         result = _redevice_scattered(kernels.scatter_present_dense(result_c, present, size), dev)
     else:
         codes_flat = torch.as_tensor(codes_host, device=dev)
-        result = _reduce_blockwise(arr_flat, codes_flat, agg, size=size, engine=engine)
+        result = _reduce_blockwise(arr_flat, codes_flat, agg, size=size, engine=engine,
+                                   datetime_dtype=datetime_dtype)
 
-    # -- reshape: (..., size) -> (..., *keep_by, *grp_shape) ---------------
-    result = result.reshape(lead_shape + keep_by_shape + grp_shape)
+    # -- reshape: (..., size) -> (*new_dims, ..., *keep_by, *grp_shape) -----
+    result = result.reshape(agg.new_dims() + lead_shape + keep_by_shape + grp_shape)
     groups = tuple(g.values() if isinstance(g, Bins) else np.asarray(g) for g in found_groups)
     return (result,) + groups
 
 
-def _reduce_blockwise(arr_flat, codes_flat, agg: Aggregation, *, size: int, engine: str):
-    """Single-pass eager reduction + finalize."""
+def _check_non_numeric(func, dtype, finalize_kwargs, array_dtype) -> None:
+    """The entry guard of string and object reductions."""
+    if not isinstance(func, str) or func not in _NON_NUMERIC_FUNCS:
+        raise TypeError(
+            f"non-numeric data (dtype {array_dtype}) supports only {_NON_NUMERIC_FUNCS}; "
+            f"got {func!r}"
+        )
+    if dtype is not None:
+        raise TypeError("dtype= is not supported for non-numeric reductions")
+    if finalize_kwargs:
+        raise NotImplementedError("finalize_kwargs are not supported for non-numeric reductions")
+
+
+def _reduce_non_numeric(arr: np.ndarray, bys, func: str, *, fill_value, **passthrough):
+    """first/last/count of string and object data.
+
+    The values cannot live on the device, but their positions can: a
+    float64 position proxy (exact to 2^53 elements) reduces through the
+    normal path (nanmin for first, nanmax for last), and the values are
+    gathered on the host. Returns a numpy object or string array, or for
+    count the count tensor.
+    """
+    valid = ~utils.isnull_host(arr)
+    if func == "count":
+        proxy = np.where(valid, 1.0, np.nan)
+        return groupby_reduce(proxy, *bys, func="count", fill_value=fill_value, **passthrough)
+    pos = np.arange(arr.size, dtype=np.float64).reshape(arr.shape)
+    proxy = np.where(valid, pos, np.nan) if func.startswith("nan") else pos
+    posr, *groups = groupby_reduce(proxy, *bys, func="nanmin" if "first" in func else "nanmax",
+                                   **passthrough)
+    posr = posr.cpu().numpy()
+    empty = ~np.isfinite(posr)
+    out = arr.reshape(-1)[np.where(empty, 0, posr).astype(np.int64)]
+    if empty.any():
+        if out.dtype.kind in "SU":
+            out = out.astype(object)
+        out[empty] = fill_value  # None is a fine missing marker for objects
+    return (out, *groups)
+
+
+def _reduce_blockwise(arr_flat, codes_flat, agg: Aggregation, *, size: int, engine: str,
+                      datetime_dtype=None):
+    """Single-pass eager reduction + finalize. With ``datetime_dtype`` the
+    kernels take ``nat=True`` (INT64_MIN is a missing marker, not a value)
+    and the result comes back as a numpy array of that dtype."""
     numpy_funcs = list(agg.numpy)
     fills: list[Any] = [agg.final_fill_value] * len(numpy_funcs)
     kdtypes: list[Any] = [None] * len(numpy_funcs)
-    kwargss: list[dict] = [dict(agg.finalize_kwargs) for _ in numpy_funcs]
+    base_kwargs = dict(agg.finalize_kwargs)
+    if datetime_dtype is not None:
+        base_kwargs["nat"] = True
+    kwargss: list[dict] = [dict(base_kwargs) for _ in numpy_funcs]
 
     if agg.min_count > 0:
         numpy_funcs.append("nanlen")
         fills.append(0)
         kdtypes.append(None)
-        kwargss.append({})
+        kwargss.append({"nat": True} if datetime_dtype is not None else {})
 
-    # dtype request for the kernel: the final dtype for accumulating funcs
-    if not agg.preserves_dtype and agg.name in ("sum", "nansum", "prod", "nanprod"):
-        kdtypes[0] = agg.final_dtype
-    if agg.name in ("mean", "nanmean", "var", "nanvar", "std", "nanstd") and (
-        agg.final_dtype.is_floating_point
-    ):
-        kdtypes[0] = agg.final_dtype
+    # dtype request for the kernel: the final dtype for accumulating funcs.
+    # Not for datetimes: their data is already float64 with NaT as NaN where
+    # the result is a float, and an int64 request would cast the NaNs to
+    # garbage; the int64 view comes back once, in _astype_final
+    if datetime_dtype is None:
+        if not agg.preserves_dtype and agg.name in ("sum", "nansum", "prod", "nanprod"):
+            kdtypes[0] = agg.final_dtype
+        if agg.name in ("mean", "nanmean", "var", "nanvar", "std", "nanstd") and (
+            agg.final_dtype.is_floating_point
+        ):
+            kdtypes[0] = agg.final_dtype
 
     results = chunk_reduce(
         arr_flat, codes_flat, funcs=numpy_funcs, size=size, fill_values=fills,
@@ -446,7 +525,7 @@ def _reduce_blockwise(arr_flat, codes_flat, agg: Aggregation, *, size: int, engi
         result = results[0]
     if counts is not None:
         result = _where(counts < agg.min_count, agg.final_fill_value, result)
-    return _astype_final(result, agg)
+    return _astype_final(result, agg, datetime_dtype)
 
 
 def _where(cond, fill, x: torch.Tensor) -> torch.Tensor:
@@ -456,7 +535,29 @@ def _where(cond, fill, x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.as_tensor(cond, device=x.device), fill_t, x)
 
 
-def _astype_final(result: torch.Tensor, agg: Aggregation) -> torch.Tensor:
+#: datetime reductions whose result is not a point in time: counts, bools and
+#: variances (ns^2) stay numeric; so do the argreductions' positions
+_DT_KEEP_NUMERIC = frozenset({"count", "len", "any", "all", "var", "nanvar", "std", "nanstd"})
+
+
+def _astype_final(result: torch.Tensor, agg: Aggregation, datetime_dtype=None):
+    if datetime_dtype is not None and agg.preserves_dtype:
+        # int64 end to end; missing groups carry INT64_MIN, which is NaT
+        res = result.cpu().numpy()
+        if res.dtype.kind == "f":  # only through an explicit float fill
+            res = np.where(np.isnan(res), kernels._NAT_INT, res)
+        return res.astype("int64").view(datetime_dtype)
+    if (datetime_dtype is not None and agg.name not in _DT_KEEP_NUMERIC
+            and agg.reduction_type != "argreduce"):
+        # float epoch values of points in time round back, NaN -> NaT
+        res = result.cpu().numpy()
+        if res.dtype.kind == "f":
+            nanmask = np.isnan(res)
+            out = np.round(np.where(nanmask, 0.0, res)).astype("int64")
+            out[nanmask] = kernels._NAT_INT
+        else:
+            out = res.astype("int64")
+        return out.view(datetime_dtype)
     final = agg.final_dtype
     if result.dtype != final:
         # don't downcast float results carrying NaN fills into ints (a bool

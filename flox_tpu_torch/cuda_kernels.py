@@ -91,6 +91,8 @@ def minmax_identity(op: str, dtype: torch.dtype):
     maps to so that it wins — is the other op's identity."""
     if dtype.is_floating_point:
         return float("-inf") if op == "max" else float("inf")
+    if dtype == torch.bool:
+        return op == "min"
     info = torch.iinfo(dtype)
     return info.min if op == "max" else info.max
 

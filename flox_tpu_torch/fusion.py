@@ -133,7 +133,7 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
         if array.dtype.kind in "OSUmM":
             raise NotImplementedError(
                 f"groupby_aggregate_many supports numeric data; got {array.dtype} "
-                "(non-numeric and datetime reductions are ROADMAP A2)"
+                "(datetime/object inputs keep the sequential groupby_reduce path)"
             )
     arr = utils.as_tensor(array, dev)
     if arr.dtype == torch.bool:

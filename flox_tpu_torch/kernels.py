@@ -1,5 +1,5 @@
-"""The "torch" engine: grouped-reduction kernels on tensors (the slice of
-``flox_tpu/kernels.py`` that the eager reductions need).
+"""The "torch" engine: grouped-reduction kernels on tensors (the port of
+``flox_tpu/kernels.py``).
 
 Every function has the plugin signature
 
@@ -26,7 +26,12 @@ counts, min and max) share one kernel pass (``_fused_stats``), and
 float32/bfloat16 grouped cumsums over at most ``pallas_scan_num_groups_max``
 groups (the missing-label group included) go to the segmented-cumsum kernel
 (``_scan_impl_choice``); other scans run a sort plus a log-depth segmented
-scan of torch ops.
+scan of torch ops. Argreductions, first/last and mode take grouped min/max
+of int32 positions and run lengths, so they reach the segment-min/max
+kernel's int32 instance; quantiles run a (code, value) sort or a radix
+select whose counting passes are segment-sums (``quantile_impl``).
+Datetimes arrive as their int64 view with ``nat=True``: INT64_MIN (NaT) is
+then a missing marker, as NaN is for floats.
 
 The sort engine (the last section) serves huge label universes: it compacts
 the codes to the groups actually present and runs the kernels above over a
@@ -64,6 +69,10 @@ __all__ = [
 
 _KERNEL_SUM_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_MINMAX_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+
+#: INT32_MAX: the "no candidate" position of the argreductions, first/last
+#: and mode, and the sort key of a missing label in the sort engine
+_BIG = np.iinfo(np.int32).max
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +204,33 @@ def _fill_empty(out: torch.Tensor, present: torch.Tensor, fill_value) -> torch.T
     return torch.where(present, out, fill)
 
 
-def _nan_mask(array: torch.Tensor):
+#: NaT viewed as int64: datetime64/timedelta64 data reaches the kernels as its
+#: int64 view, and callers pass ``nat=True`` so that this value is missing
+_NAT_INT = np.iinfo(np.int64).min
+
+
+def _nan_mask(array: torch.Tensor, nat: bool = False):
+    """True where a value is present: not NaN for floats, not NaT (INT64_MIN)
+    for the int64 view of datetimes under ``nat``; None when nothing can be
+    missing."""
     if array.is_floating_point() or array.is_complex():
         return ~torch.isnan(array)
-    return None  # non-float: nothing is NaN
+    if nat and array.dtype == torch.int64:
+        return array != _NAT_INT
+    return None
+
+
+def _iota_like(data: torch.Tensor) -> torch.Tensor:
+    """int32 column positions of ``data`` (K, N), broadcast to its shape."""
+    n = data.shape[-1]
+    return torch.arange(n, dtype=torch.int32, device=data.device).expand(data.shape)
+
+
+def _per_element(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Each element's group entry of a (K, size) ``table``, gathered to (K, N)
+    by safe ``codes``; the missing-label segment ``size`` reads 0."""
+    padded = torch.cat([table, table.new_zeros((table.shape[0], 1))], dim=1)
+    return padded.index_select(1, codes)
 
 
 def _maybe_cast(array: torch.Tensor, dtype) -> torch.Tensor:
@@ -218,7 +250,7 @@ def _make_addlike(op: str, identity, skipna: bool):
     def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
         codes = _safe_codes(group_idx, size)
         data, lead = _flat(array)
-        mask = _nan_mask(data) if skipna else None
+        mask = _nan_mask(data, kw.get("nat", False)) if skipna else None
         if mask is not None:
             data = torch.where(mask, data, identity)
         data = _maybe_cast(data, dtype)
@@ -248,17 +280,18 @@ def _make_minmax(op: str, skipna: bool):
         codes = _safe_codes(group_idx, size)
         data, lead = _flat(array)
         data = _maybe_cast(data, dtype)
-        mask = _nan_mask(data)
+        mask = _nan_mask(data, kw.get("nat", False))
         if skipna and mask is not None:
             data = torch.where(mask, data, minmax_identity(op, data.dtype))
         elif not skipna and mask is not None:
-            # NaN propagates through min/max in numpy: map it to the absorbing
-            # element (the other op's identity), then re-inject it from a
-            # per-group has-NaN flag
+            # NaN (NaT) propagates through min/max in numpy: map it to the
+            # absorbing element (the other op's identity), then re-inject the
+            # missing marker from a per-group has-NaN flag
             has_nan = _seg("max", (~mask).to(torch.int8), codes, size) > 0
             data = torch.where(mask, data, minmax_identity(other, data.dtype))
             out = _seg(op, data, codes, size)
-            out = torch.where(has_nan, float("nan"), out)
+            out = torch.where(has_nan, float("nan") if out.is_floating_point() else _NAT_INT,
+                              out)
             out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
             return _unflat(out, lead)
         out = _seg(op, data, codes, size)
@@ -279,7 +312,7 @@ def nanlen(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw
     """Count of non-NaN elements per group."""
     codes = _safe_codes(group_idx, size)
     data, lead = _flat(array)
-    mask = _nan_mask(data)
+    mask = _nan_mask(data, kw.get("nat", False))
     out = _counts(codes, size, mask=mask, dtype=utils.torch_dtype(dtype or torch.int32))
     if mask is None:
         out = out.expand(data.shape[0], size)
@@ -450,8 +483,7 @@ def _var_stats(group_idx, array, *, size, dtype, skipna):
     # gather each element's group mean (the sink segment reads 0) and
     # accumulate squared deviations; bf16 - f32 promotes to f32, so the
     # accumulation stays f32 end to end
-    padded = torch.cat([mean_g, mean_g.new_zeros((mean_g.shape[0], 1))], dim=1)
-    dev = zdata - padded.index_select(1, codes)
+    dev = zdata - _per_element(mean_g, codes)
     if mask is not None:
         dev = torch.where(mask, dev, 0)
     m2 = _seg("sum", dev * dev, codes, size)
@@ -520,6 +552,507 @@ any_ = _make_boolred("max", False)
 
 
 # ---------------------------------------------------------------------------
+# argreductions and positional first/last
+#
+# Positions are int32 column indices along the reduced axis, so the grouped
+# min/max of a position array reaches the segment-min/max kernel's int32
+# instance; _BIG (INT32_MAX) is the "no candidate" position.
+# ---------------------------------------------------------------------------
+
+
+def _where_fill(keep: torch.Tensor, out: torch.Tensor, fill) -> torch.Tensor:
+    """``out`` where ``keep``, else ``fill``, with jnp.where's promotion of a
+    Python float fill: an integer result becomes float64 rather than
+    truncating the fill."""
+    if isinstance(fill, (float, np.floating)) and not (out.is_floating_point()
+                                                        or out.is_complex()):
+        out = out.to(torch.float64)
+    return torch.where(keep, out, torch.tensor(fill).to(dtype=out.dtype, device=out.device))
+
+
+def _arg_impl(group_idx, array, *, size, fill_value, skipna, arg_of_max, nat=False):
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    mask = _nan_mask(data, nat)
+    op = "max" if arg_of_max else "min"
+    key = data
+    if mask is not None:
+        if skipna:
+            key = torch.where(mask, data, minmax_identity(op, data.dtype))
+        else:
+            # numpy's rule: the FIRST NaN (NaT) position wins outright, even
+            # over a group's ±inf (np.argmax([inf, nan]) == 1). NaNs leave the
+            # value race here and come back as a position override below.
+            key = torch.where(mask, data, minmax_identity("min" if arg_of_max else "max",
+                                                          data.dtype))
+    best = _seg(op, key, codes, size)
+    iota = _iota_like(key)
+    cand = torch.where(key == _per_element(best, codes), iota, _BIG)
+    del best
+    if skipna and mask is not None:
+        cand = torch.where(mask, cand, _BIG)
+    out = _seg("min", cand, codes, size)
+    del cand
+    if not skipna and mask is not None:
+        first_nan = _seg("min", torch.where(mask, _BIG, iota), codes, size)
+        out = torch.where(first_nan < _BIG, first_nan, out)
+    present = _counts(codes, size, mask=mask if skipna else None) > 0
+    out = _where_fill(present & (out < _BIG), out, -1 if fill_value is None else fill_value)
+    return _unflat(out, lead)
+
+
+def _arg_entry(skipna: bool, arg_of_max: bool):
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        return _arg_impl(group_idx, array, size=size, fill_value=fill_value, skipna=skipna,
+                         arg_of_max=arg_of_max, nat=kw.get("nat", False))
+
+    return kernel
+
+
+argmax = _arg_entry(skipna=False, arg_of_max=True)
+argmin = _arg_entry(skipna=False, arg_of_max=False)
+nanargmax = _arg_entry(skipna=True, arg_of_max=True)
+nanargmin = _arg_entry(skipna=True, arg_of_max=False)
+
+
+def _default_fill(dtype: torch.dtype, fill_value):
+    """The missing value of a positional result: NaN for floats, 0 else."""
+    if fill_value is not None:
+        return fill_value
+    return float("nan") if dtype.is_floating_point or dtype.is_complex else 0
+
+
+def _firstlast_impl(group_idx, array, *, size, fill_value, skipna, last, nat=False):
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    mask = _nan_mask(data, nat) if skipna else None
+    iota = _iota_like(data)
+    if mask is not None:
+        iota = torch.where(mask, iota, -1 if last else _BIG)
+    pos = _seg("max" if last else "min", iota, codes, size)
+    valid = (pos >= 0) & (pos < _BIG)
+    out = _gather_positions(data, pos)
+    return _unflat(_fill_empty(out, valid, _default_fill(out.dtype, fill_value)), lead)
+
+
+def _gather_positions(data: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``data`` (K, N) read at the (K, size) positions ``pos``, clipped into
+    [0, N); a zero-length N reads zeros (every group is empty there)."""
+    n = data.shape[-1]
+    if n == 0:
+        return data.new_zeros(pos.shape)
+    return torch.gather(data, 1, pos.clamp(0, n - 1).to(torch.int64))
+
+
+def _firstlast_entry(skipna: bool, last: bool):
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        return _firstlast_impl(group_idx, array, size=size, fill_value=fill_value,
+                               skipna=skipna, last=last, nat=kw.get("nat", False))
+
+    return kernel
+
+
+first = _firstlast_entry(skipna=False, last=False)
+last = _firstlast_entry(skipna=False, last=True)
+nanfirst = _firstlast_entry(skipna=True, last=False)
+nanlast = _firstlast_entry(skipna=True, last=True)
+
+
+# ---------------------------------------------------------------------------
+# order statistics: quantile, median and mode
+#
+# Two routes give the same order statistics (``quantile_impl``):
+#
+# * "sort": a lexicographic (code, value) sort of each row (``_group_sort``),
+#   in the order of the reference's ``lax.sort``: -0.0 ties +0.0, every NaN
+#   sorts last within its group, ties keep their column order. Torch ops
+#   only, as the reference's own sort is XLA's.
+# * "select": an MSB radix bisection over the monotonic integer view of the
+#   data (``_radix_select``), no sort: per bit one counting pass, a
+#   segment-sum of float32 0/1 predicates, which is the segment-sum kernel on
+#   the card. The monotonic view orders -0.0 below +0.0.
+#
+# Rows are independent, so both run over blocks of rows whose working set
+# stays under a byte budget: the results are the same as in one piece.
+# ---------------------------------------------------------------------------
+
+#: working-set budget of one row block of the order statistics, in bytes
+_ORDER_BLOCK_BYTES = 8 << 30
+
+
+def _row_blocks(k: int, bytes_per_row: int):
+    """Row slices of a (k, N) array whose working set, ``bytes_per_row`` a
+    row, stays within :data:`_ORDER_BLOCK_BYTES` (at least one row each)."""
+    rows = max(1, _ORDER_BLOCK_BYTES // max(bytes_per_row, 1))
+    for r0 in range(0, k, rows):
+        yield slice(r0, min(k, r0 + rows))
+
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _signed_sort_key(data: torch.Tensor) -> torch.Tensor:
+    """A signed integer of ``data``'s width whose order is the reference
+    sort's order of the values: floats through the IEEE sign trick, with
+    -0.0 keyed as +0.0 and every NaN, whatever its sign and payload, as the
+    largest key (above +inf); integers and bools as they are."""
+    if not data.is_floating_point():
+        return data.to(torch.uint8) if data.dtype == torch.bool else data
+    nbits = 8 * data.element_size()
+    top = (1 << (nbits - 1)) - 1
+    bits = data.view(_INT_OF_WIDTH[data.element_size()])
+    # negatives: flip every bit but the sign, so larger magnitudes sort lower
+    key = bits ^ ((bits >> (nbits - 1)) & top)
+    key = torch.where(data == 0, 0, key)  # -0.0 ties +0.0
+    return torch.where(torch.isnan(data), top, key)  # every NaN one key, above +inf
+
+
+def _group_sort(codes: torch.Tensor, data: torch.Tensor):
+    """Sort each row of ``data`` (K, N) by (code, value), stably, in the
+    reference's order. Returns the sorted codes (N,), the same for every
+    row, and the permutation (K, N) int64 that sorts each row.
+
+    Data of up to 32 bits sorts once, on one int64 key ``code << 32 | value
+    key``; 64-bit data sorts by value, then stably by code.
+    """
+    sorted_codes = torch.sort(codes, stable=True).values
+    key = _signed_sort_key(data)
+    width = key.element_size()
+    if width <= 4:
+        nbits = 8 * width
+        offset = 0 if key.dtype == torch.uint8 else 1 << (nbits - 1)
+        key = (codes.to(torch.int64) << 32) + key.to(torch.int64) + offset
+        return sorted_codes, torch.sort(key, dim=-1, stable=True).indices
+    by_value = torch.sort(key, dim=-1, stable=True).indices
+    del key
+    by_code = torch.sort(codes[by_value], dim=-1, stable=True).indices
+    return sorted_codes, by_value.gather(1, by_code)
+
+
+def _monotonic_key(data: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_monotonic_uint`` bits in a signed integer of the
+    same width: floats through the IEEE sign trick (negatives invert, others
+    set the sign bit: unsigned order is total order, NaN above +inf), signed
+    integers with the sign bit flipped, uint8 as it is. The bisection only
+    tests ``key >> b == prefix >> b``, which holds under an arithmetic shift
+    exactly when it holds under a logical one, so no unsigned type is
+    needed."""
+    it = _INT_OF_WIDTH[data.element_size()]
+    nbits = 8 * data.element_size()
+    sign = -(1 << (nbits - 1))
+    bits = data.view(it)
+    if data.is_floating_point():
+        return torch.where(bits < 0, ~bits, bits | sign)
+    if data.dtype == torch.uint8:
+        return bits
+    return bits ^ sign
+
+
+def _key_to_value(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`_monotonic_key` (the reference's ``_uint_to_value``)."""
+    nbits = 8 * key.element_size()
+    sign = -(1 << (nbits - 1))
+    if dtype.is_floating_point:
+        bits = torch.where(key < 0, key ^ sign, ~key)
+    elif dtype == torch.uint8:
+        bits = key
+    else:
+        bits = key ^ sign
+    return bits.view(dtype)
+
+
+def _valid_keys(data: torch.Tensor, valid_mask) -> torch.Tensor:
+    """Monotonic keys with invalid lanes parked at the all-ones key: every
+    valid key is below it, so a rank among the valid elements never lands
+    on one."""
+    keys = _monotonic_key(data)
+    if valid_mask is not None:
+        keys = torch.where(valid_mask, keys, -1)
+    return keys
+
+
+def _bit(b: int, nbits: int) -> int:
+    """Bit ``b`` of an ``nbits``-wide signed integer, as a Python int."""
+    return -(1 << b) if b == nbits - 1 else 1 << b
+
+
+def _radix_pass_count(keys, codes, size: int, prefix, b: int, cdtype) -> torch.Tensor:
+    """One counting pass: per rank lane, how many of each group's elements
+    lie in the candidate subtree whose bits above ``b`` match the prefix and
+    whose bit ``b`` is 0. ``keys`` (K, N), ``prefix`` (m, K, size); the m
+    lanes' predicates stack into one (m*K, N) segment-sum, so every lane
+    shares the pass. Returns int32 (m, K, size)."""
+    m, k, _ = prefix.shape
+    table = torch.cat([prefix >> b, prefix.new_zeros((m, k, 1))], dim=2)
+    pred = (keys >> b).unsqueeze(0) == table.index_select(2, codes)
+    del table
+    cnt = _seg("sum", pred.to(cdtype).reshape(m * k, -1), codes, size)
+    return cnt.reshape(m, k, size).to(torch.int32)
+
+
+def _radix_update(prefix, rank, cnt, b: int):
+    """Bisection step: lanes whose rank falls past the zero-subtree count
+    descend into the one-subtree (set bit ``b``, discount the count)."""
+    take_hi = rank >= cnt
+    bit = _bit(b, 8 * prefix.element_size())
+    return torch.where(take_hi, prefix | bit, prefix), torch.where(take_hi, rank - cnt, rank)
+
+
+def _radix_select(data, codes, size: int, ranks, valid_mask) -> torch.Tensor:
+    """Exact per-group order statistics without a sort (the reference's
+    ``_radix_select``, its mesh ``axis_name`` aside): ``ranks`` (m, K, size)
+    holds m sets of 0-based within-group ranks among the valid elements of
+    ``data`` (K, N); returns the rank-th smallest valid values, (m, K,
+    size), bit for bit the sorted data at those ranks (-0.0 below +0.0).
+
+    One counting pass per bit of the data's width: a segment-sum over N of
+    0/1 predicates, float32 while N < 2^24 (exact there; the segment-sum
+    kernel on the card), int32 past it."""
+    nbits = 8 * data.element_size()
+    keys = _valid_keys(data, valid_mask)
+    cdtype = torch.float32 if data.shape[-1] < 2**24 else torch.int32
+    prefix = torch.zeros(ranks.shape, dtype=keys.dtype, device=keys.device)
+    rank = ranks.to(torch.int32)
+    for b in range(nbits - 1, -1, -1):
+        cnt = _radix_pass_count(keys, codes, size, prefix, b, cdtype)
+        prefix, rank = _radix_update(prefix, rank, cnt, b)
+    return _key_to_value(prefix, data.dtype)
+
+
+# numpy's (alpha, beta) plotting positions of the continuous methods:
+# h = q (n + 1 - alpha - beta) + alpha - 1, clipped to [0, n - 1], linearly
+# interpolated. The discrete methods derive from the linear h.
+_ALPHA_BETA = {
+    "linear": (1.0, 1.0),
+    "hazen": (0.5, 0.5),
+    "weibull": (0.0, 0.0),
+    "interpolated_inverted_cdf": (0.0, 1.0),
+    "median_unbiased": (1 / 3, 1 / 3),
+    "normal_unbiased": (3 / 8, 3 / 8),
+}
+_DISCRETE_METHODS = ("lower", "higher", "nearest", "midpoint")
+
+
+def _quantile_alpha_beta(method: str):
+    if method in _ALPHA_BETA:
+        return _ALPHA_BETA[method]
+    if method in _DISCRETE_METHODS:
+        return 1.0, 1.0
+    raise ValueError(
+        f"Unsupported quantile method {method!r}; supported: "
+        f"{sorted(_ALPHA_BETA) + list(_DISCRETE_METHODS)}"
+    )
+
+
+def _quantile_pos(qi: float, nnf: torch.Tensor, alpha: float, beta: float):
+    """The within-group virtual index h of ``qi`` (float64) and its floor and
+    ceiling (int64)."""
+    pos = qi * (nnf + 1 - alpha - beta) + (alpha - 1)
+    pos = torch.minimum(pos.clamp(min=0), (nnf - 1).clamp(min=0))
+    return pos, torch.floor(pos).to(torch.int64), torch.ceil(pos).to(torch.int64)
+
+
+def _quantile_rank_sets(qs, nnf, method: str, alpha: float, beta: float):
+    """Every within-group rank the bisection selects, across all q (each
+    counting pass serves every lane), and per q the meta ``(pos, lo_in, ia,
+    ib)`` of its interpolation."""
+    rank_list: list = []
+    meta = []
+    for qi in qs:
+        pos, lo_in, hi_in = _quantile_pos(qi, nnf, alpha, beta)
+        ia = ib = len(rank_list)
+        if method == "nearest":
+            rank_list.append(torch.round(pos).to(torch.int64))  # half to even, as numpy
+        elif method == "lower":
+            rank_list.append(lo_in)
+        elif method == "higher":
+            rank_list.append(hi_in)
+        else:
+            ib = ia + 1
+            rank_list += [lo_in, hi_in]
+        meta.append((pos, lo_in, ia, ib))
+    return torch.stack(rank_list), meta
+
+
+def _interp(method: str, pos, lo_in, v_lo, v_hi):
+    """One q's value from its lower and upper order statistics, in the data
+    dtype (``nearest`` and ``lower`` read ``v_lo``)."""
+    if method in ("lower", "nearest"):
+        return v_lo
+    if method == "higher":
+        return v_hi
+    if method == "midpoint":
+        return (v_lo + v_hi) / 2
+    frac = (pos - lo_in).to(v_lo.dtype)
+    return v_lo + frac * (v_hi - v_lo)
+
+
+def _quantile_impl_choice() -> str:
+    """"sort" or "select" for grouped order statistics; "auto" is the sort."""
+    policy = OPTIONS["quantile_impl"]
+    return "sort" if policy == "auto" else policy
+
+
+def _quantile_block(codes, data, qs, *, size: int, skipna: bool, method: str, fill_value,
+                    select: bool) -> torch.Tensor:
+    """The quantiles ``qs`` of one row block ``data`` (Kb, N): (nq, Kb, size)."""
+    mask = _nan_mask(data)
+    group_has_nan = None
+    if not skipna and mask is not None:
+        group_has_nan = _seg("max", (~mask).to(torch.int8), codes, size) > 0
+    # index arithmetic in float64, never the data dtype: bfloat16 cannot
+    # even hold odd counts above 256
+    nnf = _counts(codes, size, mask=mask).to(torch.float64).expand(data.shape[0], size)
+    alpha, beta = _quantile_alpha_beta(method)
+    fv = float("nan") if fill_value is None else fill_value
+    fill = torch.tensor(fv).to(dtype=data.dtype, device=data.device)
+    if select:
+        ranks, meta = _quantile_rank_sets(qs, nnf, method, alpha, beta)
+        selected = _radix_select(data, codes, size, ranks, mask)
+        vals = [_interp(method, pos, lo_in, selected[ia], selected[ib])
+                for pos, lo_in, ia, ib in meta]
+    else:
+        _, perm = _group_sort(codes, data)
+        full_counts = torch.bincount(codes, minlength=size + 1)[:size]
+        offsets = torch.cumsum(full_counts, 0) - full_counts  # exclusive, int64
+        nmax = data.shape[-1]
+
+        def at(within):  # the sorted data at within-group ranks (Kb, size)
+            return _gather_positions(data, perm.gather(1, (offsets + within).clamp(0, nmax - 1)))
+
+        vals = []
+        for qi in qs:
+            pos, lo_in, hi_in = _quantile_pos(qi, nnf, alpha, beta)
+            if method == "nearest":  # the virtual index rounds half to even, as numpy's
+                vals.append(at(torch.round(pos).to(torch.int64)))
+            else:
+                vals.append(_interp(method, pos, lo_in, at(lo_in), at(hi_in)))
+    out = []
+    for val in vals:
+        val = torch.where(nnf <= 0, fill, val)
+        if group_has_nan is not None:
+            val = torch.where(group_has_nan, float("nan"), val)
+        out.append(val)
+    return torch.stack(out)
+
+
+def _quantile_rows(data: torch.Tensor, nq: int, method: str, select: bool) -> list:
+    """The row blocks of a quantile call on ``data`` (K, N): a row's working
+    set is, per rank lane, the select path's gathered prefixes and 0/1
+    predicate (bool and float32), or the sort path's int64 key, sorted key,
+    permutation and the sort's scratch."""
+    k, n = data.shape
+    lanes = nq * (1 if method in ("lower", "higher", "nearest") else 2)
+    per_row = n * (lanes * (data.element_size() + 5) if select else 40)
+    return list(_row_blocks(k, per_row))
+
+
+def _quantile_impl(group_idx, array, *, size, fill_value, dtype, q, skipna, method="linear",
+                   axis_name=None):
+    if axis_name is not None:
+        raise NotImplementedError(
+            "quantile over a mesh axis (axis_name=) is the multi-device runtime; ROADMAP A7"
+        )
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    if not data.is_floating_point():
+        data = data.to(utils.torch_dtype(dtype) if dtype is not None else torch.float64)
+    qs = np.atleast_1d(np.asarray(q, dtype=np.float64))
+    _quantile_alpha_beta(method)  # an unknown method raises before any work
+    select = _quantile_impl_choice() == "select"
+    k, n = data.shape
+    if k == 0 or n == 0:  # every group is empty
+        fv = float("nan") if fill_value is None else fill_value
+        out = torch.full((len(qs), k, size), fv, dtype=data.dtype, device=data.device)
+    else:
+        out = torch.cat([
+            _quantile_block(codes, data[rows], qs, size=size, skipna=skipna, method=method,
+                            fill_value=fill_value, select=select)
+            for rows in _quantile_rows(data, len(qs), method, select)
+        ], dim=1)
+    out = out.reshape((len(qs),) + lead + (size,))
+    return out[0] if np.ndim(q) == 0 else out
+
+
+def _quantile_entry(skipna: bool, median: bool):
+    def kernel(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, q=None,
+               method="linear", axis_name=None, **kw):
+        if median:
+            q, method = 0.5, "linear"
+        elif q is None:
+            raise TypeError("quantile needs q= (finalize_kwargs={'q': ...})")
+        return _quantile_impl(group_idx, array, size=size, fill_value=fill_value, dtype=dtype,
+                              q=q, skipna=skipna, method=method, axis_name=axis_name)
+
+    return kernel
+
+
+quantile = _quantile_entry(skipna=False, median=False)
+nanquantile = _quantile_entry(skipna=True, median=False)
+median = _quantile_entry(skipna=False, median=True)
+nanmedian = _quantile_entry(skipna=True, median=True)
+
+
+def _mode_runs(codes: torch.Tensor, data: torch.Tensor, skipna: bool):
+    """One row block of the mode: the group-sorted data (Kb, N) and each
+    sorted position's run length (int32; -1 at NaN under skipna). A run is a
+    maximal stretch of equal values within a group; without skipna all of a
+    group's NaNs form one run (scipy.stats.mode's "propagate", via
+    np.unique's equal_nan)."""
+    sorted_codes, perm = _group_sort(codes, data)
+    sdata = data.gather(1, perm)
+    del perm
+    n = sdata.shape[-1]
+    smask = ~torch.isnan(sdata) if sdata.is_floating_point() else None
+    val_same = sdata[:, 1:] == sdata[:, :-1]
+    if smask is not None and not skipna:
+        val_same |= ~smask[:, 1:] & ~smask[:, :-1]  # NaNs sort last: one run
+    prev_same = torch.cat([torch.zeros_like(val_same[:, :1]),
+                           val_same & (sorted_codes[1:] == sorted_codes[:-1])], dim=1)
+    del val_same
+    iota = _iota_like(sdata)
+    run_start = torch.cummax(torch.where(prev_same, -1, iota), dim=1).values
+    next_same = torch.cat([prev_same[:, 1:], torch.zeros_like(prev_same[:, :1])], dim=1)
+    del prev_same
+    run_end = torch.cummin(torch.where(next_same, n, iota).flip(1), dim=1).values.flip(1)
+    run_len = run_end - run_start + 1
+    if smask is not None and skipna:
+        run_len = torch.where(smask, run_len, -1)
+    return sdata, run_len
+
+
+def _mode_impl(group_idx, array, *, size, fill_value, skipna):
+    codes = _safe_codes(group_idx, size)
+    data, lead = _flat(array)
+    k, n = data.shape
+    # the sort runs in row blocks (a row element holds the int64 key, sorted
+    # key and permutation, the cummax/cummin values and int64 indices); the
+    # run lengths of all rows then meet in two full-width segment-min/max
+    # passes (int32)
+    sdata = torch.empty_like(data)
+    run_len = torch.empty(data.shape, dtype=torch.int32, device=data.device)
+    sorted_codes = torch.sort(codes, stable=True).values
+    for rows in _row_blocks(k, 48 * n):
+        sdata[rows], run_len[rows] = _mode_runs(codes, data[rows], skipna)
+    best = _seg("max", run_len, sorted_codes, size)
+    iota = _iota_like(run_len)
+    cand = torch.where((run_len == _per_element(best, sorted_codes)) & (run_len > 0), iota, _BIG)
+    del best, run_len
+    pos = _seg("min", cand, sorted_codes, size)
+    del cand
+    out = _gather_positions(sdata, pos)
+    return _unflat(_fill_empty(out, pos < _BIG, _default_fill(out.dtype, fill_value)), lead)
+
+
+def mode(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+    return _mode_impl(group_idx, array, size=size, fill_value=fill_value, skipna=False)
+
+
+def nanmode(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+    return _mode_impl(group_idx, array, size=size, fill_value=fill_value, skipna=True)
+
+
+# ---------------------------------------------------------------------------
 # grouped scans
 #
 # float32/bfloat16 cumsums over few groups run the segmented-cumsum kernel in
@@ -571,49 +1104,60 @@ def _grouped_scan_setup(codes: torch.Tensor, data: torch.Tensor):
     return data.index_select(1, perm), starts, inv
 
 
-def _cumsum_impl(group_idx, array, *, size, dtype, skipna):
+def _cumsum_impl(group_idx, array, *, size, dtype, skipna, nat=False):
     data, lead = _flat(array)
     cast = _maybe_cast(data, dtype)
-    if _scan_impl_choice(cast, size) == "kernel":
+    if not nat and _scan_impl_choice(cast, size) == "kernel":
         codes = group_idx.reshape(-1).to(data.device)
         return _unflat(cuda_kernels.segment_cumsum(cast, codes, size, skipna), lead)
     sorted_data, flags, inv = _grouped_scan_setup(group_idx, data)
-    mask = _nan_mask(sorted_data) if skipna else None
+    # nat: the int64 view of timedeltas, NaT = INT64_MIN. Unlike NaN, the
+    # marker does not propagate through +, so it is masked out of the running
+    # sum and, without skipna, re-applied from the first NaT of a group on
+    # (numpy's cumsum of a NaT timedelta is NaT thereafter)
+    mask = _nan_mask(sorted_data, nat) if (skipna or nat) else None
     vals = sorted_data if mask is None else torch.where(mask, sorted_data, 0)
     vals = _maybe_cast(vals, dtype)
     out_dtype = vals.dtype
     if vals.is_floating_point():
         vals = vals.to(_acc_dtype(vals.dtype))  # a bf16 running sum saturates
-    scanned = _segmented_scan(vals, flags, torch.add).to(out_dtype)
-    return _unflat(scanned.index_select(1, inv), lead)
+    scanned = _segmented_scan(vals, flags, torch.add)
+    if nat and not skipna and mask is not None:
+        seen_missing = _segmented_scan((~mask).to(torch.int32), flags, torch.maximum)
+        scanned = torch.where(seen_missing > 0, _NAT_INT, scanned)
+    return _unflat(scanned.to(out_dtype).index_select(1, inv), lead)
 
 
 def cumsum(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
-    return _cumsum_impl(group_idx, array, size=size, dtype=dtype, skipna=False)
+    return _cumsum_impl(group_idx, array, size=size, dtype=dtype, skipna=False,
+                        nat=kw.get("nat", False))
 
 
 def nancumsum(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
-    return _cumsum_impl(group_idx, array, size=size, dtype=dtype, skipna=True)
+    return _cumsum_impl(group_idx, array, size=size, dtype=dtype, skipna=True,
+                        nat=kw.get("nat", False))
 
 
-def _ffill_impl(group_idx, array, *, reverse: bool):
+def _ffill_impl(group_idx, array, *, reverse: bool, nat: bool = False):
     """Each missing value takes the last valid value before it in its group
     (bfill: after it). The last valid index is a running max of the masked
     iota over the code-sorted axis; it belongs to the group when it is not
-    before the start of the position's run."""
+    before the start of the position's run. With no valid value before it a
+    position stays missing: NaN, or NaT for the int64 view of datetimes."""
     data, lead = _flat(array)
     codes = group_idx.reshape(-1)
     if reverse:
         codes, data = codes.flip(0), data.flip(-1)
     sorted_data, starts, inv = _grouped_scan_setup(codes, data)
-    mask = _nan_mask(sorted_data)
+    mask = _nan_mask(sorted_data, nat)
     out = sorted_data
     if mask is not None:
         iota = torch.arange(sorted_data.shape[-1], device=data.device)
         last_valid = torch.cummax(torch.where(mask, iota, -1), dim=-1).values
         run_start = torch.cummax(torch.where(starts, iota, 0), dim=0).values
         gathered = torch.gather(sorted_data, 1, last_valid.clamp(min=0))
-        out = torch.where(last_valid >= run_start, gathered, float("nan"))
+        missing = float("nan") if sorted_data.is_floating_point() else _NAT_INT
+        out = torch.where(last_valid >= run_start, gathered, missing)
     out = out.index_select(1, inv)
     if reverse:
         out = out.flip(-1)
@@ -621,11 +1165,11 @@ def _ffill_impl(group_idx, array, *, reverse: bool):
 
 
 def ffill(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
-    return _ffill_impl(group_idx, array, reverse=False)
+    return _ffill_impl(group_idx, array, reverse=False, nat=kw.get("nat", False))
 
 
 def bfill(group_idx, array, *, axis=-1, size=None, fill_value=None, dtype=None, **kw):
-    return _ffill_impl(group_idx, array, reverse=True)
+    return _ffill_impl(group_idx, array, reverse=True, nat=kw.get("nat", False))
 
 
 KERNELS: dict[str, Callable[..., Any]] = {
@@ -649,6 +1193,20 @@ KERNELS: dict[str, Callable[..., Any]] = {
     "len": len_,
     "all": all_,
     "any": any_,
+    "argmax": argmax,
+    "argmin": argmin,
+    "nanargmax": nanargmax,
+    "nanargmin": nanargmin,
+    "first": first,
+    "last": last,
+    "nanfirst": nanfirst,
+    "nanlast": nanlast,
+    "median": median,
+    "nanmedian": nanmedian,
+    "quantile": quantile,
+    "nanquantile": nanquantile,
+    "mode": mode,
+    "nanmode": nanmode,
     "cumsum": cumsum,
     "nancumsum": nancumsum,
     "ffill": ffill,
@@ -682,10 +1240,6 @@ _PRESENT_CACHE_MAX = 64
 #: capacity bands are powers of two, so calls whose present-group counts
 #: drift reuse the same shapes
 _PRESENT_CAP_MIN = 8
-
-#: the sort key of a missing label: after every valid code
-_BIG = np.iinfo(np.int32).max
-
 
 def _codes_fingerprint(codes: np.ndarray, size: int) -> tuple:
     """Content key of the present-table memo: blake2b over the code bytes,
@@ -746,8 +1300,11 @@ def scatter_present_dense(result_c: torch.Tensor, present: np.ndarray, size: int
     exists on the device. Absent groups take the compact result's first pad
     slot, an empty group that went through the same kernels and finalize.
     Returns a CPU tensor of the result's dtype (bfloat16 moves as its bits:
-    the scatter only copies values).
+    the scatter only copies values), or for a numpy (datetime) result a
+    numpy array.
     """
+    if isinstance(result_c, np.ndarray):
+        return PresentGroups(present, result_c, size).scatter_dense()
     host = result_c.detach().cpu()
     if host.dtype == torch.bfloat16:
         bits = PresentGroups(present, host.view(torch.int16).numpy(), size).scatter_dense()
@@ -807,9 +1364,6 @@ def generic_kernel(func: str, group_idx, array, **kwargs):
     try:
         fn = KERNELS[func]
     except KeyError:
-        raise NotImplementedError(
-            f"the torch engine has no kernel for {func!r} yet; it comes with the rest "
-            "of the reduction family (ROADMAP A2)"
-        ) from None
+        raise NotImplementedError(f"the torch engine has no kernel for {func!r}") from None
     return fn(group_idx, array, **kwargs)
 

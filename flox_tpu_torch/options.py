@@ -57,6 +57,12 @@ OPTIONS: dict[str, Any] = {
     # group-count ceiling of the segmented-cumsum kernel, the missing-label
     # group included: its per-group carries sit in shared memory
     "pallas_scan_num_groups_max": 128,
+    # grouped order statistics (quantile, median): "sort" is a lexicographic
+    # (code, value) sort of each row; "select" is the sort-free radix
+    # bisection, one counting segment-sum (the segment-sum kernel) per bit
+    # of the data's width; "auto" resolves to "sort", as in the reference
+    # with its measured dispatch off
+    "quantile_impl": "auto",
 }
 
 _IMPLS = ("auto", "scatter", "kernel")
@@ -78,6 +84,7 @@ _VALIDATORS = {
     "pallas_minmax_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
     "scan_impl": lambda x: x in ("auto", "segmented", "kernel"),
     "pallas_scan_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
+    "quantile_impl": lambda x: x in ("auto", "sort", "select"),
 }
 
 

@@ -8,7 +8,9 @@ span more dims than the scan axis get disjoint code ranges per row
 rows. float32/bfloat16 cumsums over few groups run the segmented-cumsum
 kernel (``cuda_kernels.segment_cumsum``); the rest run the sort plus log-depth
 segmented scan of torch ops (``kernels._segmented_scan``). Positions with a
-missing label come out NaN.
+missing label come out NaN. Datetime64/timedelta64 data scans on its exact
+int64 view with NaT as the missing marker and comes back as a numpy array of
+its dtype (torch has none).
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import factorize as fct, utils
+from . import dtypes, factorize as fct, utils
 from .aggregations import Scan, _initialize_scan, generic_aggregate
 from .core import _choose_engine, _convert_expected, _normalize_expected, _normalize_isbin
+from .kernels import _NAT_INT
 
 __all__ = ["groupby_scan"]
 
@@ -84,14 +87,15 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
     nby = len(by)
     bys = [utils.asarray_host(b) for b in by]
     bys = list(np.broadcast_arrays(*bys)) if nby > 1 else bys
+    datetime_dtype = None
     if not isinstance(array, torch.Tensor):
         array = np.asarray(array)
-        if array.dtype.kind in "mM":
-            raise NotImplementedError(
-                "datetime/timedelta scans (the NaT channel) are not ported yet; ROADMAP A2"
-            )
         if array.dtype.kind in "OSU":
             raise NotImplementedError(f"scans of {array.dtype} data are not supported")
+        if dtypes.is_datetime_like(array.dtype):
+            _check_datetime_scan(_initialize_scan(func), array.dtype, dtype)
+            # the exact int64 view (float64 would lose nanoseconds)
+            datetime_dtype, array = array.dtype, array.view("int64")
     arr = utils.as_tensor(array, dev)
 
     bndim = bys[0].ndim
@@ -127,29 +131,51 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
     arr_flat = arr.reshape(lead_shape + (span,))
 
     scan = _initialize_scan(func)
-    if scan.name in ("cumsum", "nancumsum") and dtype is None:
+    if scan.name in ("cumsum", "nancumsum") and dtype is None and datetime_dtype is None:
         np_dtype = utils.numpy_dtype(arr.dtype)
         if np_dtype.kind in "iub":  # numpy promotes small ints (and bools) to int_
             dtype = utils.torch_dtype(np.result_type(np_dtype, np.int_))
 
+    nat = datetime_dtype is not None
     out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=dev), size=size,
-                      engine=engine, dtype=dtype)
+                      engine=engine, dtype=dtype, nat=nat)
 
     nanmask = codes_flat < 0
     if nanmask.any():  # missing labels belong to no group
-        out = _mask_positions(out, torch.as_tensor(nanmask, device=dev))
+        out = _mask_positions(out, torch.as_tensor(nanmask, device=dev), nat=nat)
     out = out.reshape(lead_shape + bys[0].shape)
     if arr_order is not None:
         out = out.permute(tuple(np.argsort(arr_order)))
+    if nat:
+        return out.cpu().numpy().view(datetime_dtype)
     return out
 
 
-def _apply_scan(scan: Scan, arr_flat, codes_flat, *, size, engine, dtype):
+def _check_datetime_scan(scan: Scan, array_dtype: np.dtype, dtype) -> None:
+    """The guards of a datetime64/timedelta64 scan."""
+    if scan.name in ("cumsum", "nancumsum") and array_dtype.kind == "M":
+        raise TypeError(
+            "cumsum of datetime64 values is undefined (numpy cannot add points in "
+            "time); cumsum timedelta64 works."
+        )
+    if dtype is not None:
+        raise TypeError(
+            "dtype= is not supported for datetime/timedelta scans; the scan runs on the "
+            f"exact int64 view and returns {array_dtype} unchanged."
+        )
+
+
+def _apply_scan(scan: Scan, arr_flat, codes_flat, *, size, engine, dtype, nat=False):
+    kwargs = {"nat": True} if nat else {}
     return generic_aggregate(codes_flat, arr_flat, engine=engine, func=scan.scan, size=size,
-                             dtype=dtype)
+                             dtype=dtype, **kwargs)
 
 
-def _mask_positions(out: torch.Tensor, nanmask: torch.Tensor) -> torch.Tensor:
+def _mask_positions(out: torch.Tensor, nanmask: torch.Tensor, nat: bool = False) -> torch.Tensor:
+    """Positions with a missing label: NaN, or NaT on the int64 view of
+    datetimes."""
+    if nat:
+        return torch.where(nanmask, _NAT_INT, out)
     if not out.is_floating_point():
         out = out.to(torch.float64)
     return torch.where(nanmask, float("nan"), out)

@@ -98,17 +98,29 @@ def torch_dtype(dtype: Any) -> torch.dtype:
         raise TypeError(f"unsupported dtype {dtype!r}") from None
 
 
+def _is_null_object(v) -> bool:
+    """``pd.isna`` of one object element, without pandas: None, float and
+    complex NaN, NaT, and pandas' own NaT and NA."""
+    if v is None:
+        return True
+    if isinstance(v, (float, complex, np.floating, np.complexfloating)):
+        return bool(np.isnan(v))
+    if isinstance(v, (np.datetime64, np.timedelta64)):
+        return bool(np.isnat(v))
+    return type(v).__name__ in ("NaTType", "NAType")
+
+
 def isnull_host(data: np.ndarray) -> np.ndarray:
-    """Missing-value mask of a host label array: NaN for floats, NaT for
-    datetimes, never-null for everything else (parity: ``flox_tpu.utils.isnull``
-    without the pandas object-dtype branch)."""
+    """Missing-value mask of a host array: NaN for floats, NaT for datetimes,
+    ``pd.isna``'s missing values for objects, never-null for everything else
+    (parity: ``flox_tpu.utils.isnull``, without importing pandas)."""
     data = np.asarray(data)
     if data.dtype.kind in "fc":
         return np.isnan(data)
     if dtypes.is_datetime_like(data.dtype):
         return np.isnat(data)
     if data.dtype.kind == "O":
-        return np.array([v is None or (isinstance(v, float) and v != v) for v in data.ravel()],
+        return np.array([_is_null_object(v) for v in data.ravel()],
                         dtype=bool).reshape(data.shape)
     return np.zeros(data.shape, dtype=bool)
 

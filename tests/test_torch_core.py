@@ -365,15 +365,23 @@ def test_result_is_tensor_on_device_and_groups_numpy():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"func": "median"}, "A2"),
-        ({"func": "sum", "engine": "numpy"}, "A6"),
-        ({"func": "sum", "engine": "sort", "reindex": "blockwise"}, "A6"),
-        ({"func": "sum", "method": "map-reduce"}, "A7"),
+        # A2 (median) is ported: it reduces now (test_a2_median_reduces)
+        pytest.param({"func": "sum", "engine": "numpy"}, "A6", id="kw1-A6"),
+        pytest.param({"func": "sum", "engine": "sort", "reindex": "blockwise"}, "A6",
+                     id="kw2-A6"),
+        pytest.param({"func": "sum", "method": "map-reduce"}, "A7", id="kw3-A7"),
     ],
 )
 def test_unported_branches_name_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), device="cpu", **kw)
+
+
+def test_a2_median_reduces():
+    """The call that raised naming A2 before the reduction family was ported."""
+    out, groups = flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), func="median",
+                                                device="cpu")
+    assert out.tolist() == [1.0] and groups.tolist() == [0.0]
 
 
 def test_from_reference_maps_option_names():

@@ -377,9 +377,14 @@ def test_unported_and_invalid_branches(kw, err, match):
 
 
 def test_datetime_scan_names_roadmap_item():
+    """A datetime scan raised naming ROADMAP A2 until the NaT channel was
+    ported; it gives the reference's result now (more cases in
+    tests/test_torch_datetime.py)."""
     dates = np.array(["2020-01-01", "NaT", "2020-01-03"], dtype="datetime64[ns]")
-    with pytest.raises(NotImplementedError, match="A2"):
-        flox_tpu_torch.groupby_scan(dates, np.zeros(3), func="ffill", device="cpu")
+    got = flox_tpu_torch.groupby_scan(dates, np.zeros(3), func="ffill", device="cpu")
+    ref = np.asarray(flox_tpu.groupby_scan(dates, np.zeros(3), func="ffill", engine="jax"))
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got.view("int64"), ref.view("int64"))
 
 
 # ---------------------------------------------------------------------------
