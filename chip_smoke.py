@@ -50,7 +50,15 @@ Phases; any failure exits nonzero:
    device memory; datetime64 nanmax/nanfirst, timedelta64 nanmean/ffill and
    bool sum/any on 2048 rows and string nanfirst/nanlast/count on 16 (host
    arrays by nature); then the segment-min/max kernel's int32 instance
-   against its plain version at full width. Each call runs with the launch
+   against its plain version at full width; then the label layers
+   (:func:`_label_layers`): ``xarray_reduce`` on the array viewed as an xrlite
+   (lat, lon, time) DataArray by month, by day and by 18 latitude bands, and
+   on a Dataset of it and the int32 classes (nanmax), ``groupby_reduce_device``
+   with the month labels on the card, prefactorized month labels through
+   ``groupby_reduce`` and ``groupby_aggregate_many``, a sparse tensor at 1 %
+   density (nansum, nanmean, nanmax, count), the sort engine's result packed
+   with ``reindex=SPARSE_COO``, the host numpy engine on 2048 rows, and
+   ``memory_stats``. Each call runs with the launch
    counts set to 0 just before it, must launch exactly its kernels, and is
    checked against a float64 (or exact) reduction of the same data on the
    card (the sort engine against the daily call, bit for bit; positions,
@@ -64,8 +72,8 @@ Phases; any failure exits nonzero:
    segmented-cumsum kernels on code patterns off the main path
    (:func:`pattern_times`: hour of day, random codes over 12 groups, and for
    the segment-sum kernel over 512), each output first held against the
-   plain version; the reduction family's calls with their launches a call;
-   then, from a ``torch.profiler`` trace (:func:`device_breakdown`), each
+   plain version; the reduction family's and the label layers' calls with
+   their launches a call (and the label layers' peak memory); then, from a ``torch.profiler`` trace (:func:`device_breakdown`), each
    kernel wrapper's and end-to-end call's device busy time, the share in
    this repo's kernels, and the device's idle share.
 
@@ -901,6 +909,8 @@ def phase_main_path(seed: int):
     _reduction_family(ck, data, month, codes, totals, seed)
     _round_trips(ck, data, month, totals)
     torch.cuda.empty_cache()
+    _label_layers(ck, data, month, totals, seed)
+    torch.cuda.empty_cache()
     print(f"[main] launches over the main path {totals}")
     print(f"[memory] peak device memory so far "
           f"{max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9:.2f} GB")
@@ -1177,14 +1187,288 @@ def _round_trips(ck, data, month, totals, rows: int = 2048) -> None:
           f"{rows} rows and string nanfirst/nanlast/count on 16: exact")
 
 
+# ---------------------------------------------------------------------------
+# phase 3, continued: the label layers (A6) at full width
+# ---------------------------------------------------------------------------
+
+LAT_EDGES = np.arange(-90, 91, 10)  # 18 latitude bands, right-closed as pd.cut
+
+
+def _classes(shape, seed: int) -> torch.Tensor:
+    """int32 classes 0-9 made on the card from ``seed`` (mode's data)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    return torch.randint(0, 10, shape, generator=gen, device=DEVICE, dtype=torch.int32)
+
+
+def label_objects(data, month, seed: int) -> dict:
+    """The benchmark array as an xrlite ``DataArray`` of dims (lat, lon, time)
+    (a view, no copy) with ``month`` (1-12), ``day`` and ``lat`` coordinates;
+    a ``Dataset`` of it and the int32 classes; the month labels on the card;
+    the prefactorized month labels; and a sparse (65160, 26304) tensor at 1 %
+    density made from ``seed`` (random positions, so a few repeat: it is
+    left uncoalesced)."""
+    import flox_tpu_torch
+    from flox_tpu_torch import xrlite
+
+    k, n = data.shape
+    dims = ("lat", "lon", "time")
+    coords = {"lat": np.linspace(-90.0, 90.0, NLAT), "month": ("time", month + 1),
+              "day": ("time", np.arange(n) // 24)}
+    da = xrlite.DataArray(data.view(NLAT, NLON, n), dims=dims, coords=coords, name="t2m")
+    cls = xrlite.DataArray(_classes(data.shape, seed).view(NLAT, NLON, n), dims=dims,
+                           name="cls")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 2)
+    nnz = int(0.01 * k * n)
+    flat = torch.randint(0, k * n, (nnz,), generator=gen, device=DEVICE)
+    # multiples of 1/64: the repeated positions sum exactly in any order
+    vals = torch.round(torch.randn(nnz, generator=gen, device=DEVICE) * 64) / 64
+    sparse = torch.sparse_coo_tensor(torch.stack([flat // n, flat % n]), vals, (k, n))
+    return {
+        "da": da,
+        "ds": xrlite.Dataset({"t2m": da, "cls": cls}, coords={"month": ("time", month + 1)}),
+        "month_dev": torch.from_numpy(month + 1).to(DEVICE),
+        "pf": flox_tpu_torch.prefactorize(month),
+        "sparse": sparse,
+    }
+
+
+def label_calls(data, month, objs: dict) -> dict:
+    """The label layers' end-to-end calls as phase 3 drives them, with the
+    kernels each must launch: ``{name: (fn, {kernel: launches})}``."""
+    import flox_tpu_torch
+    from flox_tpu_torch.reindex import ReindexArrayType, ReindexStrategy
+
+    xr = flox_tpu_torch.xarray_reduce
+    day = np.arange(data.shape[1]) // 24
+    trio = ("nanmean", "nanmin", "nanmax")
+    calls = {
+        "xarray_reduce(da, 'month', nanmean)": (
+            lambda: xr(objs["da"], "month", func="nanmean"), {"segment_sum": 1}),
+        "xarray_reduce(da, 'day', nanmean)": (
+            lambda: xr(objs["da"], "day", func="nanmean"), {"segment_sum_radixbin": 1}),
+        "xarray_reduce(ds, 'month', nanmax)": (
+            lambda: xr(objs["ds"], "month", func="nanmax"), {"segment_minmax": 2}),
+        "xarray_reduce(da, 'lat', nanmean, 18 bins)": (
+            lambda: xr(objs["da"], "lat", func="nanmean", isbin=True,
+                       expected_groups=LAT_EDGES), {"segment_sum": 1}),
+        "groupby_reduce_device(month on the card, nanmean)": (
+            lambda: flox_tpu_torch.groupby_reduce_device(
+                data, objs["month_dev"], func="nanmean", expected_values=np.arange(1, 13)),
+            {"segment_sum": 1}),
+        "groupby_reduce(prefactorized month, nanmean)": (
+            lambda: flox_tpu_torch.groupby_reduce(data, objs["pf"], func="nanmean")[0],
+            {"segment_sum": 1}),
+        "aggregate_many(prefactorized month, nanmean, nanmin, nanmax)": (
+            lambda: flox_tpu_torch.groupby_aggregate_many(data, objs["pf"], funcs=trio)[0],
+            {"segment_multistat": 1}),
+    }
+    for func in ("nansum", "nanmean", "nanmax", "count"):
+        calls[f"sparse {func} (1 % density)"] = (
+            lambda f=func: flox_tpu_torch.groupby_reduce(objs["sparse"], month, func=f)[0], {})
+    calls[f"sort engine nanmean, SPARSE_COO ({SORT_ROWS} rows)"] = (
+        lambda: flox_tpu_torch.groupby_reduce(
+            data[:SORT_ROWS], DAY0 + day, func="nanmean", expected_groups=np.arange(NUNIVERSE),
+            engine="sort", reindex=ReindexStrategy(array_type=ReindexArrayType.SPARSE_COO))[0],
+        {"segment_sum_radixbin": 1})
+    calls["groupby_reduce(engine='numpy'), 2048 rows"] = (
+        lambda: flox_tpu_torch.groupby_reduce(data[:2048], month, func="nanmean",
+                                              engine="numpy")[0], {})
+    return calls
+
+
+def _label_layers(ck, data, month, totals, seed: int) -> None:
+    """xarray_reduce on an xrlite DataArray and Dataset, groupby_reduce_device,
+    prefactorized labels, sparse inputs, the SPARSE_COO result leg and the
+    host numpy engine at full width, each with its launches and peak memory
+    checked, against the matching groupby_reduce call (bit for bit, or
+    exactly) or a float64 reduction of the same data on the card."""
+    import flox_tpu_torch
+    from flox_tpu_torch import device as pdevice, kernels as pk
+    from flox_tpu_torch.reindex import HostCOO
+    from flox_tpu_torch.types import Bins
+
+    k, n = data.shape
+    objs = label_objects(data, month, seed)
+    calls = label_calls(data, month, objs)
+    runs = iter(calls.items())
+
+    def drive():
+        name, (fn, want) = next(runs)
+        return name, _drive_peak(ck, name, fn, want, totals)
+
+    def reduce(arr, by, func, **kw):
+        return flox_tpu_torch.groupby_reduce(arr, by, func=func, **kw)[0]
+
+    def bit_equal(name, got, want):
+        check(got.dtype == want.dtype and torch.equal(bits(got), bits(want)),
+              f"{name}: differs from groupby_reduce")
+        print(f"[main] {name}: bit-identical to groupby_reduce")
+
+    means = reduce(data, month, "nanmean")
+    name, out = drive()
+    check(out.dims == ("lat", "lon", "month") and isinstance(out.data, torch.Tensor)
+          and out.data.device.type == torch.device(DEVICE).type,
+          f"{name}: dims {out.dims}, {type(out.data)}")
+    check(np.array_equal(out["month"].data, np.arange(1, 13)), f"{name}: month coordinate")
+    bit_equal(name, out.data, means.view(NLAT, NLON, NGROUPS))
+    del out
+
+    day = np.arange(n) // 24
+    name, out = drive()
+    check(out.dims == ("lat", "lon", "day") and np.array_equal(out["day"].data, np.arange(NDAYS)),
+          f"{name}: dims {out.dims}")
+    bit_equal(name, out.data, reduce(data, day, "nanmean").view(NLAT, NLON, NDAYS))
+    del out
+    torch.cuda.empty_cache()
+
+    name, out = drive()
+    cls = objs["ds"]["cls"].data.reshape(k, n)
+    for var, arr in (("t2m", data), ("cls", cls)):
+        got = out[var]
+        check(got.dims == ("month", "lat", "lon"), f"{name} {var}: dims {got.dims}")
+        want = reduce(arr, month, "nanmax").view(NLAT, NLON, NGROUPS).permute(2, 0, 1)
+        check(got.data.dtype == want.dtype and torch.equal(got.data, want),
+              f"{name} {var}: differs from groupby_reduce")
+    print(f"[main] {name}: float32 and int32 members exactly groupby_reduce's")
+    del out, cls
+    torch.cuda.empty_cache()
+
+    name, out = drive()
+    lat = objs["da"]["lat"].data
+    coord = out["lat_bins"].data
+    check(out.dims == ("lat_bins", "lon", "time") and tuple(out.shape) == (18, NLON, n),
+          f"{name}: dims {out.dims} {tuple(out.shape)}")
+    check(isinstance(coord, Bins) and coord.closed == "right"
+          and np.array_equal(coord.edges, LAT_EDGES), f"{name}: coordinate {coord!r}")
+    rows3 = data.view(NLAT, NLON * n)
+    worst = 0.0
+    for b in range(len(LAT_EDGES) - 1):
+        idx = np.flatnonzero((lat > LAT_EDGES[b]) & (lat <= LAT_EDGES[b + 1]))
+        ref = rows3[torch.as_tensor(idx, device=DEVICE)].double().mean(0)
+        err = (out.data[b].reshape(-1).double() - ref).abs()
+        check(bool((err <= 1e-6 + 1e-5 * ref.abs()).all()), f"{name}: band {b} off by "
+              f"{err.max().item()}")
+        worst = max(worst, err.max().item())
+        del ref, err
+    print(f"[main] {name}: max |err| vs float64 {worst!r}")
+    del out
+    torch.cuda.empty_cache()
+
+    name, out = drive()
+    bit_equal(name, out, means)
+    name, out = drive()
+    bit_equal(name, out, means)
+    name, out = drive()
+    fused = flox_tpu_torch.groupby_aggregate_many(data, month, funcs=tuple(out))[0]
+    for f, t in out.items():
+        bit_equal(f"{name} {f}", t, fused[f])
+    del out, fused
+    torch.cuda.empty_cache()
+
+    sparse = objs["sparse"]
+    dense = sparse.to_dense()
+    coalesced = sparse.coalesce().indices()
+    seg = coalesced[0] * NGROUPS + objs["month_dev"].index_select(0, coalesced[1]) - 1
+    stored_max = int(torch.bincount(seg, minlength=k * NGROUPS).max())
+    codes = torch.from_numpy(month).to(DEVICE)
+    for func in ("nansum", "nanmean", "nanmax", "count"):
+        name, out = drive()
+        check(tuple(out.shape) == (k, NGROUPS), f"{name}: shape {tuple(out.shape)}")
+        if func == "count":
+            want = torch.bincount(codes, minlength=NGROUPS).expand(k, NGROUPS)
+            check(torch.equal(out.long(), want), f"{name}: differs from the column counts")
+        elif func == "nanmax":
+            check(torch.equal(out, reduce(dense, month, "nanmax")),
+                  f"{name}: differs from the dense nanmax")
+        elif func == "nanmean":
+            _check_close(name, out, _f64_reference(dense, codes, NGROUPS, "nanmean"))
+        else:
+            ref = _f64_reference(dense, codes, NGROUPS, "sum")
+            scale = torch.cat([abs_sums(dense[r : r + 8192], codes, NGROUPS).T
+                               for r in range(0, k, 8192)])
+            err = (out.double() - ref).abs()
+            check(bool((err <= _sum_bar("plain", stored_max, scale, ref)).all()),
+                  f"{name}: max err {err.max().item()}")
+            print(f"[main] {name}: max |err| vs float64 {err.max().item()!r} (at most "
+                  f"{stored_max} stored values a group and row)")
+            del ref, scale, err
+        if func in ("count", "nanmax"):
+            print(f"[main] {name}: exact")
+    print(f"[main] sparse input: {sparse._nnz()} entries, "
+          f"{coalesced.shape[1]} after coalescing")
+    del dense, coalesced, seg, out
+    torch.cuda.empty_cache()
+
+    name, out = drive()
+    dense_sort = reduce(data[:SORT_ROWS], DAY0 + day, "nanmean",
+                        expected_groups=np.arange(NUNIVERSE), engine="sort")
+    present = pk.present_groups(DAY0 + day, NUNIVERSE)
+    check(isinstance(out, HostCOO) and out.shape == (SORT_ROWS, NUNIVERSE)
+          and np.isnan(out.fill_value) and np.array_equal(out.columns, present),
+          f"{name}: {type(out).__name__} {getattr(out, 'shape', None)}")
+    check(np.array_equal(out.data.view(np.int32),
+                         dense_sort.index_select(1, torch.from_numpy(present).to(DEVICE))
+                         .cpu().numpy().view(np.int32)),
+          f"{name}: stored columns differ from the dense result")
+    print(f"[main] {name}: {len(present)} stored columns bit-identical to the dense result, "
+          f"the rest its NaN fill")
+    del out, dense_sort
+
+    name, out = drive()
+    check(out.device.type == torch.device(DEVICE).type, f"{name}: result on {out.device}")
+    _check_close(name, out, reduce(data[:2048], month, "nanmean").double())
+
+    torch.cuda.synchronize()
+    stats = pdevice.memory_stats()
+    check(stats is not None and stats["devices"] == torch.cuda.device_count()
+          and stats["bytes_in_use"] == torch.cuda.memory_allocated()
+          and stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+          and stats["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory,
+          f"memory_stats {stats} differs from torch.cuda's allocator counters")
+    print(f"[main] memory_stats: {stats}, torch.cuda's counters")
+    del objs, calls
+
+
+def label_times(ck, data, month, seed: int, reps: int) -> dict:
+    """Each label-layer call's median time (CUDA events, after a warm-up),
+    its launches a call and its peak device memory above what was held before
+    it. Returns the xarray calls, for the profile."""
+    import flox_tpu_torch
+
+    objs = label_objects(data, month, seed)
+    calls = label_calls(data, month, objs)
+    nbytes = NLAT * NLON * NTIME * 4
+    # the adapter's cost: the months call against the groupby_reduce call it
+    # makes, in turns (plain, adapter, adapter, plain)
+    pair = {"groupby_reduce(data, month, nanmean)":
+            lambda: flox_tpu_torch.groupby_reduce(data, month, func="nanmean"),
+            "xarray_reduce(da, 'month', nanmean)":
+            calls["xarray_reduce(da, 'month', nanmean)"][0]}
+    for name in (*pair, *reversed(pair)):
+        print(f"[times] in turns, {name}: {time_ms(pair[name], reps)!r} ms")
+    for name, (fn, _want) in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ck.reset_launches()
+        e2e_ms = time_ms(fn, reps)
+        peak = torch.cuda.max_memory_allocated() - held
+        per_call = {kk: v // (reps + 1) for kk, v in ck.LAUNCHES.items() if v}
+        torch.cuda.empty_cache()
+        print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {nbytes / (e2e_ms * 1e-3) / 1e9!r} "
+              f"GB/s of the full array, launches a call {per_call}, peak {peak / 1e9:.2f} GB "
+              f"above the {held / 1e9:.2f} GB held")
+    return {name: fn for name, (fn, _w) in calls.items() if name.startswith("xarray_reduce")}
+
+
 def _family_calls(data, month, seed: int) -> dict:
     """The reduction family's end-to-end calls as phase 3 drives them, for
     timing and the profile."""
     import flox_tpu_torch
 
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed + 1)
-    classes = torch.randint(0, 10, data.shape, generator=gen, device=DEVICE, dtype=torch.int32)
+    classes = _classes(data.shape, seed)
     qs = {"q": (0.1, 0.5, 0.9)}
 
     def reduce(func, arr=data, impl="auto", **kw):
@@ -1385,9 +1669,10 @@ def phase_times(data, month, codes, reps: int, launches: dict, seed: int = 0) ->
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
     family = _family_calls(data, month, seed)
     _family_times(ck, family, max(2, reps // 4))
+    labels = label_times(ck, data, month, seed, max(3, reps // 2))
     device_breakdown({**wrapper_calls(data), **{name: calls[name] for name in list(calls)[:6]},
-                      **family})
-    del family
+                      **family, **labels})
+    del family, labels
     torch.cuda.empty_cache()
     cut = data[:SORT_ROWS]
     e2e_ms = time_ms(lambda: flox_tpu_torch.groupby_reduce(
@@ -1429,8 +1714,10 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
     ``reps`` calls after a warm-up: the host-clock wall time per call (the
     calls end in a synchronize), the device's busy time (all kernels and
     copies), the share of it in this repo's kernels, and the idle share,
-    1 - busy / wall. Tracing adds a few microseconds per launch to the wall
-    time. Prints "not measured" when the trace holds no device time."""
+    1 - busy / wall. Where the other device ops take more than 1 ms a call,
+    the three that take most, by kernel name. Tracing adds a few
+    microseconds per launch to the wall time. Prints "not measured" when the
+    trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1454,6 +1741,15 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
               f"{busy!r} ms ({ours!r} in this repo's kernels, {busy - ours!r} in "
               f"{(len(events) - len(mine)) // reps} other device ops), idle share "
               f"{1 - busy / wall!r}")
+        if busy - ours > 1.0:
+            by_name: dict = {}
+            mine_ids = {id(e) for e in mine}
+            for e in events:
+                if id(e) not in mine_ids:
+                    by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+            print(f"[profile]   {name}, other ops taking most: " + "; ".join(
+                f"{us / 1e3 / reps:.3f} ms {op[:70]}" for op, us in top))
         torch.cuda.empty_cache()
 
 

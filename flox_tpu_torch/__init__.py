@@ -1,5 +1,6 @@
 """flox_tpu_torch: the PyTorch/CUDA port of flox_tpu's grouped reductions,
-multi-statistic fusion, grouped scans and high-cardinality (sort) engine.
+multi-statistic fusion, grouped scans, high-cardinality (sort) engine, label
+layers and xarray adapter.
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and
@@ -13,9 +14,41 @@ flox_tpu, and imports without pandas.
 tensor([1.5000, 4.0000], dtype=torch.float64)
 """
 
+from . import xrlite
+from .aggregations import Aggregation, Scan, is_supported_aggregation
 from .core import groupby_reduce
-from .fusion import groupby_aggregate_many
+from .device import codes_device, groupby_reduce_device
+from .dtypes import INF, NA, NINF
+from .factorize import Prefactorized, factorize_, factorize_single, prefactorize
+from .fusion import FUSABLE_FUNCS, groupby_aggregate_many
+from .multiarray import MultiArray
 from .options import OPTIONS, set_options
+from .reindex import ReindexArrayType, ReindexStrategy
 from .scan import groupby_scan
+from .xarray import xarray_reduce
 
-__all__ = ["OPTIONS", "groupby_aggregate_many", "groupby_reduce", "groupby_scan", "set_options"]
+__all__ = [
+    "Aggregation",
+    "FUSABLE_FUNCS",
+    "INF",
+    "MultiArray",
+    "NA",
+    "NINF",
+    "OPTIONS",
+    "Prefactorized",
+    "ReindexArrayType",
+    "ReindexStrategy",
+    "Scan",
+    "codes_device",
+    "factorize_",
+    "factorize_single",
+    "groupby_aggregate_many",
+    "groupby_reduce",
+    "groupby_reduce_device",
+    "groupby_scan",
+    "is_supported_aggregation",
+    "prefactorize",
+    "set_options",
+    "xarray_reduce",
+    "xrlite",
+]

@@ -36,6 +36,7 @@ __all__ = [
     "Scan",
     "fused_chunk_stats",
     "generic_aggregate",
+    "is_supported_aggregation",
     "plan_fused",
     "set_nat_final_fill",
     "_initialize_aggregation",
@@ -57,7 +58,8 @@ def generic_aggregate(
 ):
     """Engine dispatcher: a callable runs as it is; a name runs the named
     engine's kernel of that name ("torch": dense over ``size`` groups;
-    "sort": over the groups present, scattered back to ``size``)."""
+    "sort": over the groups present, scattered back to ``size``; "numpy": the
+    host engine, on CPU tensors, returning CPU tensors)."""
     if callable(func):
         return func(
             group_idx, array, axis=axis, size=size, fill_value=fill_value, dtype=dtype, **kwargs
@@ -74,7 +76,31 @@ def generic_aggregate(
             func, group_idx, array, axis=axis, size=size, fill_value=fill_value, dtype=dtype,
             **kwargs
         )
-    raise ValueError(f"Unknown engine {engine!r}; expected 'torch' or 'sort'.")
+    if engine == "numpy":
+        from . import engine_numpy
+
+        if dtype is not None:
+            dtype = utils.numpy_dtype(dtype)
+        out = engine_numpy.generic_kernel(
+            func, _to_host(group_idx), _to_host(array), axis=axis, size=size,
+            fill_value=fill_value, dtype=dtype, **kwargs
+        )
+        if isinstance(out, MultiArray):
+            return MultiArray(_from_host(a) for a in out.arrays)
+        return _from_host(out)
+    raise ValueError(f"Unknown engine {engine!r}; expected 'torch', 'sort' or 'numpy'.")
+
+
+def _to_host(x) -> np.ndarray:
+    """A CPU tensor (or array) as numpy for the host engine; bfloat16, which
+    numpy lacks, as float32 (the engine accumulates it in float32 anyway)."""
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def _from_host(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 @dataclass
@@ -183,6 +209,11 @@ for _nm in ("quantile", "nanquantile"):
                           new_dims_func=_quantile_new_dims))
 for _nm in ("mode", "nanmode"):
     _register(Aggregation(_nm, chunk=None, final_fill_value=dtypes.NA, preserves_dtype=True))
+
+
+def is_supported_aggregation(func: str) -> bool:
+    """Whether ``func`` names an aggregation of the registry."""
+    return func in AGGREGATIONS
 
 
 def set_nat_final_fill(agg: Aggregation, fill_value) -> None:
@@ -474,7 +505,8 @@ def fused_chunk_stats(agg: FusedAggregation, group_idx, array, *, size: int,
     same float data, with no pending dtype cast) go to
     ``kernels.fused_segment_stats`` together: one segment-sum pass, or one
     multi-statistic pass when a min or max leg is among them. The other legs,
-    and all of them when the kernels' guards fail, run one reduction each.
+    all of them when the kernels' guards fail, and every leg of the host
+    engine (``engine="numpy"``), run one reduction each.
     """
     from . import kernels
 
@@ -485,7 +517,7 @@ def fused_chunk_stats(agg: FusedAggregation, group_idx, array, *, size: int,
     ]
     fused: dict[int, torch.Tensor] = {}
     wanted = tuple(dict.fromkeys(n for n, ok in zip(names, one_pass) if ok))
-    if len(wanted) >= 2:
+    if engine == "torch" and len(wanted) >= 2:
         got = kernels.fused_segment_stats(group_idx, array, size=size, want=wanted)
         if got is not None:
             fused = {i: got[n] for i, (n, ok) in enumerate(zip(names, one_pass)) if ok}

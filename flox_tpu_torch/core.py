@@ -10,10 +10,17 @@ CPU; labels and group values stay on the host. Datetime64/timedelta64 data
 reduces on its int64 view (NaT = INT64_MIN, a missing marker) and string or
 object data through float64 positions; torch has no dtype for either result,
 so those come back as numpy arrays. Two engines reduce: "torch"
-holds dense (..., size) accumulators over the label universe, and "sort"
+holds dense (..., size) accumulators over the label universe, "sort"
 (the present-groups engine) compacts the codes to the groups present,
-reduces over a small capacity and scatters the dense result on the host.
-``_route_highcard`` picks between them under the dense-intermediate ceiling.
+reduces over a small capacity and scatters the dense result on the host, and
+"numpy" (the host engine, only when named) reduces on the host and copies the
+result to the device once. ``_route_highcard`` picks between the first two
+under the dense-intermediate ceiling.
+
+Labels may also arrive prefactorized (``factorize.Prefactorized``: codes
+staged on the device, no factorization), the data may be a sparse tensor
+(``sparse.sparse_groupby_reduce``), and ``reindex=ReindexStrategy(
+array_type=SPARSE_COO)`` packs the result into a sparse container.
 Branches of the reference that later slices port raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
@@ -29,6 +36,8 @@ from . import dtypes, factorize as fct, kernels, utils
 from .aggregations import (Aggregation, _initialize_aggregation, generic_aggregate,
                            set_nat_final_fill)
 from .options import OPTIONS
+from .reindex import ReindexArrayType, ReindexStrategy, reindex_sparse_coo
+from .sparse import is_sparse_array, sparse_groupby_reduce
 from .types import Bins
 
 __all__ = ["chunk_reduce", "dense_intermediate_bytes", "groupby_reduce"]
@@ -36,9 +45,8 @@ __all__ = ["chunk_reduce", "dense_intermediate_bytes", "groupby_reduce"]
 #: the reductions of string and object data (through positions)
 _NON_NUMERIC_FUNCS = ("first", "last", "nanfirst", "nanlast", "count")
 
-#: engines of the reference, and the ROADMAP item that brings each to the port
+#: engines of the reference that the port names otherwise or lacks
 _UNPORTED_ENGINES = {
-    "numpy": "A6 (the host numpy engine is vendored with the label layers)",
     "jax": "none: the torch engine is the port's counterpart of 'jax'; pass engine='torch'",
     "flox": "none: the torch engine is the port's counterpart of 'flox'; pass engine='torch'",
     "numbagg": "none: the port has no numbagg engine",
@@ -138,17 +146,51 @@ def _normalize_reduce_axes(arr: torch.Tensor, bys: list[np.ndarray], axis):
 
 def _choose_engine(engine) -> str:
     """The engine of a call: ``engine`` itself, or the ``default_engine``
-    option when it is None."""
+    option when it is None. Unlike the reference, no size heuristic sends
+    small host arrays to the numpy engine: it runs only when named."""
     if engine is None:
         return OPTIONS["default_engine"]
-    if engine in ("torch", "sort"):
+    if engine in ("torch", "sort", "numpy"):
         return engine
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
             f"engine={engine!r} is not available in the port; ROADMAP item: "
             f"{_UNPORTED_ENGINES[engine]}"
         )
-    raise ValueError(f"Unknown engine {engine!r}; the port has engine='torch' and 'sort'.")
+    raise ValueError(
+        f"Unknown engine {engine!r}; the port has engine='torch', 'sort' and 'numpy'.")
+
+
+def _work_device(engine: str, dev: torch.device) -> torch.device:
+    """Where a call reduces: the host for the numpy engine, else ``dev``."""
+    return torch.device("cpu") if engine == "numpy" else dev
+
+
+def _parse_reindex(reindex, func, nby: int):
+    """The reference's reindex mapping on one device: returns the
+    ``SPARSE_COO`` strategy or None. Dense strategies, ``True`` and ``False``
+    change nothing here: every result is already dense over the expected
+    groups, and ``blockwise=False`` matters only to the multi-device combine
+    (ROADMAP A7)."""
+    if isinstance(reindex, ReindexStrategy):
+        if reindex.array_type is not ReindexArrayType.SPARSE_COO:
+            return None
+    elif reindex in (None, True, False):
+        return None
+    else:
+        raise TypeError(f"reindex must be None, a bool, or a ReindexStrategy; got {reindex!r}")
+    fname = func if isinstance(func, str) else getattr(func, "name", "")
+    if not isinstance(fname, str) or any(
+        f in fname for f in ("first", "last", "prod", "var", "std", "arg")
+    ):
+        # these have no meaningful implicit fill
+        raise ValueError(f"reindex with array_type=SPARSE_COO does not support {fname!r}")
+    if nby > 1:
+        raise NotImplementedError(
+            "SPARSE_COO reindex supports a single `by` (the sparse axis is the trailing "
+            "group axis)"
+        )
+    return reindex
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +224,9 @@ def dense_intermediate_bytes(lead_elems: int, size: int, dtype, agg: Aggregation
 _HIGHCARD_DENSITY_DEN = 8
 
 
-def _route_highcard(engine: str, codes_flat: np.ndarray, arr_flat: torch.Tensor,
-                    lead_shape: tuple, size: int, agg: Aggregation, *, explicit: bool) -> str:
+def _route_highcard(engine: str, codes_flat: np.ndarray | None, arr_flat: torch.Tensor,
+                    lead_shape: tuple, size: int, agg: Aggregation, *, explicit: bool,
+                    present: np.ndarray | None = None) -> str:
     """Dense-vs-sort routing of the eager path: "torch" or "sort".
 
     The ceiling first: a dense (..., size) estimate above
@@ -192,7 +235,9 @@ def _route_highcard(engine: str, codes_flat: np.ndarray, arr_flat: torch.Tensor,
     explicit ``engine="torch"`` (explicit choices are never second-guessed),
     or when even the compact domain is over the ceiling. Below it, universes
     past ``sort_engine_min_groups`` go to the sort engine when at most
-    1/:data:`_HIGHCARD_DENSITY_DEN` of them is present.
+    1/:data:`_HIGHCARD_DENSITY_DEN` of them is present. ``present``, when
+    given (a prefactorized artifact's table), replaces the memoized unique
+    pass over ``codes_flat``.
     """
     lead_elems = int(np.prod(lead_shape)) if lead_shape else 1
     ceiling = OPTIONS["dense_intermediate_bytes_max"]
@@ -200,7 +245,8 @@ def _route_highcard(engine: str, codes_flat: np.ndarray, arr_flat: torch.Tensor,
     over = est > ceiling
     if engine == "torch" and not over and (explicit or size < OPTIONS["sort_engine_min_groups"]):
         return "torch"  # the common case pays neither a unique pass nor routing
-    present = kernels.present_groups(codes_flat, size)  # memoized; the sort path reuses it
+    if present is None:
+        present = kernels.present_groups(codes_flat, size)  # memoized; the sort path reuses it
     ncap = kernels.present_cap(len(present), size)
     if over:
         est_sort = dense_intermediate_bytes(lead_elems, ncap, arr_flat.dtype, agg)
@@ -319,7 +365,10 @@ def groupby_reduce(
 
     ``device`` defaults to ``cuda`` and raises ``RuntimeError`` when CUDA is
     missing; pass ``device="cpu"`` to run on the CPU. A numpy ``array`` is
-    copied to the device, a tensor elsewhere is moved there.
+    copied to the device, a tensor elsewhere is moved there. ``by`` may be
+    one :class:`~flox_tpu_torch.factorize.Prefactorized`; ``array`` may be a
+    sparse tensor; ``reindex=ReindexStrategy(array_type=SPARSE_COO)`` returns
+    a sparse container over the groups that occur.
 
     Examples
     --------
@@ -339,21 +388,38 @@ def groupby_reduce(
         raise NotImplementedError(
             "method=/mesh= (the sharded multi-device path) is not ported yet; ROADMAP A7"
         )
-    if reindex not in (None, True, False):
-        raise NotImplementedError("reindex strategies are not ported yet; ROADMAP A6")
+    nby = len(by)
+    reindex_sparse = _parse_reindex(reindex, func, nby)
+    if nby == 1 and isinstance(by[0], fct.Prefactorized):
+        # factorized once, codes staged on the device: no factorize, no copy
+        return _prefactorized_reduce(
+            array, by[0], func=func, expected_groups=expected_groups, axis=axis, isbin=isbin,
+            fill_value=fill_value, dtype=dtype, min_count=min_count, engine=engine,
+            reindex=reindex, finalize_kwargs=finalize_kwargs, device=device,
+        )
+    if is_sparse_array(array):
+        # sparse inputs reduce without densifying; options the sparse reducer
+        # cannot honor are rejected, not dropped
+        unsupported = {"min_count": min_count, "axis": axis,
+                       "finalize_kwargs": finalize_kwargs,
+                       "reindex (SPARSE_COO)": reindex_sparse}
+        bad = [k for k, v in unsupported.items() if v is not None]
+        if bad:
+            raise NotImplementedError(
+                f"sparse inputs do not support {bad} (grouping is over the last axis, "
+                "eagerly, with the reference's aggregate_sparse func subset)"
+            )
+        _choose_engine(engine)  # validated; the sparse reducer has one engine
+        return _sparse_path(array, by, func=func, expected_groups=expected_groups, isbin=isbin,
+                            sort=sort, fill_value=fill_value, dtype=dtype,
+                            device=utils.resolve_device(device))
     # explicit engine choices are never second-guessed: only a defaulted
     # dense engine may re-route to the sort engine (_route_highcard)
     engine_explicit = engine is not None
     engine = _choose_engine(engine)
-    nby = len(by)
-    if any(type(b).__name__ == "Prefactorized" for b in by):
-        raise NotImplementedError("Prefactorized labels are not ported yet; ROADMAP A6")
-    if (isinstance(array, torch.Tensor) and array.layout != torch.strided) or hasattr(
-        array, "tocoo"
-    ) or type(array).__module__.startswith("scipy.sparse"):
-        raise NotImplementedError("sparse inputs are not ported yet; ROADMAP A6")
 
     dev = utils.resolve_device(device)
+    work = _work_device(engine, dev)
 
     # -- host-side label normalization ------------------------------------
     bys = [utils.asarray_host(b) for b in by]
@@ -364,6 +430,9 @@ def groupby_reduce(
         if host.dtype.kind in "OSU":
             _assert_by_is_aligned(host.shape, bys)
             _check_non_numeric(func, dtype, finalize_kwargs, host.dtype)
+            if reindex_sparse is not None:
+                raise NotImplementedError(
+                    "SPARSE_COO reindex is not supported for non-numeric reductions")
             return _reduce_non_numeric(
                 host, bys, func, fill_value=fill_value, expected_groups=expected_groups,
                 sort=sort, isbin=isbin, axis=axis, min_count=min_count, engine=engine,
@@ -374,7 +443,7 @@ def groupby_reduce(
             datetime_dtype = host.dtype
             host = host.view("int64")
         array = host
-    arr = utils.as_tensor(array, dev)
+    arr = utils.as_tensor(array, work)
     _assert_by_is_aligned(tuple(arr.shape), bys)
 
     expected = _normalize_expected(expected_groups, nby)
@@ -420,8 +489,9 @@ def groupby_reduce(
     arr_flat = arr.reshape(lead_shape + (span,))
     codes_host = np.asarray(codes).reshape(-1)
 
-    engine = _route_highcard(engine, codes_host, arr_flat, lead_shape, size, agg,
-                             explicit=engine_explicit)
+    if engine != "numpy":
+        engine = _route_highcard(engine, codes_host, arr_flat, lead_shape, size, agg,
+                                 explicit=engine_explicit)
     if engine == "sort":
         # compact once, reduce over the banded capacity with the unchanged
         # kernels, scatter the dense layout on the host at the very end:
@@ -433,14 +503,133 @@ def groupby_reduce(
                                      datetime_dtype=datetime_dtype)
         result = _redevice_scattered(kernels.scatter_present_dense(result_c, present, size), dev)
     else:
-        codes_flat = torch.as_tensor(codes_host, device=dev)
+        codes_flat = torch.as_tensor(codes_host, device=work)
         result = _reduce_blockwise(arr_flat, codes_flat, agg, size=size, engine=engine,
                                    datetime_dtype=datetime_dtype)
+        if engine == "numpy" and isinstance(result, torch.Tensor):
+            result = result.to(dev)  # the host engine's one copy to the device
 
     # -- reshape: (..., size) -> (*new_dims, ..., *keep_by, *grp_shape) -----
     result = result.reshape(agg.new_dims() + lead_shape + keep_by_shape + grp_shape)
-    groups = tuple(g.values() if isinstance(g, Bins) else np.asarray(g) for g in found_groups)
-    return (result,) + groups
+    if reindex_sparse is not None:
+        result = _sparsify_result(result, codes_host, ngroups, agg)
+    return (result,) + _group_values(found_groups)
+
+
+def _group_values(found_groups) -> tuple:
+    return tuple(g.values() if isinstance(g, Bins) else np.asarray(g) for g in found_groups)
+
+
+def _sparsify_result(result, codes_flat: np.ndarray, ngroups: int, agg: Aggregation):
+    """The SPARSE_COO result leg: the reduction stays dense, and the sparse
+    container stores only the groups that occur in ``by``. Occurrence is the
+    union over kept rows (codes are offset per kept row when ``by`` has kept
+    axes): a group found in any kept row is stored for every row. Returns a
+    ``torch.sparse_coo_tensor`` on the result's device when the implicit fill
+    is zero, a :class:`~flox_tpu_torch.reindex.HostCOO` otherwise."""
+    if isinstance(result, np.ndarray):
+        raise NotImplementedError(
+            f"SPARSE_COO reindex does not support results of dtype {result.dtype}")
+    valid = codes_flat[codes_flat >= 0]
+    present = np.unique(valid % ngroups)
+    return reindex_sparse_coo(
+        result.index_select(-1, torch.as_tensor(present, device=result.device)),
+        present, np.arange(ngroups), fill_value=agg.final_fill_value,
+    )
+
+
+def _sparse_path(array, by, *, func, expected_groups, isbin, sort, fill_value, dtype, device):
+    """Sparse tensors go to the sparse reducer: grouping over the last axis
+    by one 1-D ``by`` (the reference's aggregate_sparse scope)."""
+    if len(by) != 1:
+        raise NotImplementedError("sparse inputs support a single 1-D `by`")
+    if not isinstance(func, str):
+        raise NotImplementedError("sparse inputs support named funcs only")
+    b = utils.asarray_host(by[0])
+    if b.ndim != 1 or b.shape[0] != array.shape[-1]:
+        raise ValueError("sparse inputs need a 1-D `by` matching the last axis")
+    expected_idx = _convert_expected(_normalize_expected(expected_groups, 1),
+                                     _normalize_isbin(isbin, 1), sort)
+    codes, found_groups, _shape, _ngroups, size, _props = fct.factorize_(
+        [b], axes=(0,), expected_groups=expected_idx, sort=sort
+    )
+    result = sparse_groupby_reduce(
+        array.to(device), np.asarray(codes).reshape(-1), func=func, size=size,
+        fill_value=fill_value, dtype=dtype,
+    )
+    return (result,) + _group_values(found_groups)
+
+
+def _prefactorized_reduce(array, pf: "fct.Prefactorized", *, func, expected_groups, axis,
+                          isbin, fill_value, dtype, min_count, engine, reindex,
+                          finalize_kwargs, device) -> tuple:
+    """``by`` arrived as a :class:`~flox_tpu_torch.factorize.Prefactorized`:
+    the codes, the group tables and the sort engine's present table were
+    computed once, and the codes staged on the device. No factorization runs
+    and, with the data on the device, nothing is copied there.
+
+    Options that would need another factorization are rejected, not dropped.
+    """
+    bad = [name for name, val in (("expected_groups", expected_groups), ("axis", axis),
+                                  ("reindex", reindex)) if val is not None]
+    if isbin not in (False, (False,)):
+        bad.append("isbin")
+    if bad:
+        raise NotImplementedError(
+            f"Prefactorized `by` does not support {bad}: the factorization is fixed when "
+            "the artifact is built (prefactorize again with other groups)"
+        )
+    engine_explicit = engine is not None
+    engine = _choose_engine(engine)
+    dev = utils.resolve_device(device)
+    work = _work_device(engine, dev)
+    if not isinstance(array, torch.Tensor):
+        array = np.asarray(array)
+        if array.dtype.kind in "OSU" or dtypes.is_datetime_like(array.dtype):
+            raise NotImplementedError(
+                f"Prefactorized `by` supports numeric data; got dtype {array.dtype} "
+                "(datetime/object inputs keep the inline groupby_reduce path)"
+            )
+    arr = utils.as_tensor(array, work)
+    bndim = len(pf.by_shape)
+    if arr.ndim < bndim or tuple(arr.shape[arr.ndim - bndim:]) != tuple(pf.by_shape):
+        raise ValueError(
+            f"`array` with shape {tuple(arr.shape)} does not align with the prefactorized "
+            f"`by` shape {pf.by_shape}"
+        )
+    func_name = func if isinstance(func, str) else func.name
+    if arr.dtype == torch.bool and func_name in ("sum", "nansum", "prod", "nanprod", "count"):
+        arr = arr.to(torch.int64)
+    if min_count is None:
+        min_count_ = 1 if fill_value is not None and func_name in ("nansum", "nanprod") else 0
+    else:
+        min_count_ = min_count
+    agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
+
+    lead_shape = tuple(arr.shape[: arr.ndim - bndim])
+    arr_flat = arr.reshape(lead_shape + (pf.n,))
+    if engine != "numpy":
+        engine = _route_highcard(engine, None, arr_flat, lead_shape, pf.size, agg,
+                                 explicit=engine_explicit, present=pf.present)
+    if engine == "sort":
+        result_c = _reduce_blockwise(arr_flat, _staged(pf.ccodes_dev, pf.ccodes, work), agg,
+                                     size=pf.ncap, engine="torch")
+        result = _redevice_scattered(
+            kernels.scatter_present_dense(result_c, pf.present, pf.size), dev)
+    else:
+        result = _reduce_blockwise(arr_flat, _staged(pf.codes_dev, pf.codes, work), agg,
+                                   size=pf.size, engine=engine)
+        result = result.to(dev)
+    result = result.reshape(agg.new_dims() + lead_shape + pf.group_shape)
+    return (result,) + _group_values(pf.found_groups)
+
+
+def _staged(codes_dev, codes_host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An artifact's codes on ``device``: the staged copy when it lives
+    there, else one copy of the host codes."""
+    if codes_dev is not None and codes_dev.device == device:
+        return codes_dev
+    return torch.as_tensor(codes_host, device=device)
 
 
 def _check_non_numeric(func, dtype, finalize_kwargs, array_dtype) -> None:

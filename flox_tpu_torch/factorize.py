@@ -15,6 +15,12 @@ where pandas is absent:
 
 Missing or unmatched labels get code ``-1`` everywhere. Group values come out
 as numpy arrays (a structured ``left``/``right`` array for bins).
+
+The device half (``flox_tpu/factorize.py``'s ``factorize_device``,
+``bin_device`` and ``Prefactorized``) computes codes with ``torch.searchsorted``
+on the labels' device when the groups are known, and keeps a factorize-once
+artifact whose codes are staged on the device, so that later reductions over
+the same labels skip both the factorization and the codes' copy.
 """
 
 from __future__ import annotations
@@ -23,15 +29,21 @@ import hashlib
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
-from . import utils
+from . import kernels, utils
 from .types import Bins, FactorProps
 
 __all__ = [
+    "Prefactorized",
+    "bin_device",
     "factorize_",
     "factorize_cached",
+    "factorize_device",
     "factorize_single",
     "offset_labels",
+    "prefactorize",
+    "prefactorized_from_host",
     "ravel_multi_codes",
 ]
 
@@ -262,3 +274,220 @@ def factorize_cached(by, axes, expected_groups=None, *, sort: bool = True):
         evicted = _FACTORIZE_CACHE.pop(next(iter(_FACTORIZE_CACHE)))
         _FACTORIZE_CACHE_BYTES[0] -= int(np.asarray(evicted[0]).nbytes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# device-resident factorization: known groups, codes by searchsorted on the
+# labels' device
+# ---------------------------------------------------------------------------
+
+
+def _on_device(by, values, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``by`` and the sorted ``values`` it is searched in, as tensors of one
+    dtype on ``device`` (``cuda`` unless the caller names another)."""
+    dev = utils.resolve_device(device)
+    by_t = utils.as_tensor(by, dev)
+    vals = utils.as_tensor(values, dev)
+    common = torch.promote_types(by_t.dtype, vals.dtype)
+    return by_t.to(common), vals.to(common)
+
+
+def factorize_device(by, expected_values, *, device=None) -> torch.Tensor:
+    """int32 codes of ``by`` in the *sorted, unique* ``expected_values``, on
+    the device: ``torch.searchsorted`` plus an equality check; unmatched and
+    NaN labels give -1."""
+    by_t, vals = _on_device(by, expected_values, device)
+    idx = torch.searchsorted(vals, by_t, side="left")
+    idx_c = idx.clamp(0, vals.shape[0] - 1)
+    valid = vals[idx_c] == by_t
+    return torch.where(valid, idx_c, -1).to(torch.int32)
+
+
+def bin_device(by, edges, closed: str = "right", *, device=None) -> torch.Tensor:
+    """int32 interval codes of ``by`` on the device, with ``pd.cut``
+    semantics: out-of-range and NaN labels give -1."""
+    by_t, e = _on_device(by, edges, device)
+    if closed == "right":
+        codes = torch.searchsorted(e, by_t, side="left") - 1
+        valid = (by_t > e[0]) & (by_t <= e[-1])
+    else:
+        codes = torch.searchsorted(e, by_t, side="right") - 1
+        valid = (by_t >= e[0]) & (by_t < e[-1])
+    return torch.where(valid, codes, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# prefactorized labels: the factorize-once artifact
+# ---------------------------------------------------------------------------
+
+
+class Prefactorized:
+    """A factorization computed once and reused across reductions: codes,
+    group tables, the sort engine's present table, and device stages.
+
+    Pass it as the single ``by`` of ``groupby_reduce`` or
+    ``groupby_aggregate_many``: those calls skip the factorization and the
+    codes' copy to the device, because the dense codes (``codes_dev``) and
+    the sort engine's compact codes (``ccodes_dev``) were staged on the
+    device by :meth:`stage`. The host copies (``codes``, ``ccodes``) serve the
+    numpy engine and restaging.
+    """
+
+    __slots__ = (
+        "codes", "codes_dev", "ccodes", "ccodes_dev", "present", "ncap",
+        "found_groups", "group_shape", "ngroups", "size", "n",
+        "by_shape", "by_dtype", "props", "fingerprint",
+    )
+
+    @property
+    def shape(self) -> tuple:
+        return self.by_shape
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self.by_dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.by_shape)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.codes.nbytes)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (
+            f"Prefactorized(shape={self.by_shape}, ngroups={self.ngroups}, "
+            f"size={self.size}, present={len(self.present)}, "
+            f"staged={self.codes_dev is not None})"
+        )
+
+    def device_nbytes(self) -> int:
+        """Bytes this artifact holds on its device."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.codes_dev, self.ccodes_dev) if t is not None)
+
+    def stage(self, device=None) -> "Prefactorized":
+        """(Re-)stage the dense and compact codes on ``device`` (``cuda``
+        unless the caller names another); idempotent by value."""
+        dev = utils.resolve_device(device)
+        self.codes_dev = torch.as_tensor(self.codes, device=dev)
+        self.ccodes_dev = torch.as_tensor(self.ccodes, device=dev)
+        return self
+
+    def _derive(self, codes: np.ndarray, codes_dev, by_shape: tuple) -> "Prefactorized":
+        """A selector view sharing this artifact's group tables: new codes,
+        the same groups and size, the sort tables recomputed for the
+        selection."""
+        out = _new_artifact(codes, self.found_groups, self.group_shape, self.ngroups,
+                            self.size, by_shape, self.by_dtype, self.props, None)
+        out.codes_dev = codes_dev
+        # the view's compact codes are new host values: one small copy
+        out.ccodes_dev = (None if codes_dev is None
+                          else torch.as_tensor(out.ccodes, device=codes_dev.device))
+        return out
+
+    def slice_rows(self, start: int, stop: int) -> "Prefactorized":
+        """Row-range view over the flat span: host codes sliced, device codes
+        sliced on the device."""
+        start, stop = int(start), int(stop)
+        if not (0 <= start < stop <= self.n):
+            raise ValueError(f"row range [{start}, {stop}) out of bounds for span {self.n}")
+        sub = np.ascontiguousarray(self.codes[start:stop])
+        dev = self.codes_dev[start:stop] if self.codes_dev is not None else None
+        return self._derive(sub, dev, (int(sub.size),))
+
+    def select_mask(self, mask) -> "Prefactorized":
+        """Boolean-mask view over the flat span: a gather of the staged codes
+        on the device (only the small index vector is copied there)."""
+        mask = utils.asarray_host(mask).astype(bool).reshape(-1)
+        if int(mask.size) != self.n:
+            raise ValueError(f"mask length {mask.size} != dataset span {self.n}")
+        idx = np.flatnonzero(mask)
+        if idx.size == 0:
+            raise ValueError("mask selects no rows")
+        sub = np.ascontiguousarray(self.codes[idx])
+        dev = None
+        if self.codes_dev is not None:
+            dev = self.codes_dev.index_select(
+                0, torch.as_tensor(idx, device=self.codes_dev.device))
+        return self._derive(sub, dev, (int(sub.size),))
+
+
+def _new_artifact(codes_flat: np.ndarray, found_groups, group_shape, ngroups: int, size: int,
+                  by_shape: tuple, by_dtype, props, fingerprint, present=None, ncap=None,
+                  ccodes=None) -> Prefactorized:
+    pf = Prefactorized()
+    pf.codes = codes_flat
+    pf.found_groups = tuple(found_groups)
+    pf.group_shape = tuple(int(g) for g in group_shape)
+    pf.ngroups = int(ngroups)
+    pf.size = int(size)
+    pf.n = int(codes_flat.size)
+    pf.by_shape = tuple(int(s) for s in by_shape)
+    pf.by_dtype = np.dtype(by_dtype)
+    pf.props = props
+    pf.fingerprint = fingerprint
+    pf.present = (kernels.present_groups(codes_flat, pf.size) if present is None
+                  else np.asarray(present, dtype=np.int64))
+    pf.ncap = kernels.present_cap(len(pf.present), pf.size) if ncap is None else int(ncap)
+    pf.ccodes = (kernels.compact_codes(codes_flat, pf.present) if ccodes is None
+                 else np.ascontiguousarray(ccodes, dtype=np.int32))
+    pf.codes_dev = None
+    pf.ccodes_dev = None
+    return pf
+
+
+def prefactorize(by, expected_groups=None, *, sort: bool = True, stage: bool = True,
+                 fingerprint: str | None = None, device=None) -> Prefactorized:
+    """Factorize ``by`` once, with the sort engine's present tables and (by
+    default) the codes staged on ``device`` (``cuda`` unless the caller names
+    another).
+
+    Reduces over all of ``by``'s axes: the kept axes of a reduction belong to
+    the data's leading dims.
+    """
+    b = utils.asarray_host(by)
+    if b.size == 0:
+        raise ValueError("cannot prefactorize empty labels")
+    expected_idx = None
+    if expected_groups is not None:
+        from .core import _convert_expected, _normalize_expected
+
+        expected_idx = _convert_expected(_normalize_expected(expected_groups, 1), (False,), sort)
+    codes, found_groups, grp_shape, ngroups, size, props = factorize_cached(
+        (b,), axes=tuple(range(b.ndim)), expected_groups=expected_idx, sort=sort
+    )
+    if ngroups == 0 or size == 0:
+        raise ValueError("No groups to reduce over (empty expected_groups?)")
+    codes_flat = np.ascontiguousarray(np.asarray(codes).reshape(-1), dtype=np.int64)
+    pf = _new_artifact(codes_flat, found_groups, grp_shape, ngroups, size, b.shape, b.dtype,
+                       props, fingerprint)
+    return pf.stage(device) if stage else pf
+
+
+def prefactorized_from_host(fields: dict, *, stage: bool = True, device=None) -> Prefactorized:
+    """A :class:`Prefactorized` from an artifact's host fields, as built by
+    another implementation of the same factorization (the state carried
+    across): ``codes``, ``ccodes``, ``present``, ``ncap``, ``found_groups``,
+    ``group_shape``, ``ngroups``, ``size``, ``by_shape`` and ``by_dtype``.
+    Group tables may be numpy arrays or pandas indexes (read as their
+    values)."""
+    codes = np.ascontiguousarray(utils.asarray_host(fields["codes"]).reshape(-1),
+                                 dtype=np.int64)
+    found = tuple(g if isinstance(g, Bins) else utils.asarray_host(getattr(g, "values", g))
+                  for g in fields["found_groups"])
+    nanmask = codes < 0
+    props = FactorProps(offset_group=False, nan_sentinel=False,
+                        nanmask=nanmask if nanmask.any() else None)
+    pf = _new_artifact(codes, found, fields["group_shape"], fields["ngroups"], fields["size"],
+                       fields["by_shape"], fields["by_dtype"], props, None,
+                       present=utils.asarray_host(fields["present"]), ncap=fields["ncap"],
+                       ccodes=utils.asarray_host(fields["ccodes"]))
+    return pf.stage(device) if stage else pf
+
+
+def clear_caches() -> None:
+    """Drop the factorization memo (the device layer's ``reinitialize``)."""
+    _FACTORIZE_CACHE.clear()
+    _FACTORIZE_CACHE_BYTES[0] = 0

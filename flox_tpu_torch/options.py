@@ -16,8 +16,9 @@ VALID_ACCUMS = ("plain", "kahan", "dd")
 
 OPTIONS: dict[str, Any] = {
     # engine of a call that names none: "torch" (dense accumulators over the
-    # label universe) or "sort" (the present-groups engine: accumulators over
-    # the groups actually present, for huge label universes)
+    # label universe), "sort" (the present-groups engine: accumulators over
+    # the groups actually present, for huge label universes) or "numpy" (the
+    # host engine; the result is copied to the call's device)
     "default_engine": "torch",
     # label-universe size from which a call left to the dense engine weighs
     # the sort engine (density heuristic, ``core._route_highcard``)
@@ -73,7 +74,7 @@ def _is_int(x) -> bool:
 
 
 _VALIDATORS = {
-    "default_engine": lambda x: x in ("torch", "sort"),
+    "default_engine": lambda x: x in ("torch", "sort", "numpy"),
     "sort_engine_min_groups": lambda x: _is_int(x) and x >= 1,
     "segment_sum_impl": lambda x: x in (*_IMPLS, "radixbin"),
     "pallas_accum": lambda x: x in VALID_ACCUMS,
@@ -122,7 +123,7 @@ _UNPORTED_IMPLS = {
 }
 
 #: the reference's engine names in the port
-_ENGINES = {"jax": "torch", "sort": "sort"}
+_ENGINES = {"jax": "torch", "sort": "sort", "numpy": "numpy"}
 
 
 def from_reference(opts: dict) -> dict:
@@ -130,10 +131,9 @@ def from_reference(opts: dict) -> dict:
 
     Keys the port has are carried over; the reference's ``"pallas"``
     implementation maps to the port's ``"kernel"`` and its ``"jax"`` engine to
-    ``"torch"``. Keys the port lacks are ignored. An implementation or engine
-    the port has not got, or the reference's measured dispatch
-    (``autotune=True``), raises ``NotImplementedError`` naming the ROADMAP
-    item.
+    ``"torch"``. Keys the port lacks are ignored. An implementation the port
+    has not got, or the reference's measured dispatch (``autotune=True``),
+    raises ``NotImplementedError`` naming the ROADMAP item.
     """
     if opts.get("autotune"):
         raise NotImplementedError(
@@ -147,12 +147,7 @@ def from_reference(opts: dict) -> dict:
             continue
         value = opts[key]
         if key == "default_engine":
-            if value not in _ENGINES:
-                raise NotImplementedError(
-                    f"default_engine={value!r} has no counterpart in the port yet; ROADMAP "
-                    "item: A6 (the host numpy engine)"
-                )
-            value = _ENGINES[value]
+            value = _ENGINES.get(value, value)
         elif key.endswith("_impl"):
             if value == "pallas":
                 value = "kernel"

@@ -10,7 +10,8 @@ kernel (``cuda_kernels.segment_cumsum``); the rest run the sort plus log-depth
 segmented scan of torch ops (``kernels._segmented_scan``). Positions with a
 missing label come out NaN. Datetime64/timedelta64 data scans on its exact
 int64 view with NaT as the missing marker and comes back as a numpy array of
-its dtype (torch has none).
+its dtype (torch has none). ``engine="numpy"`` scans on the host engine and
+copies the result to the device.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 
 from . import dtypes, factorize as fct, utils
 from .aggregations import Scan, _initialize_scan, generic_aggregate
-from .core import _choose_engine, _convert_expected, _normalize_expected, _normalize_isbin
+from .core import (_choose_engine, _convert_expected, _normalize_expected, _normalize_isbin,
+                   _work_device)
 from .kernels import _NAT_INT
 
 __all__ = ["groupby_scan"]
@@ -76,13 +78,12 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
         raise NotImplementedError(
             "method=/mesh= (the multi-device scan) is not ported yet; ROADMAP A7"
         )
-    if any(type(b).__name__ == "Prefactorized" for b in by):
-        raise NotImplementedError("Prefactorized labels are not ported yet; ROADMAP A6")
     # a scan's output is shaped like its input: there is no (..., size)
-    # accumulator for the sort engine to compact, so both engines scan alike
-    _choose_engine(engine)
-    engine = "torch"
+    # accumulator for the sort engine to compact, so it scans as the dense
+    # engine does; the numpy engine scans on the host
+    engine = "numpy" if _choose_engine(engine) == "numpy" else "torch"
     dev = utils.resolve_device(device)
+    work = _work_device(engine, dev)
 
     nby = len(by)
     bys = [utils.asarray_host(b) for b in by]
@@ -96,8 +97,10 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
             _check_datetime_scan(_initialize_scan(func), array.dtype, dtype)
             # the exact int64 view (float64 would lose nanoseconds)
             datetime_dtype, array = array.dtype, array.view("int64")
-    arr = utils.as_tensor(array, dev)
+    arr = utils.as_tensor(array, work)
 
+    # a Prefactorized `by` is a 0-d host object here, and fails this check as
+    # it does in the reference
     bndim = bys[0].ndim
     if tuple(arr.shape[-bndim:]) != bys[0].shape:
         raise ValueError(
@@ -137,12 +140,13 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
             dtype = utils.torch_dtype(np.result_type(np_dtype, np.int_))
 
     nat = datetime_dtype is not None
-    out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=dev), size=size,
+    out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=work), size=size,
                       engine=engine, dtype=dtype, nat=nat)
 
     nanmask = codes_flat < 0
     if nanmask.any():  # missing labels belong to no group
-        out = _mask_positions(out, torch.as_tensor(nanmask, device=dev), nat=nat)
+        out = _mask_positions(out, torch.as_tensor(nanmask, device=work), nat=nat)
+    out = out.to(dev)  # the host engine's one copy to the device
     out = out.reshape(lead_shape + bys[0].shape)
     if arr_order is not None:
         out = out.permute(tuple(np.argsort(arr_order)))

@@ -40,6 +40,11 @@ class Bins:
     def __len__(self) -> int:
         return len(self.edges) - 1
 
+    @property
+    def shape(self) -> tuple[int]:
+        """One entry per bin, so that the bins can stand as a coordinate."""
+        return (len(self),)
+
     def values(self) -> np.ndarray:
         """The bins as a 1-D structured array with fields ``left`` and ``right``."""
         edges = np.asarray(self.edges)

@@ -9,6 +9,7 @@ the CPU unless the caller asked for the CPU.
 
 from __future__ import annotations
 
+import importlib.util
 from collections.abc import Iterable
 from typing import Any
 
@@ -16,6 +17,20 @@ import numpy as np
 import torch
 
 from . import dtypes
+
+
+#: whether real xarray is installed (the adapter then binds to it, else to
+#: ``xrlite``); found without importing it
+HAS_XARRAY = importlib.util.find_spec("xarray") is not None
+
+
+def loaded_pandas():
+    """The pandas module if this process has imported it, else None. A pandas
+    object can only come from a process that did, so code that must handle
+    one tests for it this way, without importing pandas itself."""
+    import sys
+
+    return sys.modules.get("pandas")
 
 
 def resolve_device(device: Any = None) -> torch.device:

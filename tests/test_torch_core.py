@@ -365,7 +365,9 @@ def test_result_is_tensor_on_device_and_groups_numpy():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        # A2 (median) is ported: it reduces now (test_a2_median_reduces)
+        # A2 (median) is ported: it reduces now (test_a2_median_reduces). A6 is
+        # ported: engine="numpy" reduces on the host engine, and a string
+        # reindex raises the reference's own error (a TypeError)
         pytest.param({"func": "sum", "engine": "numpy"}, "A6", id="kw1-A6"),
         pytest.param({"func": "sum", "engine": "sort", "reindex": "blockwise"}, "A6",
                      id="kw2-A6"),
@@ -373,8 +375,20 @@ def test_result_is_tensor_on_device_and_groups_numpy():
     ],
 )
 def test_unported_branches_name_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), device="cpu", **kw)
+    if item != "A6":
+        with pytest.raises(NotImplementedError, match=item):
+            flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), device="cpu", **kw)
+        return
+    # a ported branch: the reference's result, or the reference's error
+    try:
+        ref, rgroups = flox_tpu.groupby_reduce(np.ones(4), np.zeros(4), **kw)
+    except Exception as err:  # noqa: BLE001 - the port must raise the same type
+        with pytest.raises(type(err)):
+            flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), device="cpu", **kw)
+        return
+    got, pgroups = flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), device="cpu", **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(pgroups, np.asarray(rgroups))
 
 
 def test_a2_median_reduces():
@@ -390,8 +404,8 @@ def test_from_reference_maps_option_names():
     assert opts == {"segment_sum_impl": "kernel", "segment_minmax_impl": "scatter",
                     "pallas_accum": "dd", "default_engine": "torch"}
     assert from_reference({"segment_sum_impl": "radixbin"}) == {"segment_sum_impl": "radixbin"}
-    with pytest.raises(NotImplementedError, match="A6"):
-        from_reference({"default_engine": "numpy"})
+    # the host numpy engine is ported (A6): the option carries across
+    assert from_reference({"default_engine": "numpy"}) == {"default_engine": "numpy"}
 
 
 def _port_sources():

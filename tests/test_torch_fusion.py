@@ -444,9 +444,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
     [({"method": "map-reduce"}, "A7"), ({"engine": "numpy"}, "A6")],
 )
 def test_unported_branches_name_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        flox_tpu_torch.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",),
-                                              device="cpu", **kw)
+    if item != "A6":
+        with pytest.raises(NotImplementedError, match=item):
+            flox_tpu_torch.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",),
+                                                  device="cpu", **kw)
+        return
+    # engine="numpy" is ported (A6): the reference's host-engine result
+    ref, rgroups = flox_tpu.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",), **kw)
+    got, pgroups = flox_tpu_torch.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",),
+                                                         device="cpu", **kw)
+    np.testing.assert_array_equal(got["sum"].numpy(), np.asarray(ref["sum"]))
+    np.testing.assert_array_equal(pgroups, np.asarray(rgroups))
 
 
 def test_autotune_option_names_roadmap_item():

@@ -367,11 +367,18 @@ def test_segmented_scan_restarts_at_flags():
     "kw,err,match",
     [
         ({"method": "blelloch"}, NotImplementedError, "A7"),
-        ({"engine": "numpy"}, NotImplementedError, "A6"),
+        # engine="numpy" is ported (A6): it scans as the reference's host engine
+        pytest.param({"engine": "numpy"}, None, "A6", id="kw1-NotImplementedError-A6"),
         ({"axis": (0, 1)}, ValueError, "single axis"),
     ],
 )
 def test_unported_and_invalid_branches(kw, err, match):
+    if err is None:
+        ref = flox_tpu.groupby_scan(np.ones(4), np.zeros(4), func="cumsum", **kw)
+        got = flox_tpu_torch.groupby_scan(np.ones(4), np.zeros(4), func="cumsum", device="cpu",
+                                          **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        return
     with pytest.raises(err, match=match):
         flox_tpu_torch.groupby_scan(np.ones(4), np.zeros(4), func="cumsum", device="cpu", **kw)
 
