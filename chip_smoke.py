@@ -63,6 +63,20 @@ Phases; any failure exits nonzero:
    checked against a float64 (or exact) reduction of the same data on the
    card (the sort engine against the daily call, bit for bit; positions,
    first/last and mode exactly; the quantiles' two paths bit for bit);
+   then the multi-device runtime (:func:`phase_mesh_all`): in a
+   ``torch.distributed`` world of one rank (NCCL, a file store in a temp
+   dir) over ``make_mesh()``, at full width, map-reduce nanmean, cohorts
+   nanvar, map-reduce nanargmax, the Blelloch nancumsum, blockwise nanmedian
+   and map-reduce nanquantile(0.1, 0.5, 0.9) by the (distributed) radix
+   select, cohorts nansum, the trio by map-reduce and the daily nanmean by
+   map-reduce, each with its launches counted from 0 and its peak memory,
+   bit for bit against the eager call and both timed (:func:`phase_mesh`);
+   then two spawned gloo ranks sharing the card (NCCL refuses two ranks on
+   one device) on the data cut to 8192 rows, made on the host from the seed
+   by each rank, which moves only its columns to the card: the calls of
+   ``__graft_entry__.dryrun_multichip`` without its streaming ones, each
+   rank's results held against the world of one's on the same cut, with the
+   same launches, under a deadline (:func:`phase_mesh_ranks`);
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls; the
@@ -79,6 +93,10 @@ Phases; any failure exits nonzero:
 
 It then prints the peak device memory, the card's name and power limit, one
 JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
+
+``--mesh-cards N`` runs only the build and :func:`phase_mesh_cards`: the
+full-width mesh calls on N NCCL ranks, one card each, against one card's
+eager calls (exact, or within the float32 bars of other summation orders).
 Without CUDA it exits nonzero before printing any result.
 """
 
@@ -87,6 +105,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1503,6 +1522,601 @@ def _family_times(ck, calls: dict, reps: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the multi-device runtime (flox_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+MESH_ROWS = 8192  # the two-rank phase's cut of the rows
+MESH_DEADLINE_S = 420.0  # the two-rank phase's deadline, spawn to exit
+
+
+def _once_ms(fn):
+    """One run of ``fn`` timed with CUDA events: ``(result, ms)``."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _result(out):
+    """The result of an entry point: its tensor, or for groupby_aggregate_many
+    its dict (the group values dropped)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _same_result(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[kk], b[kk]) for kk in a)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a.view("int64"), b.view("int64"))
+    return same(a, b)
+
+
+def _mesh_calls(data, month, mesh, mesh2) -> list:
+    """The mesh calls of the full-width phase, each beside its eager
+    counterpart: ``(name, mesh call, eager call, options, slow)``; ``mesh2``
+    is a (1, 1) ("dcn", "ici") mesh."""
+    import flox_tpu_torch as ft
+
+    n = data.shape[-1]
+    day = np.arange(n, dtype=np.int64) // 24
+    qs = {"q": (0.1, 0.5, 0.9)}
+    trio = ("nanmean", "nanmin", "nanmax")
+    select = {"quantile_impl": "select"}
+
+    def red(func, method, labels=month, **kw):
+        return (lambda: ft.groupby_reduce(data, labels, func=func, method=method, mesh=mesh, **kw),
+                lambda: ft.groupby_reduce(data, labels, func=func, **kw))
+
+    return [
+        ("map-reduce nanmean", *red("nanmean", "map-reduce"), {}, False),
+        ("cohorts nanvar (ddof=1)", *red("nanvar", "cohorts", finalize_kwargs={"ddof": 1}),
+         {}, False),
+        ("map-reduce nanargmax", *red("nanargmax", "map-reduce"), {}, False),
+        ("Blelloch nancumsum",
+         lambda: ft.groupby_scan(data, month, func="nancumsum", method="blelloch", mesh=mesh),
+         lambda: ft.groupby_scan(data, month, func="nancumsum"), {}, False),
+        ("blockwise nanmedian (select)", *red("nanmedian", "blockwise"), select, True),
+        ("map-reduce nanquantile q=(0.1, 0.5, 0.9) (select)",
+         *red("nanquantile", "map-reduce", finalize_kwargs=qs), select, True),
+        ("cohorts nansum", *red("nansum", "cohorts"), {}, False),
+        ("map-reduce aggregate_many(nanmean, nanmin, nanmax)",
+         lambda: ft.groupby_aggregate_many(data, month, funcs=trio, method="map-reduce",
+                                           mesh=mesh),
+         lambda: ft.groupby_aggregate_many(data, month, funcs=trio), {}, False),
+        ("map-reduce daily nanmean (1096 groups)", *red("nanmean", "map-reduce", labels=day),
+         {}, False),
+        ("map-reduce nanmean over (dcn, ici)",
+         lambda: ft.groupby_reduce(data, month, func="nanmean", method="map-reduce", mesh=mesh2,
+                                   axis_name=("dcn", "ici")),
+         lambda: ft.groupby_reduce(data, month, func="nanmean"), {}, False),
+    ]
+
+
+def _mesh_launches(data) -> dict:
+    """The kernel launches each full-width mesh call must make: the shard
+    (here the whole array) goes through the eager path's kernels, plus the
+    Blelloch scan's block sums (B1) and the argreduction's extreme values
+    (B3); the radix select's 32 counting passes run per row block."""
+    from flox_tpu_torch import kernels as pk
+
+    median_blocks = len(pk._quantile_rows(data, 1, "linear", True))
+    quantile_blocks = len(pk._quantile_rows(data, 3, "linear", True))
+    return {
+        "map-reduce nanmean": {"segment_sum": 1},
+        "cohorts nanvar (ddof=1)": {"segment_sum": 2},
+        "map-reduce nanargmax": {"segment_minmax": 3},
+        "Blelloch nancumsum": {"segment_cumsum": 1, "segment_sum": 1},
+        "blockwise nanmedian (select)": {"segment_sum": 32 * median_blocks},
+        "map-reduce nanquantile q=(0.1, 0.5, 0.9) (select)":
+            {"segment_sum": 32 * quantile_blocks},
+        "cohorts nansum": {"segment_sum": 1},
+        "map-reduce aggregate_many(nanmean, nanmin, nanmax)": {"segment_multistat": 1},
+        "map-reduce daily nanmean (1096 groups)": {"segment_sum_radixbin": 1},
+        "map-reduce nanmean over (dcn, ici)": {"segment_sum": 1},
+    }
+
+
+def _world_of_one(tmp: str) -> None:
+    """A torch.distributed world of one rank: NCCL on the card (gloo when
+    rehearsing on the CPU), on a file store in ``tmp``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", world_size=1, rank=0)
+
+
+def phase_mesh(data, month, totals: dict, reps: int) -> list:
+    """The multi-device runtime at full width on a world of one rank: each
+    mesh call with its launches checked (the counts set to 0 just before it),
+    its peak memory, bit for bit against the eager call on the same data,
+    and both timed (CUDA events; the select calls once each, the others the
+    median of ``reps`` after a warm-up)."""
+    import flox_tpu_torch
+    from flox_tpu_torch import cuda_kernels as ck
+    from flox_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device_type=DEVICE)
+    mesh2 = make_mesh(shape=(1, 1), axis_names=("dcn", "ici"), device_type=DEVICE)
+    print(f"[mesh] world of one: {mesh}, {mesh2}")
+    want = _mesh_launches(data)
+    rows = []
+    for name, mesh_fn, eager_fn, opts, slow in _mesh_calls(data, month, mesh, mesh2):
+        with flox_tpu_torch.set_options(**opts):
+            got, ms = _once_ms(lambda: _drive_peak(ck, f"mesh {name}", mesh_fn, want[name],
+                                                   totals))
+            ref, eager_ms = _once_ms(eager_fn)
+            check(_same_result(_result(got), _result(ref)),
+                  f"mesh {name}: differs from the eager call")
+            del got, ref
+            torch.cuda.empty_cache()
+            if not slow:
+                ms = time_ms(mesh_fn, reps)
+                eager_ms = time_ms(eager_fn, reps)
+                torch.cuda.empty_cache()
+        rows.append((name, ms, eager_ms))
+        print(f"[mesh] {name}: bit-identical to eager; {ms!r} ms, eager {eager_ms!r} ms, "
+              f"mesh path's own cost {ms - eager_ms!r} ms")
+    _mesh_rechunk(ck, data, month, mesh, totals)
+    return rows
+
+
+def _mesh_rechunk(ck, data, month, mesh, totals: dict) -> None:
+    """``xarray.rechunk_for_blockwise`` of the array as an xrlite DataArray
+    (every month made shard-local: on one rank, the columns in month order, a
+    6.86 GB copy), its blockwise nanmean (B1 1) against a float64 mean, and
+    ``xarray.rechunk_for_cohorts`` chunk lengths of the months."""
+    import flox_tpu_torch as ft
+    from flox_tpu_torch import xarray as fx, xrlite
+
+    da = xrlite.DataArray(data, dims=("cell", "time"), coords={"month": ("time", month)})
+    (out, codes, groups), ms = _once_ms(lambda: fx.rechunk_for_blockwise(da, "time", month))
+    check(out.dims == ("cell", "time") and tuple(out.data.shape) == tuple(data.shape)
+          and np.array_equal(groups, np.arange(NGROUPS)), f"rechunk_for_blockwise: {out.dims}")
+    got = _drive_peak(ck, "mesh blockwise nanmean after xarray.rechunk_for_blockwise",
+                      lambda: ft.groupby_reduce(out.data, codes, func="nanmean",
+                                                method="blockwise", mesh=mesh,
+                                                expected_groups=np.arange(NGROUPS))[0],
+                      {"segment_sum": 1}, totals)
+    _check_close("blockwise nanmean after rechunk_for_blockwise", got,
+                 _f64_reference(data, torch.from_numpy(month).to(DEVICE), NGROUPS, "nanmean"))
+    del out, got
+    torch.cuda.empty_cache()
+    chunks = fx.rechunk_for_cohorts(da, "time", month, force_new_chunk_at=[0])
+    check(sum(chunks) == data.shape[1], f"rechunk_for_cohorts: {sum(chunks)} columns")
+    print(f"[mesh] xarray.rechunk_for_blockwise {ms!r} ms (the permute copy); "
+          f"rechunk_for_cohorts: {len(chunks)} chunks")
+
+
+def phase_mesh_all(data, month, totals: dict, seed: int, reps: int) -> None:
+    """:func:`phase_mesh` and :func:`phase_mesh_ranks` inside a world of one
+    rank, torn down after them."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    _world_of_one(tmp)
+    try:
+        phase_mesh(data, month, totals, reps)
+        torch.cuda.empty_cache()
+        phase_mesh_ranks(seed)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mesh] the multi-device phases: {time.perf_counter() - t0:.1f} s")
+
+
+# -- two gloo ranks sharing the card ----------------------------------------
+
+
+def make_cut(seed: int, rows: int, ntime: int) -> np.ndarray:
+    """The two-rank phase's (rows, ntime) float32 data, made on the host from
+    ``seed``, so that each rank moves only its own columns to the card."""
+    return np.random.default_rng(seed).standard_normal((rows, ntime), dtype=np.float32)
+
+
+def _rms_aggregation():
+    """A custom Aggregation: root mean square by two callable legs, summed
+    over the shards by callable combines."""
+    from flox_tpu_torch import Aggregation
+    from flox_tpu_torch.kernels import generic_kernel
+
+    def sq_sum(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        return generic_kernel("nansum", group_idx, array * array, size=size, fill_value=0.0)
+
+    def cnt(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        return generic_kernel("nanlen", group_idx, array, size=size)
+
+    return Aggregation("rms", numpy=(sq_sum, cnt), chunk=(sq_sum, cnt),
+                       combine=(lambda s: s.sum(0), lambda s: s.sum(0)),
+                       finalize=lambda ss, n, **kw: (ss / n) ** 0.5,
+                       fill_value={"intermediate": (0.0, 0)}, final_fill_value=np.nan)
+
+
+def _rank_calls(cut: np.ndarray, seed: int, mesh, nranks: int) -> list:
+    """The mesh calls of ``__graft_entry__.dryrun_multichip`` without its
+    streaming ones, on the cut: ``(name, call, bar)``, where bar is "exact",
+    "sum" (float32 sums and divisions: 1e-6 + 1e-5 |ref|) or "scan". The
+    blocked call lowers the dense-intermediate ceiling so that its 100,000
+    groups block over ``nranks`` ranks; a world of one runs it dense."""
+    import flox_tpu_torch as ft
+
+    rows, n = cut.shape
+    month = month_labels(n)
+    per = -(-n // 2)
+    local = np.arange(n) // per  # shard-local groups over two shards
+    interleaved = 2 * ((np.arange(n) % per) % 6) + local  # shard s: codes s, s+2, ...
+    rng = np.random.default_rng(seed + 2)
+    td = rng.integers(1, 10**6, (64, n)).astype("timedelta64[ns]")
+    td[rng.random((64, n)) < 0.05] = np.timedelta64("NaT")
+    wide = rng.integers(0, 100_000, n)
+    few = cut[:256]
+    # 256 rows x 100,000 groups: the dense estimate (counts, sums, counts)
+    # is 3 x 102.4 MB; the blocked peak over two ranks 102.4 + 153.6 MB
+    ceiling = 280_000_000 if nranks > 1 else None
+    qs = {"q": (0.1, 0.5, 0.9)}
+
+    def red(arr, labels, func, method, **kw):
+        return lambda: ft.groupby_reduce(arr, labels, func=func, method=method, mesh=mesh, **kw)
+
+    def with_options(fn, **opts):
+        def call():
+            with ft.set_options(**opts):
+                return fn()
+        return call
+
+    return [
+        ("map-reduce nanmean", red(cut, month, "nanmean", "map-reduce"), "sum"),
+        ("cohorts nanvar", red(cut, month, "nanvar", "cohorts"), "sum"),
+        ("map-reduce nanargmax", red(cut, month, "nanargmax", "map-reduce"), "exact"),
+        ("Blelloch cumsum", lambda: ft.groupby_scan(cut, month, func="cumsum",
+                                                    method="blelloch", mesh=mesh), "scan"),
+        ("Blelloch timedelta cumsum with NaT",
+         lambda: ft.groupby_scan(td, month, func="cumsum", method="blelloch", mesh=mesh),
+         "exact"),
+        ("blockwise nanmedian, shard-local codes (select)",
+         with_options(red(cut, local, "nanmedian", "blockwise"), quantile_impl="select"),
+         "exact"),
+        ("blockwise cumsum, shard-local codes",
+         lambda: ft.groupby_scan(cut, local, func="cumsum", method="blockwise", mesh=mesh),
+         "exact"),
+        ("cohort-aligned nansum, interleaved codes",
+         red(cut, interleaved, "nansum", "cohorts"), "sum"),
+        ("custom rms Aggregation", red(cut, month, _rms_aggregation(), "map-reduce"), "sum"),
+        ("blocked nanmean, 100,000 groups (256 rows)",
+         with_options(red(few, wide, "nanmean", "map-reduce",
+                          expected_groups=np.arange(100_000)),
+                      **({"dense_intermediate_bytes_max": ceiling} if ceiling else {})),
+         "sum"),
+        ("map-reduce nanmedian (select)", red(cut, month, "nanmedian", "map-reduce"), "exact"),
+        ("map-reduce nanquantile q=(0.1, 0.5, 0.9) (select)",
+         red(cut, month, "nanquantile", "map-reduce", finalize_kwargs=qs), "exact"),
+    ]
+
+
+def _to_host(out):
+    out = _result(out)
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    return out
+
+
+def _run_rank_calls(ck, cut, seed, mesh, nranks) -> dict:
+    """Every call of :func:`_rank_calls`: ``{name: (host result, launches,
+    ms)}``."""
+    out = {}
+    for name, fn, _bar in _rank_calls(cut, seed, mesh, nranks):
+        ck.reset_launches()
+        got, ms = _once_ms(fn) if DEVICE == "cuda" else (fn(), 0.0)
+        out[name] = (_to_host(got), {kk: v for kk, v in ck.LAUNCHES.items() if v}, ms)
+        del got
+    return out
+
+
+def _agree(name: str, bar: str, got, want, cut) -> str:
+    """``got`` (a rank's result) against ``want`` (the world of one's) to
+    ``bar``; returns a line for the log, raises on disagreement."""
+    if bar == "exact" or got.dtype.kind not in "f":
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and np.array_equal(got.view(f"int{8 * got.itemsize}"),
+                                 want.view(f"int{8 * want.itemsize}")),
+              f"{name}: differs from the world of one")
+        return f"{name}: bit-identical"
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{name}: {got.dtype} {got.shape}")
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    err = np.abs(g - w)
+    check(bool(np.array_equal(np.isnan(g), np.isnan(w))), f"{name}: NaN positions differ")
+    err = np.where(np.isnan(w), 0.0, err)
+    if bar == "sum":
+        tol = 1e-6 + 1e-5 * np.abs(np.nan_to_num(w))
+    else:  # scan: n_g u cumsum|x| of each group, plus one ulp
+        codes = month_labels(cut.shape[-1])
+        scale = np.zeros_like(g)
+        for grp in range(NGROUPS):
+            cols = np.flatnonzero(codes == grp)
+            scale[:, cols] = cols.size * U32 * np.cumsum(np.abs(cut[:, cols].astype(np.float64)),
+                                                         axis=1)
+        tol = scale + np.abs(w) * 2.0**-23
+    check(bool((err <= tol).all()), f"{name}: max err {err.max()!r} past its bar")
+    return f"{name}: max |err| {err.max()!r} within the {bar} bar"
+
+
+def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str, seed: int, rows: int,
+               ntime: int, device: str, timeout_s: float) -> None:
+    """One gloo rank of the two-rank phase: makes the cut from ``seed``, runs
+    the calls, and holds each result against the world of one's."""
+    import json as json_
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    global DEVICE
+    DEVICE = device
+    torch.set_num_threads(1)
+    report = {"rank": rank, "ok": False, "lines": []}
+    try:
+        import torch.distributed as dist
+
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=world, timeout=timedelta(seconds=timeout_s))
+        from flox_tpu_torch import cuda_kernels as ck
+        from flox_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device_type=device)
+        cut = make_cut(seed, rows, ntime)
+        with open(os.path.join(out_dir, "one.pkl"), "rb") as f:
+            one = pickle.load(f)
+        got = _run_rank_calls(ck, cut, seed, mesh, world)
+        for name, _fn, bar in _rank_calls(cut, seed, mesh, world):
+            res, launches, ms = got[name]
+            check(launches == one[name][1],
+                  f"{name}: launches {launches}, the world of one's {one[name][1]}")
+            line = _agree(name, bar, res, one[name][0], cut)
+            report["lines"].append(f"{line}; launches {launches}; {ms!r} ms")
+        dist.destroy_process_group()
+        report["ok"] = True
+    except Exception:  # noqa: BLE001 - the parent fails the phase with it
+        report["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json_.dump(report, f)
+
+
+def phase_mesh_ranks(seed: int, rows: int = MESH_ROWS) -> None:
+    """The mesh calls on a gloo world of two spawned ranks that share the
+    card (NCCL refuses two ranks on one device), on the data cut to ``rows``
+    rows: each rank's results against the world of one's on the same cut,
+    which this process computes first on its own one-rank mesh. The phase
+    has a deadline; any rank's failure fails it."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from flox_tpu_torch import cuda_kernels as ck
+    from flox_tpu_torch.parallel import make_mesh
+
+    cut = make_cut(seed, rows, NTIME)
+    one = _run_rank_calls(ck, cut, seed, make_mesh(device_type=DEVICE), 1)
+    del cut
+    torch.cuda.empty_cache()
+    for name, (_res, launches, ms) in one.items():
+        print(f"[ranks] world of one, {name}: launches {launches}, {ms!r} ms")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        with open(os.path.join(tmp, "one.pkl"), "wb") as f:
+            pickle.dump(one, f)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, 2, os.path.join(tmp, "init"), tmp, seed,
+                                                     rows, NTIME, DEVICE, 120.0))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        check(not hung, f"ranks {hung} missed the {MESH_DEADLINE_S} s deadline")
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.json")
+            check(os.path.exists(path), f"rank {r} exited with code {p.exitcode} and no report")
+            with open(path) as f:
+                report = json.load(f)
+            check(report["ok"], f"rank {r} failed:\n{report.get('error')}")
+            for line in report["lines"]:
+                print(f"[ranks] rank {r}: {line}")
+        print(f"[ranks] two gloo ranks on one card, {rows} rows: every call agrees with the "
+              f"world of one ({time.perf_counter() - t0:.1f} s from spawn to exit)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- NCCL ranks, one card each (python3 chip_smoke.py --mesh-cards 4) ---------
+
+
+def _card_calls(data, month, mesh, mesh2, nranks: int) -> list:
+    """The mesh calls of the multi-card phase at full width: ``(name, mesh
+    call, eager call, bar, options)``; bar as :func:`_agree_card`'s.
+    Blockwise runs on codes that put one group on each shard."""
+    import flox_tpu_torch as ft
+
+    n = data.shape[-1]
+    day = np.arange(n, dtype=np.int64) // 24
+    local = np.arange(n) // -(-n // nranks)
+    qs = {"q": (0.1, 0.5, 0.9)}
+    trio = ("nanmean", "nanmin", "nanmax")
+    select = {"quantile_impl": "select"}
+
+    def red(func, method, labels=month, m=mesh, **kw):
+        return (lambda: ft.groupby_reduce(data, labels, func=func, method=method, mesh=m, **kw),
+                lambda: ft.groupby_reduce(data, labels, func=func, device=DEVICE,
+                                          **{k: v for k, v in kw.items() if k != "axis_name"}))
+
+    return [
+        ("map-reduce nanmean", *red("nanmean", "map-reduce"), "mean", {}),
+        ("cohorts nanvar (ddof=1)", *red("nanvar", "cohorts", finalize_kwargs={"ddof": 1}),
+         "mean", {}),
+        ("map-reduce nanargmax", *red("nanargmax", "map-reduce"), "exact", {}),
+        ("Blelloch nancumsum",
+         lambda: ft.groupby_scan(data, month, func="nancumsum", method="blelloch", mesh=mesh),
+         lambda: ft.groupby_scan(data, month, func="nancumsum", device=DEVICE), "scan", {}),
+        ("blockwise nanmedian, shard-local codes (select)",
+         *red("nanmedian", "blockwise", labels=local), "exact", select),
+        ("map-reduce nanquantile q=(0.1, 0.5, 0.9) (select)",
+         *red("nanquantile", "map-reduce", finalize_kwargs=qs), "exact", select),
+        ("cohorts nansum", *red("nansum", "cohorts"), "sum", {}),
+        ("map-reduce aggregate_many(nanmean, nanmin, nanmax)",
+         lambda: ft.groupby_aggregate_many(data, month, funcs=trio, method="map-reduce",
+                                           mesh=mesh),
+         lambda: ft.groupby_aggregate_many(data, month, funcs=trio, device=DEVICE), "mean", {}),
+        ("map-reduce daily nanmean (1096 groups)", *red("nanmean", "map-reduce", labels=day),
+         "mean", {}),
+        ("map-reduce nanmean over (dcn, ici)",
+         *red("nanmean", "map-reduce", m=mesh2, axis_name=("dcn", "ici")), "mean", {}),
+    ]
+
+
+def _agree_card(name: str, bar: str, got, want, data, month) -> str:
+    """A multi-card result against the one-card eager call: "exact" bit for
+    bit; "mean" within 1e-6 + 1e-5 |ref| (float32 sums of other partial
+    orders, then divided); "sum" within the plain segment-sum bar of the
+    group's |x| sum; "scan" within ``n_g u cumsum|x|`` plus one ulp."""
+    if isinstance(want, dict):
+        return "; ".join(_agree_card(f"{name}[{k}]", "exact" if k in ("nanmin", "nanmax")
+                                     else bar, got[k], want[k], data, month) for k in want)
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: {got.shape} {got.dtype}")
+    if bar == "exact":
+        check(same(got, want), f"{name}: differs from the one-card call")
+        return f"{name}: bit-identical"
+    codes = torch.from_numpy(month).to(data.device)
+    if bar == "scan":
+        return f"{name}: max |err| {_check_scan_full(name, got, data, codes, want=want)!r}"
+    err = (got.double() - want.double()).abs()
+    if bar == "sum":
+        tol = _sum_bar("plain", data.shape[-1], abs_sums(data, codes, NGROUPS).T, want)
+    else:
+        tol = 1e-6 + 1e-5 * want.double().abs()
+    check(bool((err <= tol).all()), f"{name}: max err {err.max().item()!r} past its bar")
+    return f"{name}: max |err| {err.max().item()!r} within the {bar} bar"
+
+
+def _mesh_card(rank: int, world: int, init_file: str, out_dir: str, seed: int, reps: int,
+               timeout_s: float, device: str, shape: tuple) -> None:
+    """One NCCL rank of the multi-card phase, on card ``rank``: makes the
+    ``shape`` data on its card from ``seed``, runs each mesh call (timed;
+    the select calls once), and on rank 0 holds it against the one-card
+    eager call and times that too. ``device="cpu"`` (gloo, untimed)
+    rehearses it."""
+    import traceback
+    from datetime import timedelta
+
+    global DEVICE, NLAT, NLON, NTIME
+    DEVICE, (NLAT, NLON, NTIME) = device, (shape[0], 1, shape[1])
+    torch.set_num_threads(1)
+    report = {"rank": rank, "ok": False, "lines": []}
+    try:
+        import flox_tpu_torch
+        import torch.distributed as dist
+        from flox_tpu_torch import cuda_kernels as ck
+        from flox_tpu_torch.parallel import make_mesh
+
+        on_card = device == "cuda"
+        if on_card:
+            torch.cuda.set_device(rank)
+        dist.init_process_group("nccl" if on_card else "gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world, timeout=timedelta(seconds=timeout_s))
+        once = _once_ms if on_card else (lambda fn: (fn(), 0.0))
+        mesh = make_mesh(device_type=device)
+        mesh2 = make_mesh(shape=(2, world // 2), axis_names=("dcn", "ici"), device_type=device)
+        data = make_data(seed)
+        month = month_labels(data.shape[-1])
+        for name, mesh_fn, eager_fn, bar, opts in _card_calls(data, month, mesh, mesh2, world):
+            with flox_tpu_torch.set_options(**opts):
+                ck.reset_launches()
+                got, ms = once(mesh_fn)
+                launches = {kk: v for kk, v in ck.LAUNCHES.items() if v}
+                if not opts and on_card:
+                    ms = time_ms(mesh_fn, reps)
+                line = f"{name}: {ms!r} ms on {world} cards, launches {launches}"
+                if rank == 0:
+                    want, eager_ms = once(eager_fn)
+                    if not opts and on_card:
+                        eager_ms = time_ms(eager_fn, reps)
+                    line += (f", one card {eager_ms!r} ms; "
+                             + _agree_card(name, bar, _result(got), _result(want), data, month))
+                    del want
+                del got
+                torch.cuda.empty_cache()
+            report["lines"].append(line)
+        report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        dist.destroy_process_group()
+        report["ok"] = True
+    except Exception:  # noqa: BLE001 - the parent fails the phase with it
+        report["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"card{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def phase_mesh_cards(seed: int, ncards: int, reps: int, device: str = "cuda") -> None:
+    """The mesh calls at full width on ``ncards`` NCCL ranks, one card each
+    (each makes the data on its card and reduces its columns), against one
+    card's eager calls. The phase has a deadline; any rank's failure fails
+    it."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    check(device != "cuda" or torch.cuda.device_count() >= ncards,
+          f"--mesh-cards {ncards} needs {ncards} cards; {torch.cuda.device_count()} found")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_card, args=(r, ncards, os.path.join(tmp, "init"), tmp,
+                                                     seed, reps, 300.0, device,
+                                                     (NLAT * NLON, NTIME)))
+                 for r in range(ncards)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        check(not hung, f"ranks {hung} missed the {MESH_DEADLINE_S} s deadline")
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"card{r}.json")
+            check(os.path.exists(path), f"rank {r} exited with code {p.exitcode} and no report")
+            with open(path) as f:
+                report = json.load(f)
+            check(report["ok"], f"rank {r} failed:\n{report.get('error')}")
+            if r == 0:
+                for line in report["lines"]:
+                    print(f"[cards] {line}")
+            print(f"[cards] rank {r}: peak device memory {report['peak_gb']:.2f} GB")
+        print(f"[cards] {ncards} NCCL ranks, one card each: every call agrees with one card "
+              f"({time.perf_counter() - t0:.1f} s from spawn to exit)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -1668,10 +2282,12 @@ def phase_times(data, month, codes, reps: int, launches: dict, seed: int = 0) ->
         gbps = nbytes / (e2e_ms * 1e-3) / 1e9
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {gbps!r} GB/s of input")
     family = _family_calls(data, month, seed)
-    _family_times(ck, family, max(2, reps // 4))
+    # one timed run after the warm-up (the select quantile alone takes 3.7 s)
+    # and two traced ones keep the script near its time with the mesh phases
+    _family_times(ck, family, 1)
     labels = label_times(ck, data, month, seed, max(3, reps // 2))
     device_breakdown({**wrapper_calls(data), **{name: calls[name] for name in list(calls)[:6]},
-                      **family, **labels})
+                      **family, **labels}, reps=2)
     del family, labels
     torch.cuda.empty_cache()
     cut = data[:SORT_ROWS]
@@ -1939,6 +2555,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--mesh-cards", type=int, default=0,
+                        help="run only the multi-card mesh phase on this many cards")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1949,8 +2567,16 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
+    if args.mesh_cards:
+        phase_mesh_cards(args.seed, args.mesh_cards, max(3, args.reps // 2))
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+        print(f"[total] {time.perf_counter() - t0:.1f} s")
+        return 0
     phase_kernels(args.seed)
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
+    phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2))
     entries = phase_times(data, month, codes, args.reps, launches, args.seed)
     print(f"[memory] peak device memory "
           f"{max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9:.2f} GB")

@@ -1,6 +1,7 @@
 """flox_tpu_torch: the PyTorch/CUDA port of flox_tpu's grouped reductions,
 multi-statistic fusion, grouped scans, high-cardinality (sort) engine, label
-layers and xarray adapter.
+layers, xarray adapter and multi-device runtime (``parallel``: ``method=``
+and ``mesh=`` over ``torch.distributed``).
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and

@@ -4,10 +4,11 @@ eager slice of ``flox_tpu/aggregations.py``).
 An :class:`Aggregation` names the kernels of its eager path, its chunk legs
 (what the fusion planner merges) and its final fill value and dtype.
 :func:`_initialize_aggregation` resolves those against the input's dtype. The
-registry holds the reference's whole family; the combine stage of the
-reference belongs to the multi-device runtime (ROADMAP A7). Order statistics
-(median, quantile, mode) are blockwise-only (``chunk is None``): they need
-every element of a group at once.
+registry holds the reference's whole family with its ``combine`` ops, the
+merges that the multi-device runtime (``parallel.mapreduce``) applies across
+shards. Order statistics (median, quantile, mode) are blockwise-only
+(``chunk is None``): they need every element of a group at once, or, for
+quantiles on a mesh, the distributed radix select.
 
 Multi-statistic fusion (:func:`plan_fused`, :func:`fused_chunk_stats`) merges
 N statistics into one deduplicated set of chunk legs for
@@ -39,6 +40,7 @@ __all__ = [
     "is_supported_aggregation",
     "plan_fused",
     "set_nat_final_fill",
+    "shift_nat_identity_fills",
     "_initialize_aggregation",
     "_initialize_scan",
 ]
@@ -111,8 +113,14 @@ class Aggregation:
     ``finalize`` folds their results. Entries may be callables with the
     engine plugin signature ``f(group_idx, array, *, axis, size, fill_value,
     dtype, **kw)``. ``chunk`` lists the intermediate legs with their
-    ``fill_value["intermediate"]``, as the reference names them; the port's
-    fusion planner reads them. After :func:`_initialize_aggregation`,
+    ``fill_value["intermediate"]``, as the reference names them; the fusion
+    planner and the mesh programs read them. ``combine`` holds one merge op
+    per leg for the mesh programs: "sum", "max", "min", "prod", "var" (the
+    Chan merge of the variance triple), "first"/"last", or a callable that
+    folds the shards' stacked intermediates, ``op(stacked)`` with ``stacked``
+    (n_shards, ..., size) -> (..., size); with chunk legs, ``finalize``
+    turns the merged legs into the result. After
+    :func:`_initialize_aggregation`,
     ``final_dtype`` is a torch dtype and ``final_fill_value`` a concrete
     scalar.
     """
@@ -120,6 +128,7 @@ class Aggregation:
     name: str
     numpy: tuple[str | Callable, ...] = ()
     chunk: tuple[Any, ...] = ()
+    combine: tuple[Any, ...] | None = None
     finalize: Callable | None = None
     fill_value: dict[str, Any] = field(default_factory=dict)  # {"intermediate": (...)}
     final_fill_value: Any = dtypes.NA
@@ -159,26 +168,47 @@ def _inter(*fills) -> dict:
     return {"intermediate": fills}
 
 
-_register(Aggregation("count", numpy=("nanlen",), chunk=("nanlen",), fill_value=_inter(0),
-                      final_fill_value=0, final_dtype=np.intp))
+def _mean_finalize(total, count, **kw) -> torch.Tensor:
+    return total / count
+
+
+def _var_finalize(ma: MultiArray, ddof=0, **kw) -> torch.Tensor:
+    m2, _total, count = ma.arrays
+    denom = count - ddof
+    out = m2 / torch.where(denom > 0, denom, 1)
+    return torch.where(denom > 0, out, float("nan"))
+
+
+def _std_finalize(ma: MultiArray, ddof=0, **kw) -> torch.Tensor:
+    return torch.sqrt(_var_finalize(ma, ddof=ddof))
+
+
+_register(Aggregation("count", numpy=("nanlen",), chunk=("nanlen",), combine=("sum",),
+                      fill_value=_inter(0), final_fill_value=0, final_dtype=np.intp))
 for _nm in ("sum", "nansum"):
-    _register(Aggregation(_nm, chunk=(_nm,), fill_value=_inter(0), final_fill_value=0))
+    _register(Aggregation(_nm, chunk=(_nm,), combine=("sum",), fill_value=_inter(0),
+                          final_fill_value=0))
 for _nm in ("prod", "nanprod"):
-    _register(Aggregation(_nm, chunk=(_nm,), fill_value=_inter(1), final_fill_value=1))
+    _register(Aggregation(_nm, chunk=(_nm,), combine=("prod",), fill_value=_inter(1),
+                          final_fill_value=1))
 for _nm, _sum, _len in (("mean", "sum", "len"), ("nanmean", "nansum", "nanlen")):
-    _register(Aggregation(_nm, chunk=(_sum, _len), fill_value=_inter(0, 0),
+    _register(Aggregation(_nm, chunk=(_sum, _len), combine=("sum", "sum"),
+                          finalize=_mean_finalize, fill_value=_inter(0, 0),
                           final_fill_value=dtypes.NA))
 for _nm in ("var", "nanvar", "std", "nanstd"):
     _register(Aggregation(_nm, chunk=(("var_chunk", {"skipna": _nm.startswith("nan")}),),
+                          combine=("var",),
+                          finalize=_std_finalize if "std" in _nm else _var_finalize,
                           fill_value=_inter(0), final_fill_value=dtypes.NA))
 for _nm, _sentinel in (("max", dtypes.NINF), ("nanmax", dtypes.NINF), ("min", dtypes.INF),
                        ("nanmin", dtypes.INF)):
-    _register(Aggregation(_nm, chunk=(_nm,), fill_value=_inter(_sentinel),
-                          final_fill_value=dtypes.NA, preserves_dtype=True))
-_register(Aggregation("all", chunk=("all",), fill_value=_inter(True), final_fill_value=True,
-                      final_dtype=np.bool_))
-_register(Aggregation("any", chunk=("any",), fill_value=_inter(False), final_fill_value=False,
-                      final_dtype=np.bool_))
+    _register(Aggregation(_nm, chunk=(_nm,), combine=(_nm.removeprefix("nan"),),
+                          fill_value=_inter(_sentinel), final_fill_value=dtypes.NA,
+                          preserves_dtype=True))
+_register(Aggregation("all", chunk=("all",), combine=("min",), fill_value=_inter(True),
+                      final_fill_value=True, final_dtype=np.bool_))
+_register(Aggregation("any", chunk=("any",), combine=("max",), fill_value=_inter(False),
+                      final_fill_value=False, final_dtype=np.bool_))
 
 
 def _pick_second(a, b, **kw):
@@ -192,15 +222,18 @@ def _quantile_new_dims(q=0.5, **kw) -> tuple[int, ...]:
 
 
 # argreductions: the eager path is the kernel itself; the chunk legs pair the
-# extreme value with its position, for the multi-device combine (A7)
+# extreme value with its position, which the mesh programs merge across shards
+# (parallel.mapreduce._combine_arg)
 for _nm in ("argmax", "argmin", "nanargmax", "nanargmin"):
-    _register(Aggregation(_nm, chunk=(_nm.replace("arg", ""), _nm), finalize=_pick_second,
-                          reduction_type="argreduce",
+    _register(Aggregation(_nm, chunk=(_nm.replace("arg", ""), _nm),
+                          combine=(_nm.removeprefix("nan"),),
+                          finalize=_pick_second, reduction_type="argreduce",
                           fill_value=_inter(dtypes.NINF if "max" in _nm else dtypes.INF, -1),
                           final_fill_value=-1, final_dtype=np.intp))
 for _nm in ("first", "last", "nanfirst", "nanlast"):
-    _register(Aggregation(_nm, chunk=(_nm,), fill_value=_inter(dtypes.NA),
-                          final_fill_value=dtypes.NA, preserves_dtype=True))
+    _register(Aggregation(_nm, chunk=(_nm,), combine=(_nm.removeprefix("nan"),),
+                          fill_value=_inter(dtypes.NA), final_fill_value=dtypes.NA,
+                          preserves_dtype=True))
 # order statistics: blockwise-only (chunk=None), as in the reference
 for _nm in ("median", "nanmedian"):
     _register(Aggregation(_nm, chunk=None, final_fill_value=dtypes.NA))
@@ -226,6 +259,17 @@ def set_nat_final_fill(agg: Aggregation, fill_value) -> None:
     elif isinstance(agg.final_fill_value, (np.datetime64, np.timedelta64)):
         agg.final_fill_value = int(agg.final_fill_value.astype("int64"))
     agg.final_dtype = torch.int64
+
+
+def shift_nat_identity_fills(agg: Aggregation) -> None:
+    """The NINF-resolved empty fill of an int64 leg (INT64_MIN) is the NaT
+    marker itself: shift it by one, so that a group absent from one shard is
+    not taken for a NaT-holding one when the mesh combine re-injects NaT."""
+    nat = np.iinfo(np.int64).min
+    agg.fill_value["intermediate"] = tuple(
+        (fv + 1 if isinstance(fv, (int, np.integer)) and fv == nat else fv)
+        for fv in agg.fill_value.get("intermediate", ())
+    )
 
 
 def _initialize_aggregation(
@@ -291,22 +335,6 @@ def _initialize_aggregation(
         for fv in agg.fill_value.get("intermediate", ())
     )}
     return agg
-
-
-# ---------------------------------------------------------------------------
-# finalize helpers
-# ---------------------------------------------------------------------------
-
-
-def _var_finalize(ma: MultiArray, ddof=0, **kw) -> torch.Tensor:
-    m2, _total, count = ma.arrays
-    denom = count - ddof
-    out = m2 / torch.where(denom > 0, denom, 1)
-    return torch.where(denom > 0, out, float("nan"))
-
-
-def _std_finalize(ma: MultiArray, ddof=0, **kw) -> torch.Tensor:
-    return torch.sqrt(_var_finalize(ma, ddof=ddof))
 
 
 # ---------------------------------------------------------------------------
@@ -437,16 +465,16 @@ def plan_fused(funcs, dtype, array_dtype, fill_value, min_count: int,
         for f in funcs
     )
 
-    legs: list[tuple] = []  # (entry, fill, eager_dtype)
+    legs: list[tuple] = []  # (entry, combine, fill, eager_dtype)
     index: dict[tuple, int] = {}
 
-    def add_leg(entry, fill, eager_dtype=None) -> int:
+    def add_leg(entry, combine, fill, eager_dtype=None) -> int:
         name, kw = (entry[0], tuple(sorted(entry[1].items()))) if isinstance(entry, tuple) \
             else (entry, ())
         key = (name, kw, repr(fill), None if eager_dtype is None else str(eager_dtype))
         if key not in index:
             index[key] = len(legs)
-            legs.append((entry, fill, eager_dtype))
+            legs.append((entry, combine, fill, eager_dtype))
         return index[key]
 
     # variance triples first, so that mean can read their leaves
@@ -454,8 +482,9 @@ def plan_fused(funcs, dtype, array_dtype, fill_value, min_count: int,
     for f, agg in zip(funcs, aggs):
         if f in _VAR_FUNCS:
             skipna = f in _SKIPNA_FUNCS
-            var_leg.setdefault(skipna, add_leg(agg.chunk[0], agg.fill_value["intermediate"][0]))
-    nanlen_leg = add_leg("nanlen", 0) if min_count > 0 else None
+            var_leg.setdefault(skipna, add_leg(agg.chunk[0], "var",
+                                               agg.fill_value["intermediate"][0]))
+    nanlen_leg = add_leg("nanlen", "sum", 0) if min_count > 0 else None
 
     slots: list[dict] = []
     for f, agg in zip(funcs, aggs):
@@ -468,17 +497,18 @@ def plan_fused(funcs, dtype, array_dtype, fill_value, min_count: int,
                 slot = {"kind": "mean", "sum": (t, 1), "count": (t, 2)}
             else:
                 # the float work dtype, so int inputs promote as the mean kernel does
-                s = add_leg(agg.chunk[0], 0, eager_dtype=agg.final_dtype)
-                slot = {"kind": "mean", "sum": s, "count": add_leg(agg.chunk[1], 0)}
+                s = add_leg(agg.chunk[0], "sum", 0, eager_dtype=agg.final_dtype)
+                slot = {"kind": "mean", "sum": s, "count": add_leg(agg.chunk[1], "sum", 0)}
         elif f == "count":
-            slot = {"kind": "count", "leg": add_leg("nanlen", 0)}
+            slot = {"kind": "count", "leg": add_leg("nanlen", "sum", 0)}
         else:
             edt = agg.final_dtype if f in ("sum", "nansum", "prod", "nanprod") else None
-            leg = add_leg(agg.chunk[0], agg.fill_value["intermediate"][0], eager_dtype=edt)
+            leg = add_leg(agg.chunk[0], agg.combine[0], agg.fill_value["intermediate"][0],
+                          eager_dtype=edt)
             # nanmin/nanmax of an all-NaN group is missing, but nansum/nanprod
             # of one is the identity: only zero-element groups take the fill
             presence = "nanlen" if f in ("nanmin", "nanmax") else "len"
-            slot = {"kind": "direct", "leg": leg, "present": add_leg(presence, 0)}
+            slot = {"kind": "direct", "leg": leg, "present": add_leg(presence, "sum", 0)}
         if min_count > 0:
             slot["nanlen"] = nanlen_leg
         slots.append(slot)
@@ -487,13 +517,14 @@ def plan_fused(funcs, dtype, array_dtype, fill_value, min_count: int,
         name="fused[" + "+".join(funcs) + "]",
         numpy=funcs,
         chunk=tuple(leg[0] for leg in legs),
-        fill_value={"intermediate": tuple(leg[1] for leg in legs)},
+        combine=tuple(leg[1] for leg in legs),
+        fill_value={"intermediate": tuple(leg[2] for leg in legs)},
         final_fill_value=0,
         min_count=min_count,
         aggs=aggs,
         funcs=funcs,
         slots=tuple(slots),
-        eager_dtypes=tuple(leg[2] for leg in legs),
+        eager_dtypes=tuple(leg[3] for leg in legs),
     )
 
 
@@ -545,8 +576,8 @@ class Scan:
     """Blueprint of a grouped scan (parity: the reference's ``Scan``).
 
     ``scan`` is the within-device kernel; ``reduction``, ``binary_op`` and
-    ``identity`` describe the carry across blocks that the multi-device scan
-    (ROADMAP A7) will use; ``mode`` says how a carry combines with a block.
+    ``identity`` describe the carry across shards of the multi-device scan
+    (``parallel.scan``); ``mode`` says how a carry combines with a block.
     """
 
     name: str

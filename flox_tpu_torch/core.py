@@ -1,4 +1,5 @@
-"""``groupby_reduce`` on one device: the eager path of ``flox_tpu/core.py``.
+"""``groupby_reduce``: the eager path of ``flox_tpu/core.py`` and its
+entry to the multi-device runtime.
 
 The chain is the reference's: normalize the labels and the reduced axes on
 the host, factorize the labels into dense codes (host, numpy), flatten the
@@ -21,8 +22,13 @@ Labels may also arrive prefactorized (``factorize.Prefactorized``: codes
 staged on the device, no factorization), the data may be a sparse tensor
 (``sparse.sparse_groupby_reduce``), and ``reindex=ReindexStrategy(
 array_type=SPARSE_COO)`` packs the result into a sparse container.
-Branches of the reference that later slices port raise
-``NotImplementedError`` naming the ROADMAP item.
+
+With ``method=`` or ``mesh=`` the reduction runs as a mesh program
+(``parallel.mapreduce``): every rank passes the same global inputs, the
+labels are normalized and factorized on the host as above, the data stays
+where it is (a numpy array on the host) until each rank moves its own columns
+to its device, and the result comes back replicated on every rank. Without
+``method=`` the method is chosen by cohort detection on the global codes.
 """
 
 from __future__ import annotations
@@ -167,11 +173,10 @@ def _work_device(engine: str, dev: torch.device) -> torch.device:
 
 
 def _parse_reindex(reindex, func, nby: int):
-    """The reference's reindex mapping on one device: returns the
-    ``SPARSE_COO`` strategy or None. Dense strategies, ``True`` and ``False``
-    change nothing here: every result is already dense over the expected
-    groups, and ``blockwise=False`` matters only to the multi-device combine
-    (ROADMAP A7)."""
+    """The reference's reindex mapping: returns the ``SPARSE_COO`` strategy or
+    None. Dense strategies, ``True`` and ``False`` change nothing eagerly:
+    every result is already dense over the expected groups; ``blockwise=False``
+    matters only to the mesh's map-reduce combine (:func:`_blockwise_false`)."""
     if isinstance(reindex, ReindexStrategy):
         if reindex.array_type is not ReindexArrayType.SPARSE_COO:
             return None
@@ -193,6 +198,59 @@ def _parse_reindex(reindex, func, nby: int):
     return reindex
 
 
+def _blockwise_false(reindex) -> bool:
+    """Whether ``reindex`` asks for ``blockwise=False`` (no dense combine)."""
+    if isinstance(reindex, ReindexStrategy):
+        return reindex.array_type is not ReindexArrayType.SPARSE_COO and reindex.blockwise is False
+    return reindex is False
+
+
+def _auto_method(codes_flat: np.ndarray, size: int, mesh, axis_name) -> str:
+    """The method of a mesh call that names none: cohort detection over the
+    shards of the named mesh dims (not the whole mesh), on the global codes,
+    so that every rank chooses alike."""
+    from .cohorts import chunks_from_shards, find_group_cohorts
+    from .parallel.mesh import axis_size
+
+    n_shards = axis_size(mesh, axis_name)
+    method, _ = find_group_cohorts(codes_flat, chunks_from_shards(codes_flat.shape[0], n_shards),
+                                   expected_groups=range(size))
+    return method
+
+
+def _check_blockwise_false(reindex, method: str) -> None:
+    if _blockwise_false(reindex) and method == "map-reduce":
+        raise NotImplementedError(
+            "reindex=False (blockwise=False) with method='map-reduce' on a mesh: the "
+            "combine is dense over expected_groups by design and cannot be skipped. The "
+            "capability it targets, avoiding huge dense intermediates, is provided instead "
+            "by set_options(dense_intermediate_bytes_max=...): additive reductions above "
+            "the ceiling route to the blocked owner-by-owner program. Use "
+            "method='cohorts'/'blockwise', or drop reindex=."
+        )
+
+
+def _resolve_devices(array, engine: str, method, mesh, device):
+    """``(mesh, dev, work)`` of a call: its mesh (None for an eager call),
+    the device of its result, and where its data is normalized: ``dev``, the
+    host for the numpy engine, or on a mesh where the data already lies (the
+    host for numpy), since each rank moves only its own columns."""
+    if method is None and mesh is None:
+        dev = utils.resolve_device(device)
+        return None, dev, _work_device(engine, dev)
+    from .parallel.mapreduce import resolve_mesh
+
+    mesh, dev = resolve_mesh(mesh, device)
+    return mesh, dev, array.device if isinstance(array, torch.Tensor) else torch.device("cpu")
+
+
+def _min_count(min_count, fill_value, func_name: str) -> int:
+    """The reference's default: a nansum/nanprod with a fill counts as 1."""
+    if min_count is not None:
+        return min_count
+    return 1 if fill_value is not None and func_name in ("nansum", "nanprod") else 0
+
+
 # ---------------------------------------------------------------------------
 # dense-vs-sort routing under the dense-intermediate ceiling
 # ---------------------------------------------------------------------------
@@ -204,16 +262,28 @@ def _est_itemsize(dtype) -> int:
     return max(4, utils.numpy_dtype(dtype).itemsize)
 
 
-def dense_intermediate_bytes(lead_elems: int, size: int, dtype, agg: Aggregation) -> int:
+def dense_intermediate_bytes(lead_elems: int, size: int, dtype, agg: Aggregation,
+                             ndev: int = 1) -> int:
     """Device-byte estimate of the dense (..., size) intermediates of one
-    single-device reduction (parity: the reference's estimate with one
-    device): one buffer per chunk leg plus the counts leg, three for a
-    variance triple."""
+    reduction over ``ndev`` shards (parity: the reference's estimate): one
+    buffer per chunk leg plus the counts leg, three for a variance triple;
+    legs whose combine all-gathers (callable folds, prod, first/last) cost
+    ``ndev`` times their dense size."""
     per_leg = lead_elems * size * _est_itemsize(dtype)
     legs = 1  # counts
-    for entry in agg.chunk or ("sum",):
-        name = entry[0] if isinstance(entry, tuple) else entry
-        legs += 3 if name == "var_chunk" else 1
+    ops = agg.combine or ("sum",) * max(1, len(agg.chunk or ()) or 1)
+    if agg.combine in (("first",), ("last",)) or agg.reduction_type == "argreduce":
+        legs += 2  # the (value, position) pair
+        if agg.combine in (("first",), ("last",)):
+            legs += 2 * (ndev - 1)  # the pair is all-gathered
+        return per_leg * legs
+    for op in ops:
+        if op == "var":
+            legs += 3
+        elif op in ("sum", "max", "min"):
+            legs += 1
+        else:
+            legs += ndev
     return per_leg * legs
 
 
@@ -261,8 +331,9 @@ def _route_highcard(engine: str, codes_flat: np.ndarray | None, arr_flat: torch.
             raise ValueError(
                 f"{agg.name!r} over {size} groups needs ~{utils.fmt_bytes(est)} of dense "
                 f"(..., size) device intermediates, above the {utils.fmt_bytes(ceiling)} "
-                f"dense_intermediate_bytes_max ceiling; {sort_note}. Options: reduce "
-                "expected_groups; use engine='sort'; or raise "
+                f"dense_intermediate_bytes_max ceiling; {sort_note}. Options: pass mesh= "
+                "(map-reduce routes additive reductions to the blocked owner-by-owner "
+                "program); reduce expected_groups; use engine='sort'; or raise "
                 "set_options(dense_intermediate_bytes_max=...) if the device really has "
                 "the headroom."
             )
@@ -354,6 +425,7 @@ def groupby_reduce(
     reindex: Any = None,
     finalize_kwargs: dict | None = None,
     mesh: Any = None,
+    axis_name: str | tuple[str, ...] = "data",
     device: Any = None,
 ) -> tuple:
     """GroupBy reduction (the signature of ``flox_tpu.groupby_reduce``, plus
@@ -370,6 +442,14 @@ def groupby_reduce(
     sparse tensor; ``reindex=ReindexStrategy(array_type=SPARSE_COO)`` returns
     a sparse container over the groups that occur.
 
+    ``method`` ("map-reduce", "cohorts" or "blockwise") runs the reduction
+    over ``mesh`` (:func:`~flox_tpu_torch.parallel.make_mesh`; default: the
+    ``torch.distributed`` world, or one rank without one), sharding the
+    reduced axis over the mesh dims ``axis_name``; ``mesh=`` without
+    ``method=`` lets cohort detection choose. Every rank passes the same
+    global inputs and gets the whole result on its device. ``array`` may
+    then also be a ``DTensor`` sharded along its last axis over the mesh.
+
     Examples
     --------
     >>> import numpy as np
@@ -384,9 +464,9 @@ def groupby_reduce(
     """
     if not by:
         raise TypeError("Must pass at least one `by`")
-    if method is not None or mesh is not None:
-        raise NotImplementedError(
-            "method=/mesh= (the sharded multi-device path) is not ported yet; ROADMAP A7"
+    if method not in (None, "map-reduce", "blockwise", "cohorts"):
+        raise ValueError(
+            f"method must be one of None, 'map-reduce', 'blockwise', 'cohorts'; got {method!r}"
         )
     nby = len(by)
     reindex_sparse = _parse_reindex(reindex, func, nby)
@@ -394,14 +474,15 @@ def groupby_reduce(
         # factorized once, codes staged on the device: no factorize, no copy
         return _prefactorized_reduce(
             array, by[0], func=func, expected_groups=expected_groups, axis=axis, isbin=isbin,
-            fill_value=fill_value, dtype=dtype, min_count=min_count, engine=engine,
-            reindex=reindex, finalize_kwargs=finalize_kwargs, device=device,
+            fill_value=fill_value, dtype=dtype, min_count=min_count, method=method,
+            engine=engine, reindex=reindex, finalize_kwargs=finalize_kwargs, mesh=mesh,
+            axis_name=axis_name, device=device,
         )
     if is_sparse_array(array):
         # sparse inputs reduce without densifying; options the sparse reducer
         # cannot honor are rejected, not dropped
-        unsupported = {"min_count": min_count, "axis": axis,
-                       "finalize_kwargs": finalize_kwargs,
+        unsupported = {"min_count": min_count, "axis": axis, "method": method,
+                       "finalize_kwargs": finalize_kwargs, "mesh": mesh,
                        "reindex (SPARSE_COO)": reindex_sparse}
         bad = [k for k, v in unsupported.items() if v is not None]
         if bad:
@@ -418,8 +499,8 @@ def groupby_reduce(
     engine_explicit = engine is not None
     engine = _choose_engine(engine)
 
-    dev = utils.resolve_device(device)
-    work = _work_device(engine, dev)
+    mesh, dev, work = _resolve_devices(array, engine, method, mesh, device)
+    on_mesh = mesh is not None
 
     # -- host-side label normalization ------------------------------------
     bys = [utils.asarray_host(b) for b in by]
@@ -436,13 +517,23 @@ def groupby_reduce(
             return _reduce_non_numeric(
                 host, bys, func, fill_value=fill_value, expected_groups=expected_groups,
                 sort=sort, isbin=isbin, axis=axis, min_count=min_count, engine=engine,
-                reindex=reindex, device=dev,
+                reindex=reindex, method=method, mesh=mesh, axis_name=axis_name, device=dev,
             )
         if dtypes.is_datetime_like(host.dtype):
             # the exact int64 view, NaT = INT64_MIN (a missing marker)
             datetime_dtype = host.dtype
             host = host.view("int64")
         array = host
+    from .parallel.mesh import is_dtensor
+
+    if is_dtensor(array):
+        if not on_mesh:
+            raise ValueError("a DTensor input runs on the mesh: pass method= or mesh=")
+        return _dtensor_reduce(array, bys, func=func, expected_groups=expected_groups,
+                               sort=sort, isbin=isbin, axis=axis, fill_value=fill_value,
+                               dtype=dtype, min_count=min_count, method=method, engine=engine,
+                               reindex=reindex, finalize_kwargs=finalize_kwargs, mesh=mesh,
+                               axis_name=axis_name)
     arr = utils.as_tensor(array, work)
     _assert_by_is_aligned(tuple(arr.shape), bys)
 
@@ -466,12 +557,8 @@ def groupby_reduce(
     if arr.dtype == torch.bool and func_name in ("sum", "nansum", "prod", "nanprod", "count"):
         arr = arr.to(torch.int64)
 
-    # -- min_count semantics -----------------------------------------------
-    if min_count is None:
-        min_count_ = 1 if fill_value is not None and func_name in ("nansum", "nanprod") else 0
-    else:
-        min_count_ = min_count
-    agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
+    agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value,
+                                  _min_count(min_count, fill_value, func_name), finalize_kwargs)
     if datetime_dtype is not None and agg.preserves_dtype:
         set_nat_final_fill(agg, fill_value)
     elif (datetime_dtype is not None and agg.reduction_type != "argreduce"
@@ -489,6 +576,14 @@ def groupby_reduce(
     arr_flat = arr.reshape(lead_shape + (span,))
     codes_host = np.asarray(codes).reshape(-1)
 
+    if on_mesh:
+        result = _mesh_reduce(arr_flat, codes_host, agg, size=size, method=method,
+                              engine=engine, reindex=reindex, mesh=mesh, axis_name=axis_name,
+                              dev=dev, datetime_dtype=datetime_dtype)
+        result = result.reshape(agg.new_dims() + lead_shape + keep_by_shape + grp_shape)
+        if reindex_sparse is not None:
+            result = _sparsify_result(result, codes_host, ngroups, agg)
+        return (result,) + _group_values(found_groups)
     if engine != "numpy":
         engine = _route_highcard(engine, codes_host, arr_flat, lead_shape, size, agg,
                                  explicit=engine_explicit)
@@ -514,6 +609,62 @@ def groupby_reduce(
     if reindex_sparse is not None:
         result = _sparsify_result(result, codes_host, ngroups, agg)
     return (result,) + _group_values(found_groups)
+
+
+def _mesh_reduce(arr_flat, codes_flat, agg: Aggregation, *, size: int, method, engine: str,
+                 reindex, mesh, axis_name, dev: torch.device, datetime_dtype=None):
+    """The mesh program of a call, finalized: ``arr_flat`` (..., N) global,
+    ``codes_flat`` (N,) global (host numpy, or staged on the device). With
+    the sort engine the codes are compacted to the groups present first, so
+    every intermediate and collective covers only those, and the dense layout
+    comes back on the host at the end."""
+    from .parallel.mapreduce import sharded_groupby_reduce
+
+    if method is None:
+        method = _auto_method(utils.asarray_host(codes_flat).reshape(-1), size, mesh, axis_name)
+    _check_blockwise_false(reindex, method)
+    present = None
+    codes_run, size_run = codes_flat, size
+    if engine == "sort":
+        host = utils.asarray_host(codes_flat).reshape(-1)
+        present = kernels.present_groups(host, size)
+        if len(present) < size:
+            codes_run = kernels.compact_codes(host, present)
+            size_run = kernels.present_cap(len(present), size)
+        else:
+            present = None
+    result = sharded_groupby_reduce(arr_flat, codes_run, agg, size=size_run, mesh=mesh,
+                                    axis_name=axis_name, method=method,
+                                    nat=datetime_dtype is not None)
+    result = _astype_final(result, agg, datetime_dtype)
+    if present is not None:
+        result = _redevice_scattered(kernels.scatter_present_dense(result, present, size), dev)
+    return result
+
+
+def _dtensor_reduce(array, bys, *, func, expected_groups, sort, isbin, axis, fill_value, dtype,
+                    min_count, method, engine, reindex, finalize_kwargs, mesh, axis_name) -> tuple:
+    """A ``DTensor`` sharded along its last axis: each rank reduces its local
+    shard as it lies, with no gather. One 1-D ``by`` along that axis."""
+    if len(bys) != 1 or bys[0].ndim != 1 or axis not in (None, -1, array.ndim - 1):
+        raise NotImplementedError(
+            "a DTensor input takes one 1-D `by` along its last (sharded) axis")
+    _assert_by_is_aligned(tuple(array.shape), bys)
+    expected_idx = _convert_expected(_normalize_expected(expected_groups, 1),
+                                     _normalize_isbin(isbin, 1), sort)
+    codes, found_groups, grp_shape, _ngroups, size, _props = fct.factorize_cached(
+        tuple(bys), axes=(0,), expected_groups=expected_idx, sort=sort)
+    if size == 0:
+        raise ValueError("No groups to reduce over (empty expected_groups?)")
+    func_name = func if isinstance(func, str) else func.name
+    agg = _initialize_aggregation(func, dtype, array.dtype, fill_value,
+                                  _min_count(min_count, fill_value, func_name), finalize_kwargs)
+    result = _mesh_reduce(array, np.asarray(codes).reshape(-1), agg, size=size, method=method,
+                          engine=_choose_engine(engine), reindex=reindex, mesh=mesh,
+                          axis_name=axis_name, dev=array.device)
+    lead_shape = tuple(array.shape[:-1])
+    return (result.reshape(agg.new_dims() + lead_shape + grp_shape),) + _group_values(
+        found_groups)
 
 
 def _group_values(found_groups) -> tuple:
@@ -561,8 +712,8 @@ def _sparse_path(array, by, *, func, expected_groups, isbin, sort, fill_value, d
 
 
 def _prefactorized_reduce(array, pf: "fct.Prefactorized", *, func, expected_groups, axis,
-                          isbin, fill_value, dtype, min_count, engine, reindex,
-                          finalize_kwargs, device) -> tuple:
+                          isbin, fill_value, dtype, min_count, method, engine, reindex,
+                          finalize_kwargs, mesh, axis_name, device) -> tuple:
     """``by`` arrived as a :class:`~flox_tpu_torch.factorize.Prefactorized`:
     the codes, the group tables and the sort engine's present table were
     computed once, and the codes staged on the device. No factorization runs
@@ -581,8 +732,7 @@ def _prefactorized_reduce(array, pf: "fct.Prefactorized", *, func, expected_grou
         )
     engine_explicit = engine is not None
     engine = _choose_engine(engine)
-    dev = utils.resolve_device(device)
-    work = _work_device(engine, dev)
+    mesh, dev, work = _resolve_devices(array, engine, method, mesh, device)
     if not isinstance(array, torch.Tensor):
         array = np.asarray(array)
         if array.dtype.kind in "OSU" or dtypes.is_datetime_like(array.dtype):
@@ -600,14 +750,21 @@ def _prefactorized_reduce(array, pf: "fct.Prefactorized", *, func, expected_grou
     func_name = func if isinstance(func, str) else func.name
     if arr.dtype == torch.bool and func_name in ("sum", "nansum", "prod", "nanprod", "count"):
         arr = arr.to(torch.int64)
-    if min_count is None:
-        min_count_ = 1 if fill_value is not None and func_name in ("nansum", "nanprod") else 0
-    else:
-        min_count_ = min_count
-    agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
+    agg = _initialize_aggregation(func, dtype, arr.dtype, fill_value,
+                                  _min_count(min_count, fill_value, func_name), finalize_kwargs)
 
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
     arr_flat = arr.reshape(lead_shape + (pf.n,))
+    if mesh is not None:
+        # the staged device codes feed the program directly; cohort detection
+        # reads the host codes
+        staged = pf.codes_dev is not None and pf.codes_dev.device == dev and method not in (
+            None, "cohorts")
+        result = _mesh_reduce(arr_flat, pf.codes_dev if staged else pf.codes, agg, size=pf.size,
+                              method=method, engine=engine, reindex=None, mesh=mesh,
+                              axis_name=axis_name, dev=dev)
+        result = result.reshape(agg.new_dims() + lead_shape + pf.group_shape)
+        return (result,) + _group_values(pf.found_groups)
     if engine != "numpy":
         engine = _route_highcard(engine, None, arr_flat, lead_shape, pf.size, agg,
                                  explicit=engine_explicit, present=pf.present)

@@ -1,5 +1,5 @@
-"""Multi-statistic fusion: ``groupby_aggregate_many`` on one device (the eager
-path of ``flox_tpu/fusion.py``).
+"""Multi-statistic fusion: ``groupby_aggregate_many`` (the port of
+``flox_tpu/fusion.py``).
 
 A climatology asking for mean, std, min and max over the same labels would
 read the data once per statistic through ``groupby_reduce``. Here the fusion
@@ -16,8 +16,10 @@ codes are staged on the device), data flattened to (..., N) on the device. As
 in the reference, ``engine="sort"`` runs this dense fused path, and a plan
 whose dense (..., size) intermediates would pass
 ``dense_intermediate_bytes_max`` raises; ``engine="numpy"`` runs every leg on
-the host engine and copies the results to the device. Branches that later
-slices port raise ``NotImplementedError`` naming the ROADMAP item.
+the host engine and copies the results to the device. With ``method=``
+("map-reduce" or "cohorts") or ``mesh=`` the whole plan runs as one mesh
+program (``parallel.mapreduce``): one shard-local pass, one combine of the
+deduplicated legs, the results replicated on every rank.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from .core import (
     _normalize_expected,
     _normalize_isbin,
     _normalize_reduce_axes,
+    _resolve_devices,
     _staged,
-    _work_device,
     dense_intermediate_bytes,
 )
 from .options import OPTIONS
@@ -77,6 +79,7 @@ def groupby_aggregate_many(
     finalize_kwargs: dict | None = None,
     method: str | None = None,
     mesh: Any = None,
+    axis_name: str | tuple[str, ...] = "data",
     device: Any = None,
 ) -> tuple:
     """N grouped statistics in one pass over the data (the signature of
@@ -88,7 +91,8 @@ def groupby_aggregate_many(
     take one value for all statistics or a per-func dict, e.g.
     ``finalize_kwargs={"var": {"ddof": 1}}``. ``device`` defaults to ``cuda``
     and raises ``RuntimeError`` when CUDA is missing; pass ``device="cpu"`` to
-    run on the CPU.
+    run on the CPU. ``method``/``mesh``/``axis_name`` run the plan over a
+    mesh as ``groupby_reduce`` does (``method`` defaults to "map-reduce").
 
     Examples
     --------
@@ -107,19 +111,29 @@ def groupby_aggregate_many(
         array, *by, funcs=tuple(funcs), expected_groups=expected_groups, sort=sort,
         isbin=isbin, axis=axis, fill_value=fill_value, dtype=dtype, min_count=min_count,
         engine=engine, finalize_kwargs=finalize_kwargs, method=method, mesh=mesh,
-        device=device,
+        axis_name=axis_name, device=device,
     )
+
+
+def _mesh_fused(fused: FusedAggregation, arr_flat, codes_flat, size: int, out_shape: tuple,
+                method, mesh, axis_name) -> dict:
+    from .parallel.mapreduce import sharded_groupby_reduce
+
+    results = sharded_groupby_reduce(arr_flat, codes_flat, fused, size=size, mesh=mesh,
+                                     axis_name=axis_name, method=method or "map-reduce")
+    return finalize_many(fused, results, out_shape)
 
 
 def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin, axis,
                          fill_value, dtype, min_count, engine, finalize_kwargs, method, mesh,
-                         device) -> tuple:
+                         axis_name, device) -> tuple:
     if not by:
         raise TypeError("Must pass at least one `by`")
-    if method is not None or mesh is not None:
+    if method not in (None, "map-reduce", "cohorts"):
         raise NotImplementedError(
-            "method=/mesh= (the fused plan as one multi-device program) is not ported "
-            "yet; ROADMAP A7"
+            "groupby_aggregate_many supports method=None (eager) and 'map-reduce'/'cohorts' "
+            "on a mesh; 'blockwise' finalizes per shard through the single-statistic "
+            "kernels: run sequential groupby_reduce calls there."
         )
     if is_sparse_array(array):
         raise NotImplementedError(
@@ -129,11 +143,11 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
         return _aggregate_many_prefactorized(
             array, by[0], funcs=funcs, expected_groups=expected_groups, isbin=isbin, axis=axis,
             fill_value=fill_value, dtype=dtype, min_count=min_count, engine=engine,
-            finalize_kwargs=finalize_kwargs, device=device,
+            finalize_kwargs=finalize_kwargs, method=method, mesh=mesh, axis_name=axis_name,
+            device=device,
         )
     engine = _choose_engine(engine)
-    dev = utils.resolve_device(device)
-    work = _work_device(engine, dev)
+    mesh, dev, work = _resolve_devices(array, engine, method, mesh, device)
 
     bys = [utils.asarray_host(b) for b in by]
     bys = list(np.broadcast_arrays(*bys)) if nby > 1 else bys
@@ -156,9 +170,13 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
     span = int(np.prod(bys[0].shape)) if bys[0].size else 0
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
     arr_flat = arr.reshape(lead_shape + (span,))
+    out_shape = lead_shape + keep_by_shape + grp_shape
+    if mesh is not None:
+        out = _mesh_fused(fused, arr_flat, np.asarray(codes).reshape(-1), size, out_shape,
+                          method, mesh, axis_name)
+        return (out,) + _group_values(found_groups)
     codes_flat = torch.as_tensor(np.asarray(codes).reshape(-1), device=work)
-    out = _run_fused(fused, codes_flat, arr_flat, size, lead_shape + keep_by_shape + grp_shape,
-                     engine, dev)
+    out = _run_fused(fused, codes_flat, arr_flat, size, out_shape, engine, dev)
     return (out,) + _group_values(found_groups)
 
 
@@ -192,7 +210,8 @@ def _fusable_tensor(array, funcs: tuple, device: torch.device) -> torch.Tensor:
 
 def _aggregate_many_prefactorized(array, pf: "fct.Prefactorized", *, funcs: tuple,
                                   expected_groups, isbin, axis, fill_value, dtype, min_count,
-                                  engine, finalize_kwargs, device) -> tuple:
+                                  engine, finalize_kwargs, method, mesh, axis_name,
+                                  device) -> tuple:
     """The fused statistics over a :class:`~flox_tpu_torch.factorize.
     Prefactorized` ``by``: the inline body from the engine choice on, minus
     the factorization and minus the codes' copy (the staged ``codes_dev``
@@ -207,8 +226,7 @@ def _aggregate_many_prefactorized(array, pf: "fct.Prefactorized", *, funcs: tupl
             "the artifact is built (prefactorize again with other groups)"
         )
     engine = _choose_engine(engine)
-    dev = utils.resolve_device(device)
-    work = _work_device(engine, dev)
+    mesh, dev, work = _resolve_devices(array, engine, method, mesh, device)
     arr = _fusable_tensor(array, funcs, work)
     bndim = len(pf.by_shape)
     if arr.ndim < bndim or tuple(arr.shape[arr.ndim - bndim:]) != tuple(pf.by_shape):
@@ -220,6 +238,11 @@ def _aggregate_many_prefactorized(array, pf: "fct.Prefactorized", *, funcs: tupl
     fused = plan_fused(funcs, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
     arr_flat = arr.reshape(lead_shape + (pf.n,))
+    if mesh is not None:
+        staged = pf.codes_dev is not None and pf.codes_dev.device == dev and method != "cohorts"
+        out = _mesh_fused(fused, arr_flat, pf.codes_dev if staged else pf.codes, pf.size,
+                          lead_shape + pf.group_shape, method, mesh, axis_name)
+        return (out,) + _group_values(pf.found_groups)
     out = _run_fused(fused, _staged(pf.codes_dev, pf.codes, work), arr_flat, pf.size,
                      lead_shape + pf.group_shape, engine, dev)
     return (out,) + _group_values(pf.found_groups)
@@ -243,7 +266,7 @@ def _run_fused(fused: FusedAggregation, codes_flat: torch.Tensor, arr_flat: torc
             f"{fused.name!r} over {size} groups needs ~{utils.fmt_bytes(est)} "
             f"of dense (..., size) device intermediates, above the "
             f"{utils.fmt_bytes(ceiling)} dense_intermediate_bytes_max ceiling. "
-            "Options: reduce expected_groups; or raise "
+            "Options: pass mesh=; reduce expected_groups; or raise "
             "set_options(dense_intermediate_bytes_max=...)."
         )
 

@@ -29,7 +29,9 @@ groups (the missing-label group included) go to the segmented-cumsum kernel
 scan of torch ops. Argreductions, first/last and mode take grouped min/max
 of int32 positions and run lengths, so they reach the segment-min/max
 kernel's int32 instance; quantiles run a (code, value) sort or a radix
-select whose counting passes are segment-sums (``quantile_impl``).
+select whose counting passes are segment-sums (``quantile_impl``); on a mesh
+(``axis_name=``, the collective layer of ``parallel.mesh``) the select's
+counts are summed over the shards.
 Datetimes arrive as their int64 view with ``nat=True``: INT64_MIN (NaT) is
 then a missing marker, as NaN is for floats.
 
@@ -295,8 +297,11 @@ def _make_minmax(op: str, skipna: bool):
             out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
             return _unflat(out, lead)
         out = _seg(op, data, codes, size)
-        present = _counts(codes, size, mask=mask if skipna else None) > 0
-        out = _fill_empty(out, present, fill_value)
+        if fill_value is not None and fill_value != minmax_identity(op, data.dtype):
+            # empty groups hold the identity already: only another fill needs
+            # the (masked) counts
+            present = _counts(codes, size, mask=mask if skipna else None) > 0
+            out = _fill_empty(out, present, fill_value)
         return _unflat(out, lead)
 
     return kernel
@@ -798,23 +803,30 @@ def _radix_update(prefix, rank, cnt, b: int):
     return torch.where(take_hi, prefix | bit, prefix), torch.where(take_hi, rank - cnt, rank)
 
 
-def _radix_select(data, codes, size: int, ranks, valid_mask) -> torch.Tensor:
+def _radix_select(data, codes, size: int, ranks, valid_mask, comm=None,
+                  n_total: int | None = None) -> torch.Tensor:
     """Exact per-group order statistics without a sort (the reference's
-    ``_radix_select``, its mesh ``axis_name`` aside): ``ranks`` (m, K, size)
-    holds m sets of 0-based within-group ranks among the valid elements of
-    ``data`` (K, N); returns the rank-th smallest valid values, (m, K,
-    size), bit for bit the sorted data at those ranks (-0.0 below +0.0).
+    ``_radix_select``): ``ranks`` (m, K, size) holds m sets of 0-based
+    within-group ranks among the valid elements of ``data`` (K, N); returns
+    the rank-th smallest valid values, (m, K, size), bit for bit the sorted
+    data at those ranks (-0.0 below +0.0).
 
     One counting pass per bit of the data's width: a segment-sum over N of
-    0/1 predicates, float32 while N < 2^24 (exact there; the segment-sum
-    kernel on the card), int32 past it."""
+    0/1 predicates, float32 while the ``n_total`` elements of the whole axis
+    stay below 2^24 (exact there; the segment-sum kernel on the card), int32
+    past it. On a mesh, ``data`` is this rank's shard and ``comm`` the
+    collective layer: each pass's counts are summed over the shards, so the
+    selection is global and the same on every rank."""
     nbits = 8 * data.element_size()
     keys = _valid_keys(data, valid_mask)
-    cdtype = torch.float32 if data.shape[-1] < 2**24 else torch.int32
+    n_total = data.shape[-1] if n_total is None else n_total
+    cdtype = torch.float32 if n_total < 2**24 else torch.int32
     prefix = torch.zeros(ranks.shape, dtype=keys.dtype, device=keys.device)
     rank = ranks.to(torch.int32)
     for b in range(nbits - 1, -1, -1):
         cnt = _radix_pass_count(keys, codes, size, prefix, b, cdtype)
+        if comm is not None:
+            cnt = comm.psum(cnt)
         prefix, rank = _radix_update(prefix, rank, cnt, b)
     return _key_to_value(prefix, data.dtype)
 
@@ -894,21 +906,27 @@ def _quantile_impl_choice() -> str:
 
 
 def _quantile_block(codes, data, qs, *, size: int, skipna: bool, method: str, fill_value,
-                    select: bool) -> torch.Tensor:
-    """The quantiles ``qs`` of one row block ``data`` (Kb, N): (nq, Kb, size)."""
+                    select: bool, comm=None, n_total: int | None = None) -> torch.Tensor:
+    """The quantiles ``qs`` of one row block ``data`` (Kb, N): (nq, Kb, size).
+    On a mesh (``comm``) the NaN flags and the group sizes are combined over
+    the shards and the select runs distributed."""
     mask = _nan_mask(data)
     group_has_nan = None
     if not skipna and mask is not None:
-        group_has_nan = _seg("max", (~mask).to(torch.int8), codes, size) > 0
+        has_nan = _seg("max", (~mask).to(torch.int8), codes, size)
+        group_has_nan = (comm.pmax(has_nan) if comm is not None else has_nan) > 0
     # index arithmetic in float64, never the data dtype: bfloat16 cannot
     # even hold odd counts above 256
-    nnf = _counts(codes, size, mask=mask).to(torch.float64).expand(data.shape[0], size)
+    nn = _counts(codes, size, mask=mask).expand(data.shape[0], size)
+    if comm is not None:
+        nn = comm.psum(nn)
+    nnf = nn.to(torch.float64)
     alpha, beta = _quantile_alpha_beta(method)
     fv = float("nan") if fill_value is None else fill_value
     fill = torch.tensor(fv).to(dtype=data.dtype, device=data.device)
     if select:
         ranks, meta = _quantile_rank_sets(qs, nnf, method, alpha, beta)
-        selected = _radix_select(data, codes, size, ranks, mask)
+        selected = _radix_select(data, codes, size, ranks, mask, comm, n_total)
         vals = [_interp(method, pos, lo_in, selected[ia], selected[ib])
                 for pos, lo_in, ia, ib in meta]
     else:
@@ -936,12 +954,15 @@ def _quantile_block(codes, data, qs, *, size: int, skipna: bool, method: str, fi
     return torch.stack(out)
 
 
-def _quantile_rows(data: torch.Tensor, nq: int, method: str, select: bool) -> list:
+def _quantile_rows(data: torch.Tensor, nq: int, method: str, select: bool,
+                   n: int | None = None) -> list:
     """The row blocks of a quantile call on ``data`` (K, N): a row's working
     set is, per rank lane, the select path's gathered prefixes and 0/1
     predicate (bool and float32), or the sort path's int64 key, sorted key,
-    permutation and the sort's scratch."""
-    k, n = data.shape
+    permutation and the sort's scratch, over ``n`` columns (default N). On a
+    mesh ``n`` is the whole axis, so every rank cuts the same blocks and runs
+    the same collectives."""
+    k, n = data.shape[0], data.shape[-1] if n is None else n
     lanes = nq * (1 if method in ("lower", "higher", "nearest") else 2)
     per_row = n * (lanes * (data.element_size() + 5) if select else 40)
     return list(_row_blocks(k, per_row))
@@ -949,26 +970,34 @@ def _quantile_rows(data: torch.Tensor, nq: int, method: str, select: bool) -> li
 
 def _quantile_impl(group_idx, array, *, size, fill_value, dtype, q, skipna, method="linear",
                    axis_name=None):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "quantile over a mesh axis (axis_name=) is the multi-device runtime; ROADMAP A7"
-        )
+    """``axis_name``: the collective layer (``parallel.mesh.Collectives``) of
+    a mesh program whose shard ``array`` is; the quantiles are then those of
+    the whole axis, by the distributed radix select, on every rank."""
+    if axis_name is not None and not hasattr(axis_name, "psum"):
+        raise TypeError(
+            "axis_name= takes the collective layer of a mesh program "
+            f"(flox_tpu_torch.parallel.mesh.collectives(mesh, axes)); got {axis_name!r}")
+    comm = axis_name
     codes = _safe_codes(group_idx, size)
     data, lead = _flat(array)
     if not data.is_floating_point():
         data = data.to(utils.torch_dtype(dtype) if dtype is not None else torch.float64)
     qs = np.atleast_1d(np.asarray(q, dtype=np.float64))
     _quantile_alpha_beta(method)  # an unknown method raises before any work
-    select = _quantile_impl_choice() == "select"
+    # on a mesh only the counting bisection distributes
+    select = comm is not None or _quantile_impl_choice() == "select"
     k, n = data.shape
-    if k == 0 or n == 0:  # every group is empty
+    n_total = n
+    if comm is not None:  # the whole axis: every rank cuts the same row blocks
+        n_total = int(comm.psum(torch.tensor([n], device=data.device)).item())
+    if k == 0 or n_total == 0:  # every group is empty
         fv = float("nan") if fill_value is None else fill_value
         out = torch.full((len(qs), k, size), fv, dtype=data.dtype, device=data.device)
     else:
         out = torch.cat([
             _quantile_block(codes, data[rows], qs, size=size, skipna=skipna, method=method,
-                            fill_value=fill_value, select=select)
-            for rows in _quantile_rows(data, len(qs), method, select)
+                            fill_value=fill_value, select=select, comm=comm, n_total=n_total)
+            for rows in _quantile_rows(data, len(qs), method, select, n_total)
         ], dim=1)
     out = out.reshape((len(qs),) + lead + (size,))
     return out[0] if np.ndim(q) == 0 else out

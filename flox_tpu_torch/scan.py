@@ -1,5 +1,4 @@
-"""Grouped scans: ``groupby_scan`` on one device (the eager path of
-``flox_tpu/scan.py``).
+"""Grouped scans: ``groupby_scan`` (the port of ``flox_tpu/scan.py``).
 
 Supported scans: ``cumsum``, ``nancumsum``, ``ffill``, ``bfill``. The scan
 axis is moved last and the labels are factorized on the host; labels that
@@ -11,7 +10,12 @@ segmented scan of torch ops (``kernels._segmented_scan``). Positions with a
 missing label come out NaN. Datetime64/timedelta64 data scans on its exact
 int64 view with NaT as the missing marker and comes back as a numpy array of
 its dtype (torch has none). ``engine="numpy"`` scans on the host engine and
-copies the result to the device.
+copies the result to the device. ``method="blelloch"`` or ``mesh=`` runs the
+scan over a mesh (``parallel.scan``): the Blelloch carry exchange, or, for
+``method="blockwise"`` with a mesh, shard-local groups with no exchange;
+``mesh=`` without ``method=`` takes blockwise when cohort detection finds
+every group on one shard (and the scan covers every label dim), else
+Blelloch.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from . import dtypes, factorize as fct, utils
 from .aggregations import Scan, _initialize_scan, generic_aggregate
 from .core import (_choose_engine, _convert_expected, _normalize_expected, _normalize_isbin,
-                   _work_device)
+                   _resolve_devices)
 from .kernels import _NAT_INT
 
 __all__ = ["groupby_scan"]
@@ -47,7 +51,9 @@ def groupby_scan(
 
     Integer data is promoted to int64 for cumsum/nancumsum. ``device``
     defaults to ``cuda`` and raises ``RuntimeError`` when CUDA is missing;
-    pass ``device="cpu"`` to run on the CPU.
+    pass ``device="cpu"`` to run on the CPU. With ``mesh=`` or
+    ``method="blelloch"`` every rank passes the same global inputs and gets
+    the whole result on its device (the mesh's "data" dim shards the axis).
 
     Examples
     --------
@@ -74,16 +80,20 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
         raise ValueError("groupby_scan supports a single axis only (like the reference).")
     if method not in (None, "blelloch", "blockwise"):
         raise ValueError(f"scan method must be None, 'blelloch' or 'blockwise'; got {method!r}")
-    if method is not None or mesh is not None:
-        raise NotImplementedError(
-            "method=/mesh= (the multi-device scan) is not ported yet; ROADMAP A7"
+    if method is None and mesh is not None and engine is not None:
+        raise ValueError(
+            "engine= selects a single-device kernel but mesh= requests distributed "
+            "execution; pass method='blelloch' (engine is ignored on the mesh) or drop one "
+            "of the two."
         )
     # a scan's output is shaped like its input: there is no (..., size)
     # accumulator for the sort engine to compact, so it scans as the dense
     # engine does; the numpy engine scans on the host
     engine = "numpy" if _choose_engine(engine) == "numpy" else "torch"
-    dev = utils.resolve_device(device)
-    work = _work_device(engine, dev)
+    # method='blockwise' without a mesh is the eager scan, as in the reference
+    on_mesh = mesh is not None or method == "blelloch"
+    mesh, dev, work = _resolve_devices(array, engine, "blelloch" if on_mesh else None, mesh,
+                                       device)
 
     nby = len(by)
     bys = [utils.asarray_host(b) for b in by]
@@ -140,8 +150,17 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
             dtype = utils.torch_dtype(np.result_type(np_dtype, np.int_))
 
     nat = datetime_dtype is not None
-    out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=work), size=size,
-                      engine=engine, dtype=dtype, nat=nat)
+    if on_mesh:
+        from .parallel.scan import sharded_groupby_scan
+
+        if method is None:
+            method = _auto_scan_method(codes_flat, size, mesh, bndim)
+        out = sharded_groupby_scan(arr_flat, codes_flat, scan, size=size, mesh=mesh,
+                                   dtype=dtype, method=method, nat=nat)
+        work = out.device
+    else:
+        out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=work), size=size,
+                          engine=engine, dtype=dtype, nat=nat)
 
     nanmask = codes_flat < 0
     if nanmask.any():  # missing labels belong to no group
@@ -153,6 +172,16 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
     if nat:
         return out.cpu().numpy().view(datetime_dtype)
     return out
+
+
+def _auto_scan_method(codes_flat: np.ndarray, size: int, mesh, bndim: int) -> str:
+    """Blockwise when cohort detection on the global codes finds every group
+    on one shard of the "data" dim and the scan covers every label dim, else
+    Blelloch."""
+    from .core import _auto_method
+
+    preferred = _auto_method(codes_flat, size, mesh, "data")
+    return "blockwise" if preferred == "blockwise" and bndim == 1 else "blelloch"
 
 
 def _check_datetime_scan(scan: Scan, array_dtype: np.dtype, dtype) -> None:

@@ -402,17 +402,52 @@ def xarray_reduce(
     return actual
 
 
-def rechunk_for_blockwise(obj, dim: str, labels, n_shards: int | None = None):
-    """Resharding for method='blockwise' belongs to the multi-device runtime."""
-    raise NotImplementedError(
-        "rechunk_for_blockwise lays codes out over shards of the multi-device runtime; "
-        "not ported yet, ROADMAP A7"
+def rechunk_for_blockwise(obj, dim: str, labels, n_shards: int | None = None, device=None):
+    """Lay ``obj`` out for ``groupby_reduce(..., method='blockwise')`` with
+    :func:`flox_tpu_torch.rechunk.rechunk_for_blockwise`.
+
+    Returns ``(resharded DataArray, codes, groups)`` with ``dim`` moved last
+    and replaced by the padded shard-local layout (length ``n_shards *
+    shard_len``; ``n_shards`` defaults to the ranks of the
+    ``torch.distributed`` world). The data is a tensor on ``device``
+    (``cuda`` unless the caller asks for the CPU, or the data's own device
+    for a tensor).
+    """
+    xr = _get_xr()
+    from . import rechunk as _rechunk
+
+    if isinstance(obj, xr.Dataset):
+        raise NotImplementedError(
+            "rechunk_for_blockwise takes a DataArray; reshard each variable or use "
+            "flox_tpu_torch.rechunk.reshard_for_blockwise directly."
+        )
+    axis = list(obj.dims).index(dim)
+    arr, codes, groups = _rechunk.rechunk_for_blockwise(
+        obj.data, axis, np.asarray(getattr(labels, "data", labels)), n_shards, device=device
     )
+    new_dims = tuple(d for d in obj.dims if d != dim) + (dim,)
+    out = xr.DataArray(
+        arr, dims=new_dims, attrs=obj.attrs,
+        coords={d: obj.coords[d] for d in obj.coords if d != dim and d in new_dims},
+    )
+    return out, codes, groups
 
 
-def rechunk_for_cohorts(obj, dim: str, labels, force_new_chunk_at, chunksize=None):
-    """Chunk boundaries for method='cohorts' belong to the multi-device runtime."""
-    raise NotImplementedError(
-        "rechunk_for_cohorts sizes the shards of the multi-device runtime; not ported yet, "
-        "ROADMAP A7"
-    )
+def rechunk_for_cohorts(obj, dim: str, labels, force_new_chunk_at, chunksize: int | None = None):
+    """Chunk lengths for ``dim`` with boundaries anchored at the starts of the
+    ``force_new_chunk_at`` labels (:func:`flox_tpu_torch.rechunk.
+    rechunk_for_cohorts`): feed them to ``cohorts.find_group_cohorts``, or use
+    them as shard sizes."""
+    from . import rechunk as _rechunk
+
+    if dim not in getattr(obj, "dims", ()):
+        raise ValueError(f"Object has no dim {dim!r}; dims: {tuple(obj.dims)}")
+    labels_np = np.asarray(getattr(labels, "data", labels)).reshape(-1)
+    dim_len = obj.sizes[dim]
+    if labels_np.shape[0] != dim_len:
+        raise ValueError(
+            f"labels have length {labels_np.shape[0]} but dim {dim!r} has size {dim_len}; "
+            "pass labels aligned with that dimension."
+        )
+    return _rechunk.rechunk_for_cohorts(None, 0, labels_np, force_new_chunk_at,
+                                        chunksize=chunksize)

@@ -367,7 +367,9 @@ def test_result_is_tensor_on_device_and_groups_numpy():
     [
         # A2 (median) is ported: it reduces now (test_a2_median_reduces). A6 is
         # ported: engine="numpy" reduces on the host engine, and a string
-        # reindex raises the reference's own error (a TypeError)
+        # reindex raises the reference's own error (a TypeError). A7 is
+        # ported: method= runs the one-rank default mesh (the reference's
+        # runs its default mesh of every device)
         pytest.param({"func": "sum", "engine": "numpy"}, "A6", id="kw1-A6"),
         pytest.param({"func": "sum", "engine": "sort", "reindex": "blockwise"}, "A6",
                      id="kw2-A6"),
@@ -375,11 +377,7 @@ def test_result_is_tensor_on_device_and_groups_numpy():
     ],
 )
 def test_unported_branches_name_roadmap_item(kw, item):
-    if item != "A6":
-        with pytest.raises(NotImplementedError, match=item):
-            flox_tpu_torch.groupby_reduce(np.ones(4), np.zeros(4), device="cpu", **kw)
-        return
-    # a ported branch: the reference's result, or the reference's error
+    # every branch is ported: the reference's result, or the reference's error
     try:
         ref, rgroups = flox_tpu.groupby_reduce(np.ones(4), np.zeros(4), **kw)
     except Exception as err:  # noqa: BLE001 - the port must raise the same type
@@ -412,7 +410,9 @@ def _port_sources():
     return sorted((REPO / "flox_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+@pytest.mark.parametrize(
+    "path", _port_sources(),
+    ids=lambda p: p.relative_to(REPO).as_posix().removeprefix("flox_tpu_torch/"))
 def test_port_imports_no_jax_no_reference_no_toplevel_pandas(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

@@ -444,12 +444,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
     [({"method": "map-reduce"}, "A7"), ({"engine": "numpy"}, "A6")],
 )
 def test_unported_branches_name_roadmap_item(kw, item):
-    if item != "A6":
-        with pytest.raises(NotImplementedError, match=item):
-            flox_tpu_torch.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",),
-                                                  device="cpu", **kw)
-        return
-    # engine="numpy" is ported (A6): the reference's host-engine result
+    # engine="numpy" is ported (A6): the reference's host-engine result; so is
+    # method= (A7): the plan on the one-rank default mesh, against the
+    # reference's on its default mesh
     ref, rgroups = flox_tpu.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",), **kw)
     got, pgroups = flox_tpu_torch.groupby_aggregate_many(np.ones(4), np.zeros(4), funcs=("sum",),
                                                          device="cpu", **kw)
@@ -469,8 +466,8 @@ def test_autotune_option_names_roadmap_item():
 def test_dense_intermediate_ceiling(funcs, engine, monkeypatch):
     """Over ``dense_intermediate_bytes_max`` the fused path raises the
     reference's ValueError, with the reference's estimate, for either engine
-    (the sort engine runs the dense fused path, as in the reference). Only the
-    remedies differ: the port has no mesh= to offer yet (ROADMAP A7)."""
+    (the sort engine runs the dense fused path, as in the reference), and
+    offers the reference's remedies, mesh= among them."""
     rng = np.random.default_rng(12)
     vals = rng.normal(size=(16, 512))
     labels = rng.integers(0, 300_000, 512)
@@ -492,7 +489,7 @@ def test_dense_intermediate_ceiling(funcs, engine, monkeypatch):
     port_msg, port_remedies = str(port_err.value).split(" Options: ")
     ref_msg, ref_remedies = str(ref_err.value).split(" Options: ")
     assert port_msg == ref_msg
-    assert "mesh=" in ref_remedies and "mesh=" not in port_remedies
+    assert "mesh=" in ref_remedies and port_remedies == ref_remedies
     # under the ceiling the same call runs, and the sort engine is the dense path
     small = np.arange(600)
     got, _ = flox_tpu_torch.groupby_aggregate_many(vals, labels % 600, funcs=funcs,

@@ -289,9 +289,24 @@ def test_unknown_method_and_mesh_axis_raise():
     with pytest.raises(ValueError, match="Unsupported quantile method"):
         _port(_data(0), _labels(0), func="quantile",
               finalize_kwargs={"q": 0.5, "method": "inverted_cdf"})
-    with pytest.raises(NotImplementedError, match="A7"):
+    # axis_name= takes the collective layer of a mesh program, not a name
+    with pytest.raises(TypeError, match="collective layer"):
         pk.quantile(torch.zeros(4, dtype=torch.int64), torch.ones(4), size=1, q=0.5,
                     axis_name="x")
+    # on a one-rank mesh the distributed radix select is the whole-axis
+    # quantile: the reference's eager value, to this file's interpolation bar
+    from flox_tpu_torch.parallel.mesh import collectives, make_mesh
+
+    comm = collectives(make_mesh(device_type="cpu"), "data")
+    data, labels = _data(0), _labels(0)
+    groups = np.unique(labels[~np.isnan(labels)])
+    codes = np.where(np.isnan(labels), -1, np.searchsorted(groups, labels)).astype(np.int64)
+    for q in (0.5, [0.1, 0.9]):
+        ref, _ = _ref(data, labels, impl="select", func="nanquantile", finalize_kwargs={"q": q})
+        got = pk.nanquantile(torch.from_numpy(codes), torch.from_numpy(data), size=len(groups),
+                             q=q, axis_name=comm)
+        _same_dtype_shape(got, ref)
+        _interp_close(got, ref, _scale(data))
 
 
 # ---------------------------------------------------------------------------

@@ -353,8 +353,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
     (rechunk_for_cohorts, ("time", MONTHS, [0])),
 ])
 def test_rechunk_wrappers_name_roadmap_item(fn, args):
-    with pytest.raises(NotImplementedError, match="A7"):
-        fn(_da(pxl, _data()), *args)
+    """The rechunk wrappers are ported (A7): the reference's layout, codes,
+    groups and chunk lengths, exactly."""
+    from flox_tpu import xarray as ref_xarray
+
+    ref = getattr(ref_xarray, fn.__name__)(_da(rxl, _data()), *args)
+    if fn is rechunk_for_cohorts:
+        assert fn(_da(pxl, _data()), *args) == ref
+        return
+    got = fn(_da(pxl, _data()), *args, n_shards=4, device="cpu")
+    ref = getattr(ref_xarray, fn.__name__)(_da(rxl, _data()), *args, n_shards=4)
+    assert got[0].dims == ref[0].dims and set(got[0].coords) == set(ref[0].coords)
+    assert got[0].attrs == ref[0].attrs
+    np.testing.assert_array_equal(got[0].data.numpy(), np.asarray(ref[0].data))
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[2], ref[2])
 
 
 def test_without_pandas_bins_are_the_coordinate():

@@ -1,0 +1,483 @@
+"""A spawned ``torch.distributed`` world of CPU ranks that runs the port's mesh
+cases (flox_tpu_torch.parallel) for tests/test_torch_sharded.py.
+
+This module imports numpy, torch and flox_tpu_torch only: every spawned rank
+re-imports it, so it stays cheap and never imports JAX. The cases are
+described here once (:func:`case`): their inputs are made from a seed per
+case with numpy, and the test process feeds the same inputs to flox_tpu's
+mesh programs.
+
+:func:`run_world` spawns the ranks (gloo, the ``spawn`` start method, one
+thread each), runs every case on every rank in the same order, and collects
+each rank's results. The parent waits with a deadline and terminates the
+ranks when it passes, so a hung collective fails the caller instead of
+stalling the test run.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import time
+import warnings
+import zlib
+from datetime import timedelta
+
+import numpy as np
+
+NRANKS = 4
+
+MESH_FUNCS = [
+    "sum", "nansum", "prod", "nanprod", "mean", "nanmean", "var", "nanvar",
+    "std", "nanstd", "max", "nanmax", "min", "nanmin", "count", "all", "any",
+    "argmax", "nanargmax", "argmin", "nanargmin",
+    "first", "last", "nanfirst", "nanlast",
+]
+ORDER_STATS = [
+    ("nanmedian", {}),
+    ("median", {}),
+    ("nanquantile", {"q": 0.9}),
+    ("quantile", {"q": [0.25, 0.5, 0.75]}),
+    ("nanquantile", {"q": 0.3, "method": "nearest"}),
+    ("nanquantile", {"q": 0.7, "method": "midpoint"}),
+    ("quantile", {"q": 0.5, "method": "median_unbiased"}),
+]
+SCAN_FUNCS = ["cumsum", "nancumsum", "ffill", "bfill"]
+#: the blocked program's funcs and their dense legs (counts + chunk legs)
+BLOCKED_LEGS = {"nansum": 2, "nanmean": 3, "nanvar": 4, "count": 2}
+COMPLEX_FUNCS = ["sum", "nansum", "mean", "nanmean", "count", "first", "last"]
+
+
+def _rng(cid: str) -> np.random.Generator:
+    return np.random.default_rng(zlib.crc32(cid.encode()))
+
+
+def _data(rng, shape, add_nan: bool):
+    values = np.round(rng.normal(size=shape), 1)
+    if add_nan:
+        values[..., rng.random(shape[-1]) < 0.25] = np.nan
+    return values
+
+
+def _case_ids() -> list[str]:
+    ids = [f"funcs-{f}-{m}-{'nan' if nan else 'finite'}" for f in MESH_FUNCS
+           for m in ("map-reduce", "cohorts") for nan in (False, True)]
+    ids += [f"2d-{f}" for f in ("sum", "nanmean", "var", "max", "first", "nanargmax")]
+    ids += ["expected-groups", "partial-axis", "auto-method"]
+    ids += ["blockwise-sum", "blockwise-nanmedian", "blockwise-quantile", "blockwise-reshard"]
+    ids += [f"orderstat-{i}" for i in range(len(ORDER_STATS))]
+    ids += ["orderstat-cohorts", "orderstat-int", "orderstat-mode-raises"]
+    ids += ["min-count-nansum"] + [f"min-count-{f}" for f in ("nanmean", "nanvar", "nanargmax")]
+    ids += [f"scan-{f}-{'nan' if nan else 'finite'}" for f in SCAN_FUNCS for nan in (False, True)]
+    ids += ["scan-2d", "scan-blockwise", "scan-td-cumsum", "scan-td-nancumsum",
+            "scan-nat-boundary-cumsum", "scan-nat-boundary-nancumsum"]
+    ids += [f"datetime-{f}" for f in ("max", "nanmax", "min", "nanmin",
+                                      "first", "last", "nanfirst", "nanlast")]
+    ids += [f"rms-{m}" for m in ("map-reduce", "cohorts", "blockwise")]
+    ids += [f"aligned-{f}" for f in ("nanmean", "nanvar", "nansum")]
+    ids += [f"blocked-{f}" for f in BLOCKED_LEGS]
+    ids += ["blocked-min-count", "blocked-100k-nanmean", "blocked-million",
+            "blocked-raises-peak", "blocked-raises-non-additive"]
+    ids += [f"mesh2-{f}" for f in ("nanmean", "nanvar", "max", "nanargmax", "first")]
+    ids += ["mesh2-cohorts", "mesh2-scan", "mesh2-bogus-axis", "mesh2-auto-ici",
+            "mesh2-auto-both"]
+    ids += ["dtensor", "many-map-reduce", "many-cohorts", "sort-engine", "xarray-rechunk-blockwise",
+            "xarray-rechunk-cohorts"]
+    ids += [f"complex-{f}" for f in COMPLEX_FUNCS]
+    return ids
+
+
+CASE_IDS = _case_ids()
+
+
+def case(cid: str) -> dict:
+    """One case: ``entry`` (the entry point's name), ``args`` (numpy inputs),
+    ``kw`` (keyword arguments both packages take), ``mesh`` ("1d", "2d", or
+    None for the default mesh) and, where it applies, ``ceiling`` (a
+    ``dense_intermediate_bytes_max`` to set around the call) and ``special``
+    (a case each side builds in its own way: a custom Aggregation, a
+    resharded layout, a DTensor, a direct scan program)."""
+    rng = _rng(cid)
+    out = {"entry": "groupby_reduce", "mesh": "1d", "ceiling": None, "special": None}
+    parts = cid.split("-")
+    if parts[0] == "funcs":
+        func, method, nan = parts[1], "-".join(parts[2:-1]), parts[-1] == "nan"
+        n, size = 111, 5  # not a multiple of the shard count
+        codes = rng.integers(0, size, n).astype(np.int64)
+        fkw = {"ddof": 1} if "var" in func or "std" in func else None
+        out.update(args=(_data(rng, (n,), nan), codes),
+                   kw=dict(func=func, method=method, finalize_kwargs=fkw))
+    elif parts[0] == "2d":
+        n = 64
+        codes = rng.integers(0, 4, n).astype(np.int64)
+        out.update(args=(_data(rng, (3, n), True), codes),
+                   kw=dict(func=parts[1], method="map-reduce"))
+    elif cid == "expected-groups":
+        out.update(args=(np.arange(50.0), np.array([1, 1, 3, 3, 5] * 10)),
+                   kw=dict(func="nanmean", method="map-reduce",
+                           expected_groups=np.array([1, 2, 3, 4, 5])))
+    elif cid == "partial-axis":
+        labels = np.array([[0, 1, 0, 1] * 8, [1, 1, 0, 0] * 8])
+        out.update(args=(np.round(rng.normal(size=(2, 32)), 1), labels),
+                   kw=dict(func="sum", axis=-1, method="map-reduce"))
+    elif cid == "auto-method":
+        out.update(args=(np.arange(240.0), np.tile([0, 1, 2], 80)), kw=dict(func="nanmean"))
+    elif parts[0] == "blockwise":
+        per = 16
+        codes = np.repeat(np.arange(NRANKS), per).astype(np.int64)  # group d on shard d
+        values = np.round(rng.normal(size=NRANKS * per), 1)
+        kind = parts[1]
+        if kind == "reshard":
+            codes = rng.integers(0, 7, 200).astype(np.int64)
+            values = np.round(rng.normal(size=200), 1)
+            out.update(special="reshard")
+        func = {"sum": "sum", "nanmedian": "nanmedian", "quantile": "quantile",
+                "reshard": "nanmedian"}[kind]
+        fkw = {"q": [0.25, 0.5, 0.75]} if kind == "quantile" else None
+        out.update(args=(values, codes),
+                   kw=dict(func=func, method="blockwise", finalize_kwargs=fkw))
+    elif parts[0] == "orderstat":
+        n = 4096
+        if parts[1] in ("cohorts", "int", "mode"):
+            labels = rng.integers(0, 7 if parts[1] == "int" else 5, 1024 if parts[1] == "int"
+                                  else 512)
+            values = (rng.integers(-50, 50, size=1024) if parts[1] == "int"
+                      else rng.normal(size=512))
+            func = {"cohorts": "nanmedian", "int": "median"}.get(parts[1], "mode")
+            method = "cohorts" if parts[1] == "cohorts" else "map-reduce"
+            if parts[1] == "mode":
+                values, labels = np.arange(8.0), np.array([0, 1] * 4)
+            out.update(args=(values, labels), kw=dict(func=func, method=method))
+        else:
+            func, fkw = ORDER_STATS[int(parts[1])]
+            labels = rng.integers(0, 11, n)
+            values = rng.normal(size=(3, n))
+            values[:, ::7] = np.nan  # groups span every shard; NaNs everywhere
+            out.update(args=(values, labels),
+                       kw=dict(func=func, method="map-reduce", finalize_kwargs=fkw or None))
+    elif parts[0] == "min":
+        if parts[2] == "nansum":
+            out.update(args=(np.array([1.0, np.nan, np.nan] * 8), np.array([0, 0, 1] * 8)),
+                       kw=dict(func="nansum", min_count=20, method="map-reduce"))
+        else:
+            fkw = {"ddof": 1} if parts[2] == "nanvar" else None
+            out.update(args=(np.tile([1.0, 3.0, np.nan], 8), np.tile([0, 0, 1], 8)),
+                       kw=dict(func=parts[2], min_count=2, method="map-reduce",
+                               finalize_kwargs=fkw))
+    elif parts[0] == "scan":
+        out["entry"] = "groupby_scan"
+        if parts[1] in SCAN_FUNCS:
+            n = 117
+            codes = rng.integers(0, 5, n).astype(np.int64)
+            out.update(args=(_data(rng, (n,), parts[2] == "nan"), codes),
+                       kw=dict(func=parts[1], method="blelloch"))
+        elif parts[1] == "2d":
+            codes = rng.integers(0, 4, 64).astype(np.int64)
+            out.update(args=(_data(rng, (3, 64), True), codes),
+                       kw=dict(func="nancumsum", method="blelloch"))
+        elif parts[1] == "blockwise":
+            codes = np.repeat(np.arange(NRANKS), 8).astype(np.int64)
+            out.update(args=(np.round(rng.normal(size=4 * 8), 1), codes),
+                       kw=dict(func="cumsum", method="blockwise"))
+        elif parts[1] == "td":
+            n = 117
+            codes = rng.integers(0, 5, n).astype(np.int64)
+            td = rng.integers(1, 1000, n).astype("timedelta64[ns]")
+            td[rng.random(n) < 0.2] = np.timedelta64("NaT")
+            out.update(args=(td, codes), kw=dict(func=parts[2], method="blelloch"))
+        else:  # a NaT on the first shard poisons its group on every later one
+            n = NRANKS * 8
+            codes = np.tile([0, 1], n // 2).astype(np.int64)
+            td = np.ones(n).astype("timedelta64[ns]")
+            td[2] = np.timedelta64("NaT")
+            out.update(args=(td, codes), kw=dict(func=parts[3], method="blelloch"))
+    elif parts[0] == "datetime":
+        if parts[1].endswith(("max", "min")):
+            dt = np.array(["2020-01-03", "2020-01-01", "NaT", "2020-01-05"],
+                          dtype="datetime64[ns]")
+            labels = np.array([0, 0, 1, 1])
+        else:
+            dt = np.array(["2020-01-03", "NaT", "2020-01-01", "2020-01-05", "NaT",
+                           "2020-01-02"], dtype="datetime64[ns]")
+            labels = np.array([0, 0, 0, 1, 1, 1])
+        out.update(args=(dt, labels), kw=dict(func=parts[1], method="map-reduce"))
+    elif parts[0] == "rms":
+        method = "-".join(parts[1:])
+        vals = np.random.default_rng(0).normal(size=96)
+        labels = np.arange(96) // 24 if method == "blockwise" else np.arange(96) % 5
+        out.update(args=(vals, labels), kw=dict(method=method), special="rms")
+    elif parts[0] == "aligned":
+        # shard s holds months {s, s+4, s+8}: shard-local cohorts,
+        # interleaved along the group axis
+        labels = np.concatenate([np.tile([s, s + 4, s + 8], 8) for s in range(NRANKS)])
+        vals = np.random.default_rng(1).normal(size=(5, labels.shape[0]))
+        out.update(args=(vals, labels), kw=dict(func=parts[1], method="cohorts"))
+    elif parts[0] == "blocked":
+        kind = parts[1]
+        if kind in BLOCKED_LEGS:
+            size, n = 30_000, 240
+            codes = rng.integers(0, 37, n).astype(np.int64)
+            vals = np.round(rng.normal(size=(3, n)), 3)
+            vals[:, rng.random(n) < 0.2] = np.nan
+            result_bytes = 3 * size * 8
+            # above the dense estimate's ceiling, within the blocked peak's
+            ceiling = result_bytes * (1 + BLOCKED_LEGS[kind] / NRANKS)
+            out.update(args=(vals, codes), ceiling=int(ceiling),
+                       kw=dict(func=kind, expected_groups=np.arange(size), method="map-reduce"))
+        elif kind == "min":
+            out.update(args=(np.array([1.0, np.nan, np.nan] * 8), np.array([0, 0, 1] * 8)),
+                       ceiling=1_200_000,
+                       kw=dict(func="nansum", min_count=20, method="map-reduce",
+                               expected_groups=np.arange(100_000)))
+        elif kind == "100k":
+            codes = rng.integers(0, 100_000, 2048).astype(np.int64)
+            vals = _data(rng, (2048,), True)
+            out.update(args=(vals, codes), ceiling=1_500_000,
+                       kw=dict(func="nanmean", method="map-reduce",
+                               expected_groups=np.arange(100_000)))
+        elif kind == "million":
+            size = 1_000_000
+            out.update(args=(np.ones(4096), rng.integers(0, size, 4096).astype(np.int64)),
+                       ceiling=12 * 2**20,
+                       kw=dict(func="sum", expected_groups=np.arange(size),
+                               method="map-reduce"))
+        elif parts[2] == "peak":
+            out.update(args=(np.ones(64), np.arange(64) % 8), ceiling=2**20,
+                       kw=dict(func="sum", expected_groups=np.arange(1_000_000),
+                               method="map-reduce"))
+        else:
+            codes = rng.integers(0, 12, 96).astype(np.int64)
+            out.update(args=(rng.normal(size=96), codes), ceiling=2**20,
+                       kw=dict(func="nanfirst", expected_groups=np.arange(200_000),
+                               method="map-reduce"))
+    elif parts[0] == "mesh2":
+        out["mesh"] = "2d"
+        both = ("dcn", "ici")
+        if parts[1] in ("cohorts", "scan"):
+            codes = rng.integers(0, 6, 96).astype(np.int64)
+            values = _data(rng, (96,), False)
+            if parts[1] == "scan":
+                out.update(entry="sharded_groupby_scan", special="scan_direct")
+                out.update(args=(values, codes), kw=dict(func="cumsum", size=6,
+                                                         axis_name=both))
+            else:
+                out.update(args=(values, codes),
+                           kw=dict(func="nansum", method="cohorts", axis_name=both))
+        elif parts[1] == "bogus":
+            out.update(args=(np.arange(16.0), np.arange(16) % 2),
+                       kw=dict(func="sum", method="map-reduce", axis_name="bogus"))
+        elif parts[1] == "auto":
+            vals = np.random.default_rng(2).normal(size=(5, 96))
+            labels = np.arange(96) // 24
+            if parts[2] == "ici":
+                out.update(args=(vals, labels), kw=dict(func="nansum", axis_name="ici"))
+            else:
+                out.update(args=(vals, labels), kw=dict(func="nanmean", axis_name=both))
+        else:
+            n = 103
+            codes = rng.integers(0, 5, n).astype(np.int64)
+            out.update(args=(_data(rng, (n,), True), codes),
+                       kw=dict(func=parts[1], method="map-reduce", axis_name=both))
+    elif cid == "dtensor":
+        codes = rng.integers(0, 4, 128).astype(np.int64)
+        out.update(args=(_data(rng, (128,), False), codes),
+                   kw=dict(func="nanmean", method="map-reduce"), special="dtensor")
+    elif parts[0] == "many":
+        method = "-".join(parts[1:])
+        funcs = (("count", "nanmean", "nanstd", "nanmin", "nanmax") if method == "map-reduce"
+                 else ("nanmean", "count", "nansum"))
+        codes = rng.integers(0, 6, 150).astype(np.int64)
+        out.update(entry="groupby_aggregate_many",
+                   args=(_data(rng, (4, 150), True), codes),
+                   kw=dict(funcs=funcs, method=method,
+                           finalize_kwargs={"nanstd": {"ddof": 1}}))
+    elif cid == "sort-engine":
+        codes = 700 + rng.integers(0, 9, 90).astype(np.int64)
+        out.update(args=(_data(rng, (2, 90), True), codes),
+                   kw=dict(func="nanmean", method="map-reduce", engine="sort",
+                           expected_groups=np.arange(2000)))
+    elif parts[0] == "xarray":
+        n = 120
+        labels = rng.integers(0, 7, n)
+        values = np.round(rng.normal(size=(3, n)), 1)
+        if parts[2] == "blockwise":
+            out.update(args=(values, labels), special="xr_reshard",
+                       kw=dict(func="nanmedian", method="blockwise", expected_groups=np.arange(7)))
+        else:
+            out.update(args=(values, (np.arange(n) // 10) % 12), special="xr_cohorts", kw={})
+    elif parts[0] == "complex":
+        r = np.random.default_rng(0)
+        vals = r.normal(size=96) + 1j * r.normal(size=96)
+        out.update(args=(vals, np.arange(96) % 5), kw=dict(func=parts[1], method="map-reduce"))
+    else:
+        raise KeyError(cid)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the port's side, on a rank
+# ---------------------------------------------------------------------------
+
+
+def _rms_port():
+    import flox_tpu_torch
+    from flox_tpu_torch.kernels import generic_kernel
+
+    def sq_sum(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        return generic_kernel("nansum", group_idx, array * array, size=size, fill_value=0.0)
+
+    def cnt(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
+        return generic_kernel("nanlen", group_idx, array, size=size)
+
+    return flox_tpu_torch.Aggregation(
+        "rms", numpy=(sq_sum, cnt), chunk=(sq_sum, cnt),
+        combine=(lambda s: s.sum(0), lambda s: s.sum(0)),
+        finalize=lambda ss, n, **kw: (ss / n) ** 0.5,
+        fill_value={"intermediate": (0.0, 0)}, final_fill_value=np.nan,
+    )
+
+
+def _to_host(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_to_host(v) for v in x)
+    return x
+
+
+def run_port_case(cid: str, meshes: dict):
+    """The case on this rank: ``(result, *groups)`` as host arrays."""
+    import torch
+
+    import flox_tpu_torch
+    from flox_tpu_torch import rechunk
+    from flox_tpu_torch.parallel import sharded_groupby_scan
+    from flox_tpu_torch.aggregations import _initialize_scan
+
+    c = case(cid)
+    kw = dict(c["kw"], mesh=meshes[c["mesh"]])
+    args = c["args"]
+    if c["special"] == "rms":
+        kw["func"] = _rms_port()
+    elif c["special"] == "reshard":
+        layout = rechunk.reshard_for_blockwise(args[1], NRANKS)
+        args = (layout.apply(args[0], device="cpu"), layout.codes)
+        kw["expected_groups"] = np.arange(7)
+    elif c["special"] == "dtensor":
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        args = (distribute_tensor(torch.from_numpy(args[0]), kw["mesh"], [Shard(0)]), args[1])
+    elif c["special"] == "scan_direct":
+        scan = _initialize_scan(kw.pop("func"))
+        return (_to_host(sharded_groupby_scan(args[0], args[1], scan, **kw)),)
+    elif c["special"] in ("xr_reshard", "xr_cohorts"):
+        from flox_tpu_torch import xarray as pxr, xrlite
+
+        da = xrlite.DataArray(args[0], dims=("x", "time"), coords={"label": ("time", args[1])})
+        if c["special"] == "xr_cohorts":
+            return (np.asarray(pxr.rechunk_for_cohorts(da, "time", args[1], [0], chunksize=20)),)
+        out, codes, _groups = pxr.rechunk_for_blockwise(da, "time", args[1], device="cpu")
+        args = (out.data, codes)
+    with flox_tpu_torch.set_options(**({"dense_intermediate_bytes_max": c["ceiling"]}
+                                       if c["ceiling"] else {})):
+        out = getattr(flox_tpu_torch, c["entry"])(*args, **kw)
+    return _to_host(out) if isinstance(out, tuple) else (_to_host(out),)
+
+
+class _Capture(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _worker(rank: int, world: int, init_file: str, out_dir: str, case_ids: list,
+            timeout_s: float, hang_rank) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=timeout_s))
+    from flox_tpu_torch.parallel import make_mesh
+
+    meshes = {"1d": make_mesh(device_type="cpu"), None: None}
+    if world == NRANKS:
+        meshes["2d"] = make_mesh(shape=(2, 2), axis_names=("dcn", "ici"), device_type="cpu")
+    capture = _Capture()
+    logger = logging.getLogger("flox_tpu_torch.parallel.mapreduce")
+    logger.addHandler(capture)
+    logger.setLevel(logging.DEBUG)
+    results = {}
+    for cid in case_ids:
+        capture.lines.clear()
+        if cid == "hang":  # a rank that never reaches the collective
+            if rank == hang_rank:
+                time.sleep(3600)
+            x = torch.ones(1)
+            dist.all_reduce(x)
+            results[cid] = ("ok", (x.numpy(),), [])
+            continue
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = run_port_case(cid, meshes)
+            notes = list(capture.lines) + [str(w.message) for w in caught]
+            results[cid] = ("ok", got, notes)
+        except Exception as err:  # noqa: BLE001 - the test compares it with the reference's
+            results[cid] = ("err", type(err).__name__, str(err))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    dist.destroy_process_group()
+
+
+class WorldFailed(RuntimeError):
+    """A rank of the world crashed, or the world missed its deadline."""
+
+
+def run_world(case_ids: list, out_dir: str, *, world: int = NRANKS, deadline_s: float = 120.0,
+              timeout_s: float = 60.0, hang_rank=None) -> list[dict]:
+    """Spawn ``world`` gloo ranks on the CPU, run ``case_ids`` on each, and
+    return each rank's ``{case: outcome}``. Raises :class:`WorldFailed`
+    (after terminating every rank) when a rank exits nonzero or the world
+    is not done within ``deadline_s`` seconds."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    init_file = os.path.join(out_dir, "init")
+    procs = [ctx.Process(target=_worker, args=(r, world, init_file, out_dir, list(case_ids),
+                                               timeout_s, hang_rank), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        if alive:
+            raise WorldFailed(f"ranks {alive} still running after the {deadline_s} s deadline")
+        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+        if bad:
+            raise WorldFailed(f"ranks exited nonzero: {bad}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
