@@ -58,7 +58,20 @@ Phases; any failure exits nonzero:
    ``groupby_reduce`` and ``groupby_aggregate_many``, a sparse tensor at 1 %
    density (nansum, nanmean, nanmax, count), the sort engine's result packed
    with ``reindex=SPARSE_COO``, the host numpy engine on 2048 rows, and
-   ``memory_stats``. Each call runs with the launch
+   ``memory_stats``; then streaming from host memory (:func:`phase_streaming`):
+   the array copied once to a host numpy array and streamed back through
+   ``streaming_groupby_reduce`` nanmean by month at the default 256 MiB
+   slabs (pinned buffers, a side copy stream, prefetch 2), bit for bit the
+   slab-order fold of the eager calls on the same slabs, with its peak device
+   memory held under (prefetch + 2) slabs plus the accumulators and timed at
+   prefetch 0 and 2 beside the host fill and host-to-device rates; the daily
+   nanmean and the trio streamed the same way; and on the SORT_ROWS cut the
+   streamed nanquantile (33 passes, bit for bit the eager select path), a
+   streamed nancumsum into a host writer, the streamed sort engine on
+   day-aligned slabs (bit for bit the eager one), a loader, a simulated OOM
+   that the ladder halves, a real ``torch.cuda.OutOfMemoryError`` under a
+   memory cap, and a killed stream resumed from its checkpoint bit for bit.
+   Each call runs with the launch
    counts set to 0 just before it, must launch exactly its kernels, and is
    checked against a float64 (or exact) reduction of the same data on the
    card (the sort engine against the daily call, bit for bit; positions,
@@ -1690,6 +1703,283 @@ def _mesh_rechunk(ck, data, month, mesh, totals: dict) -> None:
           f"rechunk_for_cohorts: {len(chunks)} chunks")
 
 
+# ---------------------------------------------------------------------------
+# phase 3, continued: streaming host slabs through the card
+# ---------------------------------------------------------------------------
+
+#: streaming's default slab budget (flox_tpu_torch.streaming._DEFAULT_BATCH_BYTES)
+STREAM_BATCH_BYTES = 256 * 2**20
+
+
+def _stream_len(k: int, itemsize: int = 4) -> int:
+    """Columns a slab of the default budget holds, as the streaming runtime
+    derives them."""
+    return max(1, STREAM_BATCH_BYTES // (k * itemsize))
+
+
+def _slab_fold(data, labels, batch_len: int, funcs: tuple, groups: int) -> dict:
+    """The fold, in slab order, of the port's eager ``groupby_aggregate_many``
+    on the same slabs the stream stages (device copies of ``data``'s columns):
+    sums and counts added, extrema by ``fmin``/``fmax`` (a slab's absent group
+    holds the NaN fill)."""
+    import flox_tpu_torch
+
+    acc: dict = {}
+    n = data.shape[-1]
+    for s in range(0, n, batch_len):
+        e = min(n, s + batch_len)
+        out, _ = flox_tpu_torch.groupby_aggregate_many(
+            data[:, s:e].contiguous(), labels[s:e], funcs=funcs,
+            expected_groups=np.arange(groups))
+        for f, v in out.items():
+            if f not in acc:
+                acc[f] = v
+            elif f in ("nanmin", "nanmax"):
+                acc[f] = (torch.fmin if f == "nanmin" else torch.fmax)(acc[f], v)
+            else:
+                acc[f] = acc[f] + v
+    return acc
+
+
+def _fold_mean(fold: dict) -> torch.Tensor:
+    return fold["nansum"] / fold["count"]
+
+
+def _link_rates(host: np.ndarray, batch_len: int, reps: int = 5) -> tuple[float, float]:
+    """The two rates a streamed slab passes through, each alone: the host fill
+    (the loader's strided column slab copied into a pinned buffer, one
+    thread) and the pinned host-to-device copy (CUDA events), in GB/s."""
+    k = host.shape[0]
+    pinned = torch.empty((k, batch_len), dtype=torch.float32, pin_memory=True)
+    dev = torch.empty((k, batch_len), dtype=torch.float32, device=DEVICE)
+    nbytes = pinned.numel() * 4
+    fills = []
+    for i in range(reps):
+        s = (i * batch_len) % (host.shape[1] - batch_len)
+        t0 = time.perf_counter()
+        np.copyto(pinned.numpy(), host[:, s:s + batch_len])
+        fills.append(time.perf_counter() - t0)
+    fill_gbps = nbytes / statistics.median(fills) / 1e9
+    h2d_ms = time_ms(lambda: dev.copy_(pinned, non_blocking=True), reps)
+    del pinned, dev
+    return fill_gbps, nbytes / (h2d_ms * 1e-3) / 1e9
+
+
+def phase_streaming(data, month, codes, totals: dict) -> dict:
+    """Streaming from host memory (``streaming_groupby_*``) at full width and
+    on the SORT_ROWS cut: each streamed call with its launches counted from 0,
+    bit for bit the slab-order fold of the eager calls on the same slabs and
+    within the float64 bar; the peak device memory of the streamed nanmean
+    against ``(prefetch + 2)`` slabs plus the accumulators; prefetch 0 against
+    2; then quantiles, the scan, the sort engine, a loader, and the faults:
+    a simulated OOM, a real one under a memory cap, and a kill with its
+    resume. Returns the measured numbers."""
+    import flox_tpu_torch
+    from flox_tpu_torch import cuda_kernels as ck, faults, profiling, streaming as pst
+
+    k, n = data.shape
+    t_host = time.perf_counter()
+    host = data.cpu().numpy()
+    month = np.asarray(month)
+    print(f"[stream] host copy of the data {host.nbytes / 1e9:.2f} GB in "
+          f"{time.perf_counter() - t_host:.2f} s")
+    batch_len = _stream_len(k)
+    nslabs = -(-n // batch_len)
+    slab_bytes = k * batch_len * 4
+    acc_bytes = 16 * k * NGROUPS * 4  # the carry and the step's (K, groups) temporaries
+    out = {"batch_len": batch_len, "nslabs": nslabs, "slab_bytes": slab_bytes}
+    fill_gbps, h2d_gbps = _link_rates(host, batch_len)
+    out.update(fill_gbps=fill_gbps, h2d_gbps=h2d_gbps)
+    print(f"[stream] {nslabs} slabs of {batch_len} columns ({slab_bytes / 1e6:.1f} MB); one "
+          f"thread fills a pinned slab at {fill_gbps!r} GB/s; pinned host-to-device "
+          f"{h2d_gbps!r} GB/s")
+    codes = torch.as_tensor(month, device=DEVICE)
+
+    # -- the main path at full width: nanmean by month, prefetch 2 ---------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _PEAK_SEEN[0] = max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with profiling.stream_monitor() as reports:
+        got = _drive(ck, "streamed nanmean (months, prefetch 2)",
+                     lambda: pst.streaming_groupby_reduce(host, month, func="nanmean")[0],
+                     {"segment_sum": nslabs}, totals)
+    peak = torch.cuda.max_memory_allocated() - held
+    bound = (2 + 2) * slab_bytes + acc_bytes
+    out.update(peak_bytes=peak, peak_bound=bound)
+    print(f"[memory] streamed nanmean: peak {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB "
+          f"held, bound (prefetch + 2) slabs + accumulators {bound / 1e9:.3f} GB")
+    check(peak <= bound, f"streamed nanmean: peak {peak} above the bound {bound}")
+    check(got.device.type == torch.device(DEVICE).type and tuple(got.shape) == (k, NGROUPS)
+          and got.dtype == torch.float32, f"streamed nanmean: {got.shape} {got.dtype}")
+    fold = _slab_fold(data, month, batch_len, ("nansum", "count"), NGROUPS)
+    check(torch.equal(bits(got), bits(_fold_mean(fold))),
+          "streamed nanmean differs from the slab-order fold of the eager calls")
+    _check_close("streamed nanmean", got, _f64_reference(data, codes, NGROUPS, "nanmean"))
+    print("[stream] streamed nanmean: bit for bit the slab-order fold of eager nansum/count")
+    del fold
+    rep = reports[0]
+    print(f"[stream] {rep.summary()}")
+
+    # -- prefetch 0 against 2: wall time, host-to-device rate, overlap -----
+    for depth in (0, 2, 0, 2):
+        with flox_tpu_torch.set_options(stream_prefetch=depth):
+            with profiling.stream_monitor() as reps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = pst.streaming_groupby_reduce(host, month, func="nanmean")[0]
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(bits(again), bits(got)), f"prefetch {depth}: other bits")
+        r = reps[0]
+        gbps = host.nbytes / (wall * 1e-3) / 1e9
+        out.setdefault(f"prefetch{depth}", []).append(
+            {"ms": wall, "gbps": gbps, "overlap": r.overlap_fraction, "wait_ms": r.wait_ms,
+             "load_ms": r.load_ms, "stage_ms": r.stage_ms, "dispatch_ms": r.dispatch_ms})
+        print(f"[stream] streamed nanmean prefetch {depth}: {wall!r} ms, {gbps!r} GB/s of input; "
+              f"overlap {r.overlap_fraction!r}, wait {r.wait_ms!r} ms, load {r.load_ms!r} ms, "
+              f"stage {r.stage_ms!r} ms, dispatch {r.dispatch_ms!r} ms")
+    del again
+
+    # -- also at full width: the daily nanmean (B5) and the trio (B2) ------
+    day = np.arange(n, dtype=np.int64) // 24
+    daily = _drive(ck, "streamed daily nanmean (1096 groups)",
+                   lambda: pst.streaming_groupby_reduce(host, day, func="nanmean")[0],
+                   {"segment_sum_radixbin": nslabs}, totals)
+    fold = _slab_fold(data, day, batch_len, ("nansum", "count"), NDAYS)
+    check(torch.equal(bits(daily), bits(_fold_mean(fold))),
+          "streamed daily nanmean differs from the slab-order fold")
+    _check_close("streamed daily nanmean", daily,
+                 _f64_reference(data, torch.from_numpy(day).to(DEVICE), NDAYS, "nanmean"))
+    del daily, fold
+    trio = ("nanmean", "nanmin", "nanmax")
+    got3 = _drive(ck, "streamed aggregate_many(nanmean, nanmin, nanmax)",
+                  lambda: pst.streaming_groupby_aggregate_many(host, month, funcs=trio)[0],
+                  {"segment_multistat": nslabs}, totals)
+    fold = _slab_fold(data, month, batch_len, ("nansum", "count", "nanmin", "nanmax"), NGROUPS)
+    check(torch.equal(bits(got3["nanmean"]), bits(_fold_mean(fold)))
+          and torch.equal(got3["nanmin"], fold["nanmin"])
+          and torch.equal(got3["nanmax"], fold["nanmax"]),
+          "streamed trio differs from the slab-order fold")
+    check(torch.equal(got3["nanmean"], got), "streamed trio nanmean differs from nanmean's")
+    check(torch.equal(got3["nanmax"], _f64_reference(data, codes, NGROUPS, "nanmax")),
+          "streamed nanmax differs from scatter_reduce amax")
+    print("[stream] streamed daily nanmean and trio: bit for bit their slab-order folds, "
+          "within the float64 bar, extrema exact")
+    del got3, fold, got
+    torch.cuda.empty_cache()
+
+    # -- the cut: quantiles, the scan, the sort engine, a loader, faults ----
+    rows = SORT_ROWS
+    cut = data[:rows]
+    cut_host = host[:rows]
+    cut_len = _stream_len(rows)
+    cut_slabs = -(-n // cut_len)
+    qs = [0.1, 0.5, 0.9]
+    q = _drive(ck, f"streamed nanquantile 3 q ({rows} rows, 33 passes)",
+               lambda: pst.streaming_groupby_reduce(cut_host, month, func="nanquantile",
+                                                    finalize_kwargs={"q": qs})[0],
+               {"segment_sum": 32 * cut_slabs}, totals)
+    with flox_tpu_torch.set_options(quantile_impl="select"):
+        eager_q, _ = flox_tpu_torch.groupby_reduce(cut, month, func="nanquantile",
+                                                   finalize_kwargs={"q": qs})
+    check(torch.equal(bits(q), bits(eager_q)),
+          "streamed nanquantile differs from the eager select path")
+    print("[stream] streamed nanquantile: bit for bit the eager select path")
+    del q, eager_q
+
+    written = np.full(cut_host.shape, np.nan, dtype=np.float32)
+
+    def writer(s, e, res):
+        written[:, s:e] = res
+
+    _drive(ck, f"streamed nancumsum ({rows} rows, host writer)",
+           lambda: pst.streaming_groupby_scan(cut_host, month, func="nancumsum", out=writer),
+           {"segment_cumsum": cut_slabs, "segment_sum": cut_slabs}, totals)
+    eager_scan = flox_tpu_torch.groupby_scan(cut, month, func="nancumsum")
+    _check_scan_full("streamed nancumsum", torch.from_numpy(written).to(DEVICE), cut, codes,
+                     want=eager_scan)
+    del written, eager_scan
+    torch.cuda.empty_cache()
+
+    labels = DAY0 + day
+    universe = np.arange(NUNIVERSE)
+    # day-aligned slabs: no day straddles two slabs, so every group's sum is
+    # one slab's, as the eager call's is one pass's
+    day_len = (cut_len // 24) * 24
+    sorted_ = _drive(ck, f"streamed sort engine nanmean ({rows} rows, {NUNIVERSE}-day universe)",
+                     lambda: pst.streaming_groupby_reduce(
+                         cut_host, labels, func="nanmean", expected_groups=universe,
+                         engine="sort", batch_len=day_len)[0],
+                     {"segment_sum_radixbin": -(-n // day_len)}, totals)
+    eager_sort, _ = flox_tpu_torch.groupby_reduce(cut, labels, func="nanmean",
+                                                  expected_groups=universe, engine="sort")
+    check(torch.equal(bits(sorted_), bits(eager_sort)),
+          "streamed sort engine differs from the eager sort engine")
+    print(f"[stream] streamed sort engine (slabs of {day_len} columns, whole days): bit for bit "
+          "the eager sort engine")
+    del sorted_, eager_sort
+
+    def loader(s, e):
+        return cut_host[:, s:e]
+
+    by_loader = _drive(ck, f"streamed nanmean from a loader ({rows} rows)",
+                       lambda: pst.streaming_groupby_reduce(loader, month, func="nanmean")[0],
+                       {"segment_sum": cut_slabs}, totals)
+    base = pst.streaming_groupby_reduce(cut_host, month, func="nanmean")[0]
+    check(torch.equal(bits(by_loader), bits(base)), "the loader form differs from the host array")
+    print("[stream] loader callable(start, stop): bit for bit the host-array form")
+    ref = _f64_reference(cut, codes, NGROUPS, "nanmean")
+
+    with faults.inject(oom_at=[cut_len]) as plan:
+        with profiling.stream_monitor() as reps:
+            split = pst.streaming_groupby_reduce(cut_host, month, func="nanmean")[0]
+    check(reps[0].oom_splits == 1 and ("SimulatedOOM", cut_len, 2 * cut_len) in plan.log,
+          f"simulated OOM: {reps[0].oom_splits} splits, log {plan.log}")
+    _check_close("streamed nanmean, a simulated OOM halved", split, ref)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    reserved = torch.cuda.memory_reserved()
+    room = 0.45e9  # a 0.86 GB slab and its 0.54 GB half do not fit, a quarter does
+    try:
+        torch.cuda.set_per_process_memory_fraction((reserved + room) / total_mem)
+        with profiling.stream_monitor() as reps:
+            capped = pst.streaming_groupby_reduce(cut_host, month, func="nanmean",
+                                                  batch_bytes=2 * 2**30)[0]
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    widths = sorted({s.stop - s.start for s in reps[0].slabs})
+    check(reps[0].oom_splits >= 1, "real OOM: the ladder never split")
+    _check_close("streamed nanmean under a memory cap", capped, ref)
+    out["real_oom_splits"] = reps[0].oom_splits
+    print(f"[stream] real torch.cuda.OutOfMemoryError under a cap of {room / 1e9:.2f} GB above "
+          f"the {reserved / 1e9:.2f} GB reserved: {reps[0].oom_splits} halvings of a 2 GiB "
+          f"request; counters {reps[0].counters}")
+    del capped, split, widths
+
+    with flox_tpu_torch.set_options(stream_checkpoint_every=1):
+        with faults.inject(kill_at=[2 * cut_len]):
+            try:
+                pst.streaming_groupby_reduce(cut_host, month, func="nanmean")
+            except faults.StreamKilled:
+                pass
+            else:
+                check(False, "the stream was not killed")
+        with profiling.stream_monitor() as reps:
+            resumed = pst.streaming_groupby_reduce(cut_host, month, func="nanmean")[0]
+    check(reps[0].counters.resumed_at == 2, f"resumed at {reps[0].counters.resumed_at}")
+    check(torch.equal(bits(resumed), bits(base)), "the resumed stream differs")
+    print("[stream] StreamKilled at slab 2 with stream_checkpoint_every=1: the resumed stream "
+          "is bit for bit the uninterrupted one")
+    del resumed, base, by_loader, ref, host
+    torch.cuda.empty_cache()
+    print(f"[stream] launches so far {totals}")
+    return out
+
+
 def phase_mesh_all(data, month, totals: dict, seed: int, reps: int) -> None:
     """:func:`phase_mesh` and :func:`phase_mesh_ranks` inside a world of one
     rank, torn down after them."""
@@ -2576,6 +2866,7 @@ def main() -> int:
         return 0
     phase_kernels(args.seed)
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
+    phase_streaming(data, month, codes, launches)
     phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2))
     entries = phase_times(data, month, codes, args.reps, launches, args.seed)
     print(f"[memory] peak device memory "

@@ -1,7 +1,9 @@
 """flox_tpu_torch: the PyTorch/CUDA port of flox_tpu's grouped reductions,
 multi-statistic fusion, grouped scans, high-cardinality (sort) engine, label
-layers, xarray adapter and multi-device runtime (``parallel``: ``method=``
-and ``mesh=`` over ``torch.distributed``).
+layers, xarray adapter, multi-device runtime (``parallel``: ``method=``
+and ``mesh=`` over ``torch.distributed``) and single-device streaming of host
+arrays larger than the card (``streaming_groupby_*``, with ``pipeline``,
+``resilience``, ``faults`` and ``profiling``).
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and
@@ -15,7 +17,7 @@ flox_tpu, and imports without pandas.
 tensor([1.5000, 4.0000], dtype=torch.float64)
 """
 
-from . import xrlite
+from . import cohorts, faults, kernels, profiling, resilience, xrlite
 from .aggregations import Aggregation, Scan, is_supported_aggregation
 from .core import groupby_reduce
 from .device import codes_device, groupby_reduce_device
@@ -24,8 +26,11 @@ from .factorize import Prefactorized, factorize_, factorize_single, prefactorize
 from .fusion import FUSABLE_FUNCS, groupby_aggregate_many
 from .multiarray import MultiArray
 from .options import OPTIONS, set_options
+from .rechunk import rechunk_for_blockwise, rechunk_for_cohorts, reshard_for_blockwise
 from .reindex import ReindexArrayType, ReindexStrategy
 from .scan import groupby_scan
+from .streaming import (streaming_groupby_aggregate_many, streaming_groupby_reduce,
+                        streaming_groupby_scan)
 from .xarray import xarray_reduce
 
 __all__ = [
@@ -41,15 +46,26 @@ __all__ = [
     "ReindexStrategy",
     "Scan",
     "codes_device",
+    "cohorts",
     "factorize_",
     "factorize_single",
+    "faults",
     "groupby_aggregate_many",
     "groupby_reduce",
     "groupby_reduce_device",
     "groupby_scan",
     "is_supported_aggregation",
+    "kernels",
     "prefactorize",
+    "profiling",
+    "rechunk_for_blockwise",
+    "rechunk_for_cohorts",
+    "reshard_for_blockwise",
+    "resilience",
     "set_options",
+    "streaming_groupby_aggregate_many",
+    "streaming_groupby_reduce",
+    "streaming_groupby_scan",
     "xarray_reduce",
     "xrlite",
 ]

@@ -119,7 +119,7 @@ def _convert_expected(expected, isbin: Sequence[bool], sort: bool) -> tuple:
     return tuple(out)
 
 
-def _normalize_reduce_axes(arr: torch.Tensor, bys: list[np.ndarray], axis):
+def _normalize_reduce_axes(arr, bys: list[np.ndarray], axis):
     """Move the reduced by-dims to the trailing position.
 
     Returns ``(arr, bys, n_keep, bndim)``: the (possibly permuted) array and
@@ -146,7 +146,9 @@ def _normalize_reduce_axes(arr: torch.Tensor, bys: list[np.ndarray], axis):
     by_order = by_keep + list(rel_axes)
     if by_order != list(range(bndim)):
         bys = [b.transpose(by_order) for b in bys]
-        arr = arr.permute(list(range(first_by_ax)) + [first_by_ax + d for d in by_order])
+        order = list(range(first_by_ax)) + [first_by_ax + d for d in by_order]
+        # a host (numpy) array is the streaming runtime's
+        arr = arr.permute(order) if isinstance(arr, torch.Tensor) else arr.transpose(order)
     return arr, bys, len(by_keep), bndim
 
 
@@ -912,6 +914,11 @@ def _astype_final(result: torch.Tensor, agg: Aggregation, datetime_dtype=None):
                 and result.is_floating_point():
             if bool(torch.isnan(result).any()):
                 return result
+        if final == torch.uint64 and result.is_floating_point():
+            # the reference's float -> uint64 conversion saturates at the top,
+            # where torch's wraps 2**64 to 0
+            top = torch.tensor(np.iinfo(np.uint64).max, dtype=final, device=result.device)
+            return torch.where(result >= 2.0**64, top, result.to(final))
         result = result.to(final)
     return result
 

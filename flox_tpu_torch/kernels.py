@@ -441,16 +441,20 @@ def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
     fused = _fused_sum_counts(cast, codes, size) if skipna else None
     if fused is not None:
         total, cnt = fused
+        present = cnt > 0
         orig_dtype = cast.dtype
     else:
         mask = _nan_mask(data) if skipna else None
         sdata = cast if mask is None else torch.where(mask, cast, 0)
         total = _seg("sum", sdata, codes, size)  # f32-accumulated for bf16/f16
-        # counts in int32: exact whatever the data dtype (bf16 saturates at 256)
-        cnt = _counts(codes, size, mask=mask).to(total.dtype)
+        # counts in int32: exact whatever the data dtype (bf16 saturates at 256);
+        # presence is tested before the cast, which may be to a complex dtype
+        cnt_i = _counts(codes, size, mask=mask)
+        present = cnt_i > 0
+        cnt = cnt_i.to(total.dtype)
         orig_dtype = sdata.dtype
     out = total / cnt
-    out = _fill_empty(out, cnt > 0, fill_value if fill_value is not None else float("nan"))
+    out = _fill_empty(out, present, fill_value if fill_value is not None else float("nan"))
     if out.dtype != orig_dtype and orig_dtype.is_floating_point:
         out = out.to(orig_dtype)  # divide in f32, present as bf16
     return _unflat(out, lead)
@@ -472,6 +476,11 @@ def _var_stats(group_idx, array, *, size, dtype, skipna):
     (exact int32 off the fused path), and the leading shape."""
     codes = _safe_codes(group_idx, size)
     data, lead = _flat(array)
+    if data.is_complex() or (dtype is not None and utils.torch_dtype(dtype).is_complex):
+        raise TypeError(
+            "var and std of complex data are not supported: the reference returns the "
+            "complex sum of (x - mean)**2, which is not numpy's variance (the sum of "
+            "|x - mean|**2); reduce the real and imaginary parts separately")
     cast = _maybe_cast(data, _float_request(data, dtype))
     # mask on the pre-cast data: an int dtype request would destroy the NaNs
     mask = _nan_mask(data) if skipna else None
@@ -1388,11 +1397,83 @@ def sort_kernel(func: str, group_idx, array, *, axis=-1, size, fill_value=None,
     return scatter_present_dense(out, present, size).to(array.device)
 
 
+# ---------------------------------------------------------------------------
+# unsigned data wider than 8 bits
+#
+# torch's uint16/uint32/uint64 have casts and views but no scatter, no
+# ``index_add_`` and no kernel route, so such data is widened exactly on entry
+# to every kernel: uint16 to int32, uint32 to int64. uint64 fits no signed
+# type: functions whose result is a float (sums, means, variances, order
+# statistics, any/all) take float64, as the reference does; the others
+# (extrema, positions, first/last, fills, mode, counts) take the
+# order-preserving key ``x ^ 2**63`` viewed as int64, and values come back
+# through the same flip.
+# ---------------------------------------------------------------------------
+
+_WIDE_UNSIGNED = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+#: kernels whose result holds the input's values (cast back after widening)
+_VALUE_FUNCS = frozenset({"max", "nanmax", "min", "nanmin", "first", "last", "nanfirst",
+                          "nanlast", "mode", "nanmode", "ffill", "bfill"})
+
+#: kernels that take uint64 data as order-preserving int64 keys
+_KEY_FUNCS = _VALUE_FUNCS | {"argmax", "argmin", "nanargmax", "nanargmin", "count", "nanlen",
+                             "len"}
+
+_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def _u64_key(x: torch.Tensor) -> torch.Tensor:
+    """uint64 -> int64 in the same order (and back: the flip is its own
+    inverse on the int64 view)."""
+    return x.view(torch.int64) ^ _NAT_INT
+
+
+def unsigned_route(dtype: torch.dtype, func: str) -> tuple[torch.dtype, bool]:
+    """``(work dtype, keyed)`` of unsigned ``dtype`` data under ``func``:
+    widened exactly, or (uint64 only) float64 or the int64 key."""
+    if dtype in _WIDE_UNSIGNED:
+        return _WIDE_UNSIGNED[dtype], False
+    return (torch.int64, True) if func in _KEY_FUNCS else (torch.float64, False)
+
+
+def _unsigned_kernel(fn, func: str, group_idx, array, kwargs):
+    orig = array.dtype
+    req = kwargs.get("dtype")
+    req = None if req is None else utils.torch_dtype(req)
+    work, keyed = unsigned_route(orig, func)
+    if orig in _WIDE_UNSIGNED:
+        if req in _UNSIGNED:
+            kwargs["dtype"] = _WIDE_UNSIGNED.get(req, torch.float64)
+        out = fn(group_idx, array.to(work), **kwargs)
+        back = req if req in _UNSIGNED else (orig if func in _VALUE_FUNCS else None)
+        if back is not None and isinstance(out, torch.Tensor) and out.dtype == work:
+            out = out.to(back)
+        return out
+    if not keyed:
+        return fn(group_idx, array.to(work), **kwargs)
+    if func not in _VALUE_FUNCS:
+        return fn(group_idx, _u64_key(array), **kwargs)
+    # values come back through the key flip; a fill is applied after it, so a
+    # float fill promotes the uint64 values, not their keys
+    fill = kwargs.pop("fill_value", None)
+    out = _u64_key(fn(group_idx, _u64_key(array), fill_value=None, **kwargs)).view(torch.uint64)
+    if fill is not None:
+        present = _counts(_safe_codes(group_idx, kwargs["size"]), kwargs["size"]) > 0
+        if utils.is_nan_fill(fill) or isinstance(fill, float):
+            out = out.to(torch.float64)
+        out = torch.where(present, out, torch.as_tensor(fill).to(device=out.device,
+                                                                   dtype=out.dtype))
+    return out
+
+
 def generic_kernel(func: str, group_idx, array, **kwargs):
     """Entry point of the "torch" engine."""
     try:
         fn = KERNELS[func]
     except KeyError:
         raise NotImplementedError(f"the torch engine has no kernel for {func!r}") from None
+    if isinstance(array, torch.Tensor) and array.dtype in _UNSIGNED:
+        return _unsigned_kernel(fn, func, group_idx, array, kwargs)
     return fn(group_idx, array, **kwargs)
 

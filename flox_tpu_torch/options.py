@@ -1,12 +1,17 @@
 """Global options of the port (counterpart of ``flox_tpu/options.py``).
 
-Only the knobs that the eager reduction path reads are here. The names of the
+The knobs of the eager reduction path and of streaming are here. Of the
+reference's eight ``stream_*`` knobs, ``stream_donate`` is accepted and
+validated but has no effect: nothing is traced, so there is no buffer
+donation, and the streaming carry is updated in place always. The names of the
 engine, accumulation, group-cap and ceiling knobs are the reference's, so
 that one option set can drive both packages (:func:`from_reference`).
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Any
 
 __all__ = ["OPTIONS", "VALID_ACCUMS", "from_reference", "set_options"]
@@ -64,6 +69,34 @@ OPTIONS: dict[str, Any] = {
     # of the data's width; "auto" resolves to "sort", as in the reference
     # with its measured dispatch off
     "quantile_impl": "auto",
+    # streaming (``pipeline``, ``resilience``): how many slabs the staging
+    # pool holds in flight, loaded into pinned host buffers and copied to the
+    # card on a side stream while the card reduces the slab before; 0 stages
+    # inline (the same bytes land either way). Depth > 1 loads concurrently,
+    # so the loader must take concurrent (start, stop) calls
+    "stream_prefetch": 2,
+    # synchronize the carry every K dispatched slabs, so the host cannot run
+    # far ahead of the card with staged slabs; 0 disables the throttle
+    "stream_dispatch_depth": 8,
+    # accepted for the reference's option set and validated, with no effect:
+    # the port updates the carry in place always (nothing is traced, so
+    # there is no buffer donation to turn on or off)
+    "stream_donate": "auto",
+    # extra attempts of a slab's load and staging after a transient failure
+    # (``resilience.classify_error``); retries + 1 attempts in all
+    "stream_retries": 2,
+    # base backoff in seconds between attempts, doubled per attempt (full
+    # jitter below that cap)
+    "stream_backoff": 0.05,
+    # per-slab deadline in seconds over all attempts and backoffs; 0: none
+    "stream_slab_timeout": 0.0,
+    # snapshot the carry to the host every K processed slabs, so that a
+    # killed stream resumes bit for bit; 0 disables checkpointing
+    "stream_checkpoint_every": 0,
+    # spill target of the snapshots: a directory (one .npz per stream) or a
+    # literal .npz path, for a resume in another process; None keeps them in
+    # this process only
+    "stream_checkpoint_path": None,
 }
 
 _IMPLS = ("auto", "scatter", "kernel")
@@ -71,6 +104,10 @@ _IMPLS = ("auto", "scatter", "kernel")
 
 def _is_int(x) -> bool:
     return isinstance(x, int) and not isinstance(x, bool)
+
+
+def _is_finite_num(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool) and math.isfinite(x)
 
 
 _VALIDATORS = {
@@ -86,6 +123,17 @@ _VALIDATORS = {
     "scan_impl": lambda x: x in ("auto", "segmented", "kernel"),
     "pallas_scan_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
     "quantile_impl": lambda x: x in ("auto", "sort", "select"),
+    # streaming knobs are validated when set: a negative depth or retry count
+    # raises here, not hours into a stream (bool is no int here)
+    "stream_prefetch": lambda x: _is_int(x) and 0 <= x <= 64,
+    "stream_dispatch_depth": lambda x: _is_int(x) and x >= 0,
+    "stream_donate": lambda x: x in ("auto", "on", "off"),
+    "stream_retries": lambda x: _is_int(x) and 0 <= x <= 1000,
+    "stream_backoff": lambda x: _is_finite_num(x) and x >= 0,
+    "stream_slab_timeout": lambda x: _is_finite_num(x) and x >= 0,
+    "stream_checkpoint_every": lambda x: _is_int(x) and x >= 0,
+    "stream_checkpoint_path": lambda x: x is None or (
+        isinstance(x, (str, os.PathLike)) and bool(str(x))),
 }
 
 

@@ -79,6 +79,9 @@ def as_tensor(x: Any, device: torch.device) -> torch.Tensor:
 _NP_OF_TORCH = {
     torch.bool: np.dtype(np.bool_),
     torch.uint8: np.dtype(np.uint8),
+    torch.uint16: np.dtype(np.uint16),
+    torch.uint32: np.dtype(np.uint32),
+    torch.uint64: np.dtype(np.uint64),
     torch.int8: np.dtype(np.int8),
     torch.int16: np.dtype(np.int16),
     torch.int32: np.dtype(np.int32),

@@ -454,3 +454,131 @@ def test_doctests(module):
     results = doctest.testmod(importlib.import_module(module), verbose=False)
     assert results.attempted > 0
     assert results.failed == 0
+
+
+# ---------------------------------------------------------------------------
+# unsigned data wider than 8 bits (ROADMAP C3)
+# ---------------------------------------------------------------------------
+
+UNSIGNED_FUNCS = ["sum", "nansum", "nanmax", "nanmin", "nanmean", "count", "argmax",
+                  "nanargmin", "first", "quantile"]
+
+
+def _unsigned_data(dt: str):
+    rng = np.random.default_rng(41)
+    hi = {"u2": 2**16, "u4": 2**32, "u8": 2**40}[dt]
+    data = rng.integers(0, hi, size=(3, 60), dtype=np.uint64).astype(dt)
+    if dt == "u8":
+        data[0, 5] = np.uint64(2**63 + 5)  # above every signed value
+        data[2, 7] = np.uint64(2**64 - 1)
+    return data, rng.integers(0, 5, 60)
+
+
+def _exact_against_reference(got, ref, interpolated: bool = False):
+    """Exact, dtype included. ``interpolated``: a linear quantile, within 2
+    float64 ulp, since the reference's compiler fuses ``v_lo + frac * (v_hi -
+    v_lo)`` into one multiply-add and rounds once where torch rounds twice."""
+    ref = np.asarray(ref)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+    if interpolated:
+        np.testing.assert_allclose(got, ref, rtol=4.5e-16, atol=0)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("func", UNSIGNED_FUNCS)
+@pytest.mark.parametrize("dt", ["u2", "u4", "u8"])
+def test_unsigned_data(dt, func):
+    """Exact against the reference (``engine="jax"``, x64), result dtype
+    included: sums int64 (uint64: float64), extrema the input dtype, means and
+    quantiles float64, counts and positions int64."""
+    data, labels = _unsigned_data(dt)
+    kw = {"finalize_kwargs": {"q": 0.3}} if func == "quantile" else {}
+    ref, _ = flox_tpu.groupby_reduce(data, labels, func=func, engine="jax", **kw)
+    for arr in (data, torch.from_numpy(data)):  # numpy, and a torch tensor of the dtype
+        got, _ = flox_tpu_torch.groupby_reduce(arr, labels, func=func, device="cpu", **kw)
+        _exact_against_reference(got, ref, interpolated=func == "quantile")
+    if func == "quantile":  # a selecting method has nothing to round: exact
+        kw = {"finalize_kwargs": {"q": 0.3, "method": "lower"}}
+        ref, _ = flox_tpu.groupby_reduce(data, labels, func=func, engine="jax", **kw)
+        got, _ = flox_tpu_torch.groupby_reduce(data, labels, func=func, device="cpu", **kw)
+        _exact_against_reference(got, ref)
+
+
+@pytest.mark.parametrize("dt", ["u2", "u4", "u8"])
+def test_unsigned_scan_and_aggregate_many(dt):
+    data, labels = _unsigned_data(dt)
+    got = flox_tpu_torch.groupby_scan(data, labels, func="cumsum", device="cpu")
+    ref = flox_tpu.groupby_scan(data, labels, func="cumsum")
+    if dt == "u8":
+        # float64 running sums past 2**53 round by association order: the
+        # file's float64 bar (the two scans associate differently)
+        assert got.numpy().dtype == np.asarray(ref).dtype == np.float64
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
+    else:
+        _exact_against_reference(got, ref)
+    funcs = ("sum", "nanmean", "nanmax", "count")
+    ref, _ = flox_tpu.groupby_aggregate_many(data, labels, funcs=funcs, engine="jax")
+    got, _ = flox_tpu_torch.groupby_aggregate_many(data, labels, funcs=funcs, device="cpu")
+    for f in funcs:
+        _exact_against_reference(got[f], ref[f])
+
+
+@pytest.mark.parametrize("dt", [np.int32, np.int64, np.int8, np.uint16])
+def test_integer_dtype_request_bit_exact(dt):
+    """The reference's claim (tests/test_kernels.py,
+    ``TestRadixSelectQuantile.test_integer_dtype_request_bit_exact``) on the
+    port: an integer dtype request skips the float cast, by sort and by
+    select, and both equal the reference's."""
+    from flox_tpu import kernels as rk
+    from flox_tpu_torch import kernels as pk
+
+    rng = np.random.default_rng(21)
+    codes = rng.integers(0, 4, 600)
+    lo = -120 if np.issubdtype(dt, np.signedinteger) else 0
+    data = rng.integers(lo, 120, 600).astype(dt)
+    for method in ("lower", "linear"):
+        ref = np.asarray(rk.generic_kernel("quantile", codes, data, size=4, q=0.4,
+                                           method=method, dtype=dt))
+        for impl in ("sort", "select"):
+            with flox_tpu_torch.set_options(quantile_impl=impl):
+                got = pk.generic_kernel("quantile", torch.from_numpy(codes),
+                                        torch.from_numpy(data), size=4, q=0.4, method=method,
+                                        dtype=dt)
+            _exact_against_reference(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# complex data (ROADMAP C4)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("func", ["mean", "nanmean"])
+@pytest.mark.parametrize("dt", [np.complex64, np.complex128])
+def test_complex_mean(dt, func):
+    """The reference's claim (tests/test_properties_wide.py, ``FUNCS_COMPLEX``):
+    complex means, NaN-skipping for nanmean; presence is tested on the count
+    before it becomes complex."""
+    rng = np.random.default_rng(43)
+    data = (rng.normal(size=(2, 50)) + 1j * rng.normal(size=(2, 50))).astype(dt)
+    data[0, 3] = np.nan
+    labels = rng.integers(0, 4, 50)
+    expected = np.arange(5)  # group 4 is empty: the NaN fill
+    ref, _ = flox_tpu.groupby_reduce(data, labels, func=func, engine="jax",
+                                     expected_groups=expected)
+    got, _ = flox_tpu_torch.groupby_reduce(data, labels, func=func, device="cpu",
+                                           expected_groups=expected)
+    ref = np.asarray(ref)
+    assert got.numpy().dtype == ref.dtype
+    rtol = 1e-5 if dt == np.complex64 else 1e-12
+    np.testing.assert_allclose(got.numpy(), ref, rtol=rtol, atol=rtol, equal_nan=True)
+
+
+@pytest.mark.parametrize("func", ["var", "nanvar", "std", "nanstd"])
+def test_complex_var_std_raise(func):
+    """The reference returns the complex sum of (x - m)**2, not numpy's
+    |x - m|**2; the port refuses rather than answer either way."""
+    data = np.array([1 + 1j, 2 + 0j, 3 - 1j])
+    with pytest.raises(TypeError, match="complex"):
+        flox_tpu_torch.groupby_reduce(data, np.array([0, 0, 1]), func=func, device="cpu")
