@@ -1841,6 +1841,11 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
               f"overlap {r.overlap_fraction!r}, wait {r.wait_ms!r} ms, load {r.load_ms!r} ms, "
               f"stage {r.stage_ms!r} ms, dispatch {r.dispatch_ms!r} ms")
     del again
+    # the card's busy time in a stream (B1, the slab copies, the merges)
+    # and its idle share, from a trace of one call at the default prefetch
+    device_breakdown({"streamed nanmean (months, prefetch 2)":
+                      lambda: pst.streaming_groupby_reduce(host, month, func="nanmean")[0]},
+                     reps=1)
 
     # -- also at full width: the daily nanmean (B5) and the trio (B2) ------
     day = np.arange(n, dtype=np.int64) // 24
@@ -2636,7 +2641,10 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # a ``record_function`` range (the streaming runtime's ``timed``) is
+        # mirrored on the device's timeline as an annotation: not device work
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
         if not events:
             print(f"[profile] {name}: device time not measured (the trace holds none)")
             continue

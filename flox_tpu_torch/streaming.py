@@ -32,6 +32,7 @@ and the autotuned slab size and routing.
 from __future__ import annotations
 
 import math
+import sys
 from typing import Any, Callable
 
 import numpy as np
@@ -393,13 +394,27 @@ def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int
     return state
 
 
+def _callable_identity(fn) -> tuple:
+    """A callable's part of a checkpoint key. A function reachable by its
+    module and qualified name (every builtin leg) is named so, which holds
+    in another process; a lambda, closure or partial carries its id(), so a
+    resume in another process misses: a fresh run, never a wrong one."""
+    mod, qual = getattr(fn, "__module__", None), getattr(fn, "__qualname__", None)
+    if mod and qual and "<" not in qual:
+        obj = sys.modules.get(mod)
+        for part in qual.split("."):
+            obj = getattr(obj, part, None)
+        if obj is fn:
+            return (mod, qual)
+    return (qual or type(fn).__qualname__, id(fn))
+
+
 def _agg_identity(agg: Aggregation) -> str:
     """A picklable identity of the resolved aggregation for the checkpoint
-    key; callables carry their qualified name and id (a custom aggregation
-    resumed in another process misses: a fresh run, never a wrong one)."""
+    key, stable across processes for the builtin aggregations."""
     def ident(x):
         if callable(x):
-            return (getattr(x, "__qualname__", repr(x)), id(x))
+            return _callable_identity(x)
         if isinstance(x, (tuple, list)):
             return tuple(ident(v) for v in x)
         if isinstance(x, dict):
@@ -892,7 +907,7 @@ def _scan_ckpt_id(scan) -> str:
     """The resolved scan's identity for the checkpoint key: a custom scan
     sharing a builtin's name misses the builtin's snapshot."""
     op = scan.binary_op
-    op_id = None if op is None else (getattr(op, "__qualname__", repr(op)), id(op))
+    op_id = None if op is None else _callable_identity(op)
     return repr((scan.name, scan.scan, scan.reduction, op_id, scan.identity, scan.mode,
                  scan.preserves_dtype))
 

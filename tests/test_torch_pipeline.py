@@ -23,7 +23,8 @@ import torch
 import flox_tpu
 import flox_tpu_torch
 from flox_tpu_torch import options as popts
-from flox_tpu_torch.pipeline import DispatchThrottle, SlabStager, _SlabPrefetcher, stream_slabs
+from flox_tpu_torch.pipeline import (DispatchThrottle, SlabStager, _SlabPrefetcher,
+                                     prefetch_occupancy, stream_slabs)
 
 
 def _stager(data, codes, *, n, batch_len, lead_shape=(), device="cpu", loader=None):
@@ -92,6 +93,32 @@ class TestSlabPrefetcher:
         pf.close()
         time.sleep(0.1)
         assert not [t for t in threading.enumerate() if "flox-torch-stage" in t.name]
+
+
+    def test_prefetch_occupancy_counts_in_flight(self):
+        """The occupancy gauge is the slabs submitted and not yet taken:
+        ``depth`` while a pass runs (one refilled per slab taken), short of
+        it at the tail, and 0 after a pass ends, is closed, or fails."""
+        assert prefetch_occupancy() == 0
+        pf = _SlabPrefetcher(lambda i: i, range(5), depth=3)
+        seen = [prefetch_occupancy()]
+        for _ in pf:
+            seen.append(prefetch_occupancy())
+        assert seen == [3, 3, 3, 2, 1, 0]
+        assert prefetch_occupancy() == 0
+        pf = _SlabPrefetcher(lambda i: i, range(100), depth=4)
+        assert next(pf) == 0 and prefetch_occupancy() == 4
+        pf.close()
+        assert prefetch_occupancy() == 0
+
+        def stage(i):
+            if i == 2:
+                raise ValueError("bad slab 2")
+            return i
+
+        with pytest.raises(ValueError, match="bad slab 2"):
+            list(_SlabPrefetcher(stage, range(10), depth=2))
+        assert prefetch_occupancy() == 0
 
 
 class TestStreamSlabs:

@@ -14,6 +14,10 @@ and the uninterrupted runs to the reference's streaming results at the
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -66,6 +70,18 @@ def _bits(x):
 
 def _stage_threads():
     return [t for t in threading.enumerate() if "flox-torch-stage" in t.name]
+
+
+def _fresh_python(script):
+    """Run ``script`` in a new interpreter (the port importable) and return
+    the JSON its last line prints."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(flox_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -506,18 +522,69 @@ class TestKillResume:
         assert min(s for s, e in calls if e - s > 1) == 4 * 500
 
     def test_npz_spill_survives_process_death(self, data, tmp_path):
+        """Killed here, resumed in a fresh interpreter from the spill alone:
+        the builtin legs (mean's and var's finalize, the arg legs) key the
+        snapshot by name, so the second process finds it, starts from the
+        dead run's cursor, matches the uninterrupted bits and deletes it."""
         vals, labels = data
-        base, _ = streaming_groupby_reduce(vals, labels, func="nanmean", batch_len=500)
-        with flox_tpu_torch.set_options(stream_checkpoint_every=2,
-                                        stream_checkpoint_path=str(tmp_path)):
-            with faults.inject(kill_at=[4 * 500]):
-                with pytest.raises(faults.StreamKilled):
-                    streaming_groupby_reduce(vals, labels, func="nanmean", batch_len=500)
-            assert len(list(tmp_path.glob("*.npz"))) == 1
-            _SNAPSHOTS.clear()  # "a new process": only the file is left
-            got, _ = streaming_groupby_reduce(vals, labels, func="nanmean", batch_len=500)
-            assert _bits(got) == _bits(base)
-            assert list(tmp_path.glob("*.npz")) == []
+        funcs = ("nanmean", "nanvar", "nanargmax")
+        base = {}
+        for func in funcs:
+            base[func] = _bits(streaming_groupby_reduce(vals, labels, func=func,
+                                                        batch_len=500)[0])
+            with flox_tpu_torch.set_options(stream_checkpoint_every=2,
+                                            stream_checkpoint_path=str(tmp_path / func)):
+                with faults.inject(kill_at=[4 * 500]):
+                    with pytest.raises(faults.StreamKilled):
+                        streaming_groupby_reduce(vals, labels, func=func, batch_len=500)
+            assert len(list((tmp_path / func).glob("*.npz"))) == 1
+        np.savez(tmp_path / "data.npz", vals=vals, labels=labels)
+        script = f"""
+import json, sys
+import numpy as np
+import flox_tpu_torch
+from flox_tpu_torch import profiling
+z = np.load({str(tmp_path / "data.npz")!r})
+out = {{}}
+for func in {funcs!r}:
+    with flox_tpu_torch.set_options(stream_checkpoint_every=2,
+                                    stream_checkpoint_path={str(tmp_path)!r} + "/" + func):
+        with profiling.stream_monitor() as reports:
+            got, _ = flox_tpu_torch.streaming_groupby_reduce(
+                z["vals"], z["labels"], func=func, batch_len=500, device="cpu")
+    np.save({str(tmp_path)!r} + "/" + func + ".npy", got.numpy())
+    out[func] = reports[-1].counters.resumed_at
+print(json.dumps(out))
+"""
+        resumed = _fresh_python(script)
+        for func in funcs:
+            assert resumed[func] == 4, (func, resumed)
+            assert _bits(np.load(tmp_path / f"{func}.npy")) == base[func], func
+            assert list((tmp_path / func).glob("*.npz")) == [], func
+
+    def test_builtin_checkpoint_identities_hold_across_processes(self):
+        """Every builtin aggregation's and scan's checkpoint identity is the
+        same string in a fresh interpreter; a lambda's is not reused."""
+        src = """
+import torch
+from flox_tpu_torch.aggregations import AGGREGATIONS, SCANS, _initialize_aggregation
+from flox_tpu_torch.streaming import _agg_identity, _scan_ckpt_id
+out = {}
+for name in sorted(AGGREGATIONS):
+    kw = {"q": 0.5} if "quantile" in name else {}
+    out[name] = _agg_identity(_initialize_aggregation(name, None, torch.float64, None, 0, kw))
+for name in sorted(SCANS):
+    out["scan:" + name] = _scan_ckpt_id(SCANS[name])
+"""
+        from flox_tpu_torch.aggregations import Scan
+        from flox_tpu_torch.streaming import _scan_ckpt_id
+
+        here = {}
+        exec(src, here)
+        assert _fresh_python(src + "print(__import__('json').dumps(out))") == here["out"]
+        lam = Scan("cumsum", scan="cumsum", reduction="sum", binary_op=lambda a, b: a + b,
+                   identity=0)
+        assert str(id(lam.binary_op)) in _scan_ckpt_id(lam)
 
     def test_spill_round_trips_bfloat16_and_var_triples(self, tmp_path):
         from flox_tpu_torch.multiarray import MultiArray

@@ -294,12 +294,15 @@ class TestStreamingPipeline:
                                            batch_len=1024, device="cpu")
 
     def test_throttle_and_donate_knobs_results_unchanged(self):
+        """The dispatch throttle's depth never changes the bits. (The port's
+        ``stream_donate`` has no effect to test: the carry is always updated
+        in place.)"""
         vals, labels = _data()
-        with flox_tpu_torch.set_options(stream_donate="on"):
-            ref, _ = _port(vals, labels, func="nanmean", batch_len=997)
-        with flox_tpu_torch.set_options(stream_dispatch_depth=1, stream_donate="off"):
-            got, _ = _port(vals, labels, func="nanmean", batch_len=997)
-        assert _bits(got) == _bits(ref)
+        ref, _ = _port(vals, labels, func="nanmean", batch_len=997)
+        for depth in (0, 1, 3):
+            with flox_tpu_torch.set_options(stream_dispatch_depth=depth):
+                got, _ = _port(vals, labels, func="nanmean", batch_len=997)
+            assert _bits(got) == _bits(ref)
 
     def test_stream_monitor_reports_pipeline(self):
         vals, labels = _data()
