@@ -84,12 +84,28 @@ Phases; any failure exits nonzero:
    select, cohorts nansum, the trio by map-reduce and the daily nanmean by
    map-reduce, each with its launches counted from 0 and its peak memory,
    bit for bit against the eager call and both timed (:func:`phase_mesh`);
-   then two spawned gloo ranks sharing the card (NCCL refuses two ranks on
-   one device) on the data cut to 8192 rows, made on the host from the seed
-   by each rank, which moves only its columns to the card: the calls of
-   ``__graft_entry__.dryrun_multichip`` without its streaming ones, each
-   rank's results held against the world of one's on the same cut, with the
-   same launches, under a deadline (:func:`phase_mesh_ranks`);
+   then, in the same world, streaming over the mesh
+   (:func:`phase_mesh_streaming`): the streamed month nanmean, daily nanmean
+   and trio with ``mesh=`` from the host copy, and on the 8192-row cut the
+   nancumsum, the 33-pass nanquantile and the dryrun's sum over a
+   100,000-group universe, each bit for bit its single-device stream with
+   the same launches, the month nanmean timed beside the single-device
+   stream; then two spawned gloo ranks sharing the card (NCCL
+   refuses two ranks on one device) on the data cut to 8192 rows, made on
+   the host from the seed by each rank, which moves only its columns to the
+   card: the calls of ``__graft_entry__.dryrun_multichip`` (its streaming
+   ones with ``mesh=``, each rank staging only its shard of every slab, plus
+   a streamed owner-by-owner nanmean over 100,000 groups), each rank's
+   results held against the world of one's on the same cut, with the same
+   launches, the streamed ones also against the in-memory mesh calls at the
+   dryrun's bars (the scan at the running-sum bar) and the two ranks to each
+   other bit for bit, under a deadline (:func:`phase_mesh_ranks`); then the
+   observability base on the month nanmean (:func:`phase_telemetry`): its
+   time with telemetry off and on, the result bit for bit either way, the
+   span tree, the cost ledger's device time (CUDA events) beside a profile's
+   busy time, the exports and a flight dump read back, the cost card's
+   ``predicted_ms`` equal to the segment-sum kernel's bound, and one
+   ``profiling.trace`` capture;
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls; the
@@ -109,7 +125,9 @@ JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
 
 ``--mesh-cards N`` runs only the build and :func:`phase_mesh_cards`: the
 full-width mesh calls on N NCCL ranks, one card each, against one card's
-eager calls (exact, or within the float32 bars of other summation orders).
+eager calls (exact, or within the float32 bars of other summation orders),
+and the streamed month nanmean over the N cards from a host copy (each rank
+filling and copying only its shard of each slab) against one card's stream.
 Without CUDA it exits nonzero before printing any result.
 """
 
@@ -1823,7 +1841,7 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
     print(f"[stream] {rep.summary()}")
 
     # -- prefetch 0 against 2: wall time, host-to-device rate, overlap -----
-    for depth in (0, 2, 0, 2):
+    for depth in (0, 2):
         with flox_tpu_torch.set_options(stream_prefetch=depth):
             with profiling.stream_monitor() as reps:
                 torch.cuda.synchronize()
@@ -1857,7 +1875,7 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
           "streamed daily nanmean differs from the slab-order fold")
     _check_close("streamed daily nanmean", daily,
                  _f64_reference(data, torch.from_numpy(day).to(DEVICE), NDAYS, "nanmean"))
-    del daily, fold
+    del fold
     trio = ("nanmean", "nanmin", "nanmax")
     got3 = _drive(ck, "streamed aggregate_many(nanmean, nanmin, nanmax)",
                   lambda: pst.streaming_groupby_aggregate_many(host, month, funcs=trio)[0],
@@ -1872,6 +1890,10 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
           "streamed nanmax differs from scatter_reduce amax")
     print("[stream] streamed daily nanmean and trio: bit for bit their slab-order folds, "
           "within the float64 bar, extrema exact")
+    # the single-device results the mesh-streamed calls are held to, bit for
+    # bit (phase_mesh_streaming), and the host copy they stream from
+    out["singles"] = {"month": got, "daily": daily, "trio": got3}
+    out["host"] = host
     del got3, fold, got
     torch.cuda.empty_cache()
 
@@ -1892,6 +1914,7 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
     check(torch.equal(bits(q), bits(eager_q)),
           "streamed nanquantile differs from the eager select path")
     print("[stream] streamed nanquantile: bit for bit the eager select path")
+    out["singles"]["quantile"] = q
     del q, eager_q
 
     written = np.full(cut_host.shape, np.nan, dtype=np.float32)
@@ -1905,6 +1928,7 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
     eager_scan = flox_tpu_torch.groupby_scan(cut, month, func="nancumsum")
     _check_scan_full("streamed nancumsum", torch.from_numpy(written).to(DEVICE), cut, codes,
                      want=eager_scan)
+    out["singles"]["scan"] = written
     del written, eager_scan
     torch.cuda.empty_cache()
 
@@ -1985,9 +2009,92 @@ def phase_streaming(data, month, codes, totals: dict) -> dict:
     return out
 
 
-def phase_mesh_all(data, month, totals: dict, seed: int, reps: int) -> None:
-    """:func:`phase_mesh` and :func:`phase_mesh_ranks` inside a world of one
-    rank, torn down after them."""
+def phase_mesh_streaming(stream: dict, month, totals: dict) -> None:
+    """Streaming over a mesh in the world of one (``mesh=`` on the three
+    ``streaming_groupby_*`` entry points), from the host copy
+    :func:`phase_streaming` made: one shard is the whole slab, so each call
+    must be bit for bit the single-device stream of that phase, with the
+    same launches. At full width the month nanmean (timed at prefetch 2
+    beside the single-device stream), the daily nanmean and the
+    trio; on the SORT_ROWS cut the nancumsum into a host writer, the
+    33-pass nanquantile, and the dryrun's streamed sum over a 100,000-group
+    universe under a 1.1 MB dense ceiling (row 0; the sort engine takes it,
+    as in the reference, and in a world of one the owner-by-owner form never
+    can: it needs more ranks than one)."""
+    import flox_tpu_torch
+    from flox_tpu_torch import cuda_kernels as ck, streaming as pst
+    from flox_tpu_torch.parallel import make_mesh
+
+    host, singles = stream["host"], stream["singles"]
+    mesh = make_mesh(device_type=DEVICE)
+    n = host.shape[1]
+    nslabs = stream["nslabs"]
+    month = np.asarray(month)
+    day = np.arange(n, dtype=np.int64) // 24
+
+    def mesh_stream(name, fn, want, single):
+        got = _drive(ck, f"mesh-streamed {name}", fn, want, totals)
+        check(_same_result(_result(got), single), f"mesh-streamed {name}: differs from the "
+              "single-device stream")
+        print(f"[mesh-stream] {name}: bit for bit the single-device stream")
+        return got
+
+    mesh_stream("nanmean (months)",
+                lambda: pst.streaming_groupby_reduce(host, month, func="nanmean", mesh=mesh),
+                {"segment_sum": nslabs}, singles["month"])
+    rows = []
+    for which in ("mesh", "single"):
+        kw = {"mesh": mesh} if which == "mesh" else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pst.streaming_groupby_reduce(host, month, func="nanmean", **kw)
+        torch.cuda.synchronize()
+        rows.append((which, (time.perf_counter() - t0) * 1e3))
+    for which, ms in rows:
+        print(f"[mesh-stream] nanmean prefetch 2, {which}: {ms!r} ms, "
+              f"{host.nbytes / (ms * 1e-3) / 1e9!r} GB/s of input")
+    mesh_stream("daily nanmean (1096 groups)",
+                lambda: pst.streaming_groupby_reduce(host, day, func="nanmean", mesh=mesh),
+                {"segment_sum_radixbin": nslabs}, singles["daily"])
+    trio = ("nanmean", "nanmin", "nanmax")
+    mesh_stream("aggregate_many(nanmean, nanmin, nanmax)",
+                lambda: pst.streaming_groupby_aggregate_many(host, month, funcs=trio, mesh=mesh),
+                {"segment_multistat": nslabs}, singles["trio"])
+
+    cut_host = host[:SORT_ROWS]
+    cut_slabs = -(-n // _stream_len(SORT_ROWS))
+    written = np.full(cut_host.shape, np.nan, dtype=np.float32)
+
+    def writer(s, e, res):
+        written[:, s:e] = res
+
+    _drive(ck, "mesh-streamed nancumsum (host writer)",
+           lambda: pst.streaming_groupby_scan(cut_host, month, func="nancumsum", out=writer,
+                                              mesh=mesh),
+           {"segment_cumsum": cut_slabs, "segment_sum": cut_slabs}, totals)
+    check(written.tobytes() == singles["scan"].tobytes(),
+          "mesh-streamed nancumsum: differs from the single-device stream")
+    print("[mesh-stream] nancumsum: bit for bit the single-device stream")
+    mesh_stream("nanquantile 3 q (33 passes)",
+                lambda: pst.streaming_groupby_reduce(cut_host, month, func="nanquantile",
+                                                     finalize_kwargs={"q": [0.1, 0.5, 0.9]},
+                                                     mesh=mesh),
+                {"segment_sum": 32 * cut_slabs}, singles["quantile"])
+    universe = {"expected_groups": np.arange(100_000), "fill_value": 0.0, "batch_len": n // 2}
+    with flox_tpu_torch.set_options(dense_intermediate_bytes_max=1_100_000):
+        single = pst.streaming_groupby_reduce(cut_host[0], month, func="sum", **universe)[0]
+        mesh_stream("sum over a 100,000-group universe (row 0, 1.1 MB ceiling)",
+                    lambda: pst.streaming_groupby_reduce(cut_host[0], month, func="sum",
+                                                         mesh=mesh, **universe),
+                    {"segment_sum": 2}, single)
+    del written, single
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_all(data, month, totals: dict, seed: int, reps: int, stream: dict) -> None:
+    """:func:`phase_mesh`, :func:`phase_mesh_streaming` and
+    :func:`phase_mesh_ranks` inside a world of one rank, torn down after
+    them."""
     import shutil
     import tempfile
 
@@ -1999,6 +2106,8 @@ def phase_mesh_all(data, month, totals: dict, seed: int, reps: int) -> None:
     try:
         phase_mesh(data, month, totals, reps)
         torch.cuda.empty_cache()
+        phase_mesh_streaming(stream, month, totals)
+        stream.pop("host")
         phase_mesh_ranks(seed)
     finally:
         dist.destroy_process_group()
@@ -2034,12 +2143,16 @@ def _rms_aggregation():
 
 
 def _rank_calls(cut: np.ndarray, seed: int, mesh, nranks: int) -> list:
-    """The mesh calls of ``__graft_entry__.dryrun_multichip`` without its
-    streaming ones, on the cut: ``(name, call, bar)``, where bar is "exact",
-    "sum" (float32 sums and divisions: 1e-6 + 1e-5 |ref|) or "scan". The
-    blocked call lowers the dense-intermediate ceiling so that its 100,000
-    groups block over ``nranks`` ranks; a world of one runs it dense."""
+    """The mesh calls of ``__graft_entry__.dryrun_multichip`` on the cut:
+    ``(name, call, bar)``, where bar is "exact", "sum" (float32 sums and
+    divisions: 1e-6 + 1e-5 |ref|) or "scan". The blocked calls lower the
+    dense-intermediate ceiling so that their 100,000 groups block over
+    ``nranks`` ranks (the streamed one with the dense engine pinned, so that
+    the sort engine cannot take it); a world of one runs them dense. The
+    streamed calls (slabs of half the axis, as the dryrun's) end the list;
+    :data:`STREAM_BARS` holds them to the in-memory calls."""
     import flox_tpu_torch as ft
+    from flox_tpu_torch import streaming as pst
 
     rows, n = cut.shape
     month = month_labels(n)
@@ -2091,7 +2204,56 @@ def _rank_calls(cut: np.ndarray, seed: int, mesh, nranks: int) -> list:
         ("map-reduce nanmedian (select)", red(cut, month, "nanmedian", "map-reduce"), "exact"),
         ("map-reduce nanquantile q=(0.1, 0.5, 0.9) (select)",
          red(cut, month, "nanquantile", "map-reduce", finalize_kwargs=qs), "exact"),
+        ("streamed nanmean", lambda: pst.streaming_groupby_reduce(
+            cut, month, func="nanmean", batch_len=n // 2, mesh=mesh), "sum"),
+        ("streamed sum over a 100,000-group universe (row 0, 1.1 MB ceiling)",
+         with_options(lambda: pst.streaming_groupby_reduce(
+             cut[0], month, func="sum", expected_groups=np.arange(100_000), fill_value=0.0,
+             batch_len=n // 2, mesh=mesh), dense_intermediate_bytes_max=1_100_000), "sum"),
+        ("streamed blocked nanmean, 100,000 groups (256 rows, dense engine)",
+         with_options(lambda: pst.streaming_groupby_reduce(
+             few, wide, func="nanmean", expected_groups=np.arange(100_000), engine="torch",
+             batch_len=n // 2, mesh=mesh),
+             **({"dense_intermediate_bytes_max": ceiling} if ceiling else {})), "sum"),
+        ("streamed nanmedian (1024 rows)", lambda: pst.streaming_groupby_reduce(
+            cut[:1024], month, func="nanmedian", batch_len=n // 2, mesh=mesh), "exact"),
+        ("streamed nancumsum (1024 rows)", lambda: pst.streaming_groupby_scan(
+            cut[:1024], month, func="nancumsum", batch_len=n // 2, mesh=mesh), "scan"),
     ]
+
+
+#: the dryrun's bars of the streamed calls against the in-memory mesh calls:
+#: (streamed call, in-memory call, its rows, rtol, atol). The scan's bar is
+#: the repo's running-sum bar (``n_g u cumsum|x|`` plus one ulp, None here):
+#: the dryrun holds its 96-value row to rtol 1e-5, which does not bound
+#: float32 running sums of 2192 values a group added in another order
+STREAM_BARS = [
+    ("streamed nanmean", "map-reduce nanmean", slice(None), 1e-5, 1e-6),
+    ("streamed blocked nanmean, 100,000 groups (256 rows, dense engine)",
+     "blocked nanmean, 100,000 groups (256 rows)", slice(None), 1e-5, 1e-6),
+    ("streamed nanmedian (1024 rows)", "map-reduce nanmedian (select)", slice(0, 1024), 1e-6,
+     1e-6),
+    ("streamed nancumsum (1024 rows)", "Blelloch cumsum", slice(0, 1024), None, None),
+]
+
+
+def _stream_bars(got: dict, cut: np.ndarray) -> list:
+    """The dryrun's bars on one rank's results (``{name: (host result, ...)}``):
+    each streamed call against its in-memory mesh call; log lines."""
+    lines = []
+    for name, ref_name, rows, rtol, atol in STREAM_BARS:
+        res, ref = got[name][0], got[ref_name][0][rows]
+        check(res.shape == ref.shape, f"{name}: shape {res.shape}, {ref_name} {ref.shape}")
+        if rtol is None:
+            lines.append(_agree(f"{name} against {ref_name}", "scan", res, ref, cut[rows]))
+            continue
+        err = np.abs(res.astype(np.float64) - ref.astype(np.float64))
+        ok = np.array_equal(np.isnan(res), np.isnan(ref)) and bool(
+            (np.where(np.isnan(ref), 0.0, err) <= atol + rtol * np.abs(np.nan_to_num(ref))).all())
+        check(ok, f"{name}: off {ref_name} by {np.nanmax(err)!r}, past rtol {rtol} atol {atol}")
+        lines.append(f"{name} against {ref_name}: max |err| {np.nanmax(err)!r} within rtol "
+                     f"{rtol} atol {atol}")
+    return lines
 
 
 def _to_host(out):
@@ -2130,6 +2292,7 @@ def _agree(name: str, bar: str, got, want, cut) -> str:
     if bar == "sum":
         tol = 1e-6 + 1e-5 * np.abs(np.nan_to_num(w))
     else:  # scan: n_g u cumsum|x| of each group, plus one ulp
+        cut = cut[:g.shape[0]]  # a call may scan the first rows only
         codes = month_labels(cut.shape[-1])
         scale = np.zeros_like(g)
         for grp in range(NGROUPS):
@@ -2139,6 +2302,13 @@ def _agree(name: str, bar: str, got, want, cut) -> str:
         tol = scale + np.abs(w) * 2.0**-23
     check(bool((err <= tol).all()), f"{name}: max err {err.max()!r} past its bar")
     return f"{name}: max |err| {err.max()!r} within the {bar} bar"
+
+
+def _digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return f"{a.dtype}{a.shape}:" + hashlib.blake2b(np.ascontiguousarray(a).tobytes(),
+                                                    digest_size=16).hexdigest()
 
 
 def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str, seed: int, rows: int,
@@ -2175,6 +2345,10 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str, seed: int, r
                   f"{name}: launches {launches}, the world of one's {one[name][1]}")
             line = _agree(name, bar, res, one[name][0], cut)
             report["lines"].append(f"{line}; launches {launches}; {ms!r} ms")
+        report["lines"] += _stream_bars(got, cut)
+        # digests of the streamed results, for the parent to hold the ranks
+        # to each other
+        report["digests"] = {name: _digest(got[name][0]) for name, *_ in STREAM_BARS}
         dist.destroy_process_group()
         report["ok"] = True
     except Exception:  # noqa: BLE001 - the parent fails the phase with it
@@ -2200,10 +2374,12 @@ def phase_mesh_ranks(seed: int, rows: int = MESH_ROWS) -> None:
 
     cut = make_cut(seed, rows, NTIME)
     one = _run_rank_calls(ck, cut, seed, make_mesh(device_type=DEVICE), 1)
-    del cut
-    torch.cuda.empty_cache()
     for name, (_res, launches, ms) in one.items():
         print(f"[ranks] world of one, {name}: launches {launches}, {ms!r} ms")
+    for line in _stream_bars(one, cut):
+        print(f"[ranks] world of one, {line}")
+    del cut
+    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     try:
         with open(os.path.join(tmp, "one.pkl"), "wb") as f:
@@ -2224,6 +2400,7 @@ def phase_mesh_ranks(seed: int, rows: int = MESH_ROWS) -> None:
                 p.kill()
             p.join(30)
         check(not hung, f"ranks {hung} missed the {MESH_DEADLINE_S} s deadline")
+        digests = []
         for r, p in enumerate(procs):
             path = os.path.join(tmp, f"rank{r}.json")
             check(os.path.exists(path), f"rank {r} exited with code {p.exitcode} and no report")
@@ -2232,6 +2409,10 @@ def phase_mesh_ranks(seed: int, rows: int = MESH_ROWS) -> None:
             check(report["ok"], f"rank {r} failed:\n{report.get('error')}")
             for line in report["lines"]:
                 print(f"[ranks] rank {r}: {line}")
+            digests.append(report["digests"])
+        check(digests[0] == digests[1], f"the two ranks' streamed results differ: {digests}")
+        print("[ranks] the streamed calls: both ranks hold the same result, bit for bit "
+              "(blake2b of the bytes)")
         print(f"[ranks] two gloo ranks on one card, {rows} rows: every call agrees with the "
               f"world of one ({time.perf_counter() - t0:.1f} s from spawn to exit)")
     finally:
@@ -2355,6 +2536,7 @@ def _mesh_card(rank: int, world: int, init_file: str, out_dir: str, seed: int, r
                 del got
                 torch.cuda.empty_cache()
             report["lines"].append(line)
+        report["stream"] = _card_stream(data, month, mesh, rank, world, reps, once)
         report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
         dist.destroy_process_group()
         report["ok"] = True
@@ -2362,6 +2544,53 @@ def _mesh_card(rank: int, world: int, init_file: str, out_dir: str, seed: int, r
         report["error"] = traceback.format_exc()
     with open(os.path.join(out_dir, f"card{rank}.json"), "w") as f:
         json.dump(report, f)
+
+
+def _card_stream(data, month, mesh, rank: int, world: int, reps: int, once) -> str:
+    """The streamed month nanmean over the cards, from a host copy of the
+    data: each rank fills and copies only its shard of each slab. Its wall
+    time (a synchronize at the end; the median of ``reps`` after the checked
+    first call), GB/s of input, the rank's own fill rate (its shard's bytes
+    over its slabs' load time) and its launches; rank 0 also streams on its
+    card alone and holds the two results to each other ("mean" bar)."""
+    from flox_tpu_torch import cuda_kernels as ck, profiling, streaming as pst
+
+    host = data.cpu().numpy()
+
+    def wall_ms(fn):
+        if data.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if data.is_cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def meshed():
+        return pst.streaming_groupby_reduce(host, month, func="nanmean", mesh=mesh)[0]
+
+    ck.reset_launches()
+    with profiling.stream_monitor() as reports:
+        got, _ = wall_ms(meshed)
+    launches = {kk: v for kk, v in ck.LAUNCHES.items() if v}
+    times = [wall_ms(meshed)[1] for _ in range(max(1, reps // 2))]
+    ms = statistics.median(times)
+    fill = reports[0].nbytes / (reports[0].load_ms * 1e-3) / 1e9 if reports[0].load_ms else 0.0
+    line = (f"streamed nanmean over {world} cards: {ms!r} ms ({host.nbytes / (ms * 1e-3) / 1e9!r} "
+            f"GB/s of input; runs {times}), rank {rank} staged {reports[0].nbytes / 1e9:.3f} GB "
+            f"filling at {fill!r} GB/s (load {reports[0].load_ms!r} ms, wait "
+            f"{reports[0].wait_ms!r} ms), launches {launches}")
+    if rank == 0:
+        def alone():
+            return pst.streaming_groupby_reduce(host, month, func="nanmean", device=DEVICE)[0]
+
+        single, one_ms = wall_ms(alone)
+        one_ms = statistics.median([one_ms] + [wall_ms(alone)[1]
+                                               for _ in range(max(1, reps // 2))])
+        line += (f"; one card {one_ms!r} ms ({host.nbytes / (one_ms * 1e-3) / 1e9!r} GB/s); "
+                 + _agree_card("streamed nanmean", "mean", got, single, data, month))
+    del host, got
+    return line
 
 
 def phase_mesh_cards(seed: int, ncards: int, reps: int, device: str = "cuda") -> None:
@@ -2404,11 +2633,138 @@ def phase_mesh_cards(seed: int, ncards: int, reps: int, device: str = "cuda") ->
             if r == 0:
                 for line in report["lines"]:
                     print(f"[cards] {line}")
+            print(f"[cards] rank {r}: {report['stream']}")
             print(f"[cards] rank {r}: peak device memory {report['peak_gb']:.2f} GB")
         print(f"[cards] {ncards} NCCL ranks, one card each: every call agrees with one card "
               f"({time.perf_counter() - t0:.1f} s from spawn to exit)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3, last: the observability base on the main path
+# ---------------------------------------------------------------------------
+
+
+def _span_tree(records: list) -> list:
+    """The span records of one call as indented lines, parents first."""
+    spans = [r for r in records if r["type"] == "span"]
+    kids: dict = {}
+    for r in spans:
+        kids.setdefault(r["parent"], []).append(r)
+    lines = []
+
+    def walk(parent, depth):
+        for r in sorted(kids.get(parent, []), key=lambda r: r["ts_us"]):
+            attrs = ", ".join(f"{k}={v}" for k, v in sorted(r["attrs"].items()))
+            lines.append(f"{'  ' * depth}{r['name']} {r['dur_us'] / 1e3:.3f} ms ({attrs})")
+            walk(r["id"], depth + 1)
+
+    walk(None, 0)
+    return lines
+
+
+def phase_telemetry(data, month, totals: dict, reps: int) -> None:
+    """The month nanmean under the observability base (``telemetry``,
+    ``costmodel``, ``profiling``) at full width: the untraced time with
+    telemetry off and on; the result with telemetry and cost cards on bit for
+    bit the result with them off, with the same launch; the span tree of one
+    call; the ledger's device time of the dispatch (CUDA events, read
+    lazily) beside a profile's busy time of the same call; the Chrome-trace
+    and JSON-lines exports parsed back and a flight dump read back; the
+    cost card's ``predicted_ms`` against the segment-sum kernel's bound from
+    the same bytes, and its drift ratio; one ``profiling.trace`` capture
+    into a temporary directory."""
+    import shutil
+    import tempfile
+
+    import flox_tpu_torch
+    from flox_tpu_torch import costmodel, cuda_kernels as ck, profiling, telemetry
+
+    k, n = data.shape
+
+    def call():
+        return flox_tpu_torch.groupby_reduce(data, month, func="nanmean")[0]
+
+    telemetry.reset()
+    off = _drive(ck, "nanmean, telemetry off", call, {"segment_sum": 1}, totals)
+    off_ms = time_ms(call, reps)
+    with flox_tpu_torch.set_options(telemetry=True, costmodel=True):
+        telemetry.reset()
+        on = _drive(ck, "nanmean, telemetry and cost cards on", call, {"segment_sum": 1}, totals)
+        records = telemetry.spans()
+        row = telemetry.cost_by_program()["bundle[nanmean]"]
+        card = costmodel.card_for("bundle[nanmean]")
+        report = costmodel.program_report()["programs"]["bundle[nanmean]"]
+        on_ms = time_ms(call, reps)
+    check(torch.equal(bits(on), bits(off)), "telemetry on: the result differs from off")
+    print(f"[telemetry] nanmean untraced: telemetry off {off_ms!r} ms, on {on_ms!r} ms (CUDA "
+          f"events, median of {reps}); on is bit for bit off, with the same launch")
+    for line in _span_tree(records):
+        print(f"[telemetry] span {line}")
+    names = {r["name"] for r in records}
+    check({"groupby_reduce", "factorize", "dispatch", "combine", "finalize"} <= names,
+          f"telemetry: spans {sorted(names)}")
+    check(row["dispatches"] == 1 and row["device_ms"] > 0, f"telemetry: ledger {row}")
+    prof = device_breakdown({"nanmean (months), telemetry off": call}, reps=1)
+    wall, busy, ours = prof.get("nanmean (months), telemetry off", (None, None, None))
+    print(f"[telemetry] ledger device_ms of the dispatch {row['device_ms']!r} ms (CUDA events "
+          f"around its launches, read when the ledger was read); the profile's busy time of "
+          f"one call {busy!r} ms ({ours!r} in B1), traced wall {wall!r} ms")
+
+    # the cost card: the segment-sum kernel's declared bytes, as PERF.md's
+    # B1 bound counts them
+    want_bytes = k * n * 4 + n * 4 + 4 * NGROUPS * k * 4
+    check(card is not None and card["analysis"] == "ok", f"cost card: {card}")
+    check(card["bytes_accessed"] == want_bytes
+          and card["kernels"]["segment_sum"]["launches"] == 1,
+          f"cost card bytes {card['bytes_accessed']}, the kernel's bound bytes {want_bytes}")
+    bound_ms = max(want_bytes / HBM_BYTES_PER_S, 2 * k * n / F32_FLOPS) * 1e3
+    check(abs(card["predicted_ms"] - bound_ms) < 1e-5,
+          f"cost card predicted_ms {card['predicted_ms']}, the bound {bound_ms}")
+    print(f"[telemetry] cost card bundle[nanmean] on {card['device']} ({card['power_limit']}): "
+          f"predicted_ms {card['predicted_ms']!r} from {card['bytes_accessed']:.0f} bytes "
+          f"(the kernel's bound {bound_ms!r} ms); observed "
+          f"{report['observed_ms_per_dispatch']!r} ms a dispatch, utilization "
+          f"{report['utilization']!r}, drift ratio {report['drift_ratio']!r} (against the "
+          f"model floored at {report['model_ms']!r} ms)")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        chrome, jsonl = os.path.join(tmp, "trace.json"), os.path.join(tmp, "trace.jsonl")
+        with flox_tpu_torch.set_options(telemetry=True,
+                                        flight_recorder_path=os.path.join(tmp, "flight.jsonl")):
+            telemetry.export_chrome_trace(chrome, records)
+            telemetry.export_jsonl(jsonl, records)
+            dump = telemetry.flight_dump(reason="chip_smoke")
+        for path in (chrome, jsonl):
+            parsed, counters, _ = telemetry._parse_export(path)
+            check({r["name"] for r in parsed} >= {"groupby_reduce", "dispatch"}
+                  and counters.get("costmodel.cards_recorded") == 1,
+                  f"export {path}: {len(parsed)} records, counters {counters}")
+        check(dump is not None, "flight dump: not written")
+        with open(dump) as f:
+            header = json.loads(f.readline())
+        check(header["name"] == "flight-recorder" and header["attrs"]["records"] > 0,
+              f"flight dump: {header}")
+        print(f"[telemetry] Chrome trace, JSON lines and a flight dump "
+              f"({header['attrs']['records']} records) written and read back")
+        with profiling.trace(tmp):
+            call()
+            torch.cuda.synchronize()
+        (trace_file,) = [f for f in os.listdir(tmp) if f.startswith("trace-")]
+        with open(os.path.join(tmp, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if any(kk in str(e.get("name", "")) for kk in _OUR_KERNELS)]
+        check(bool(kernels) or DEVICE != "cuda",
+              "profiling.trace: the capture holds no kernel of this repo")
+        print(f"[telemetry] profiling.trace: {len(events)} events, {len(kernels)} of this repo's "
+              "kernels among them")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        telemetry.reset()
+    del on, off
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2628,10 +2984,12 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
     1 - busy / wall. Where the other device ops take more than 1 ms a call,
     the three that take most, by kernel name. Tracing adds a few
     microseconds per launch to the wall time. Prints "not measured" when the
-    trace holds no device time."""
+    trace holds no device time. Returns ``{name: (wall ms, busy ms, ms in this
+    repo's kernels)}`` of the calls it measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    measured = {}
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
@@ -2651,6 +3009,7 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
         mine = [e for e in events if any(k in e.name for k in _OUR_KERNELS)]
         busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
         ours = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / reps
+        measured[name] = (wall, busy, ours)
         print(f"[profile] {name}: wall {wall!r} ms a call (host clock, traced), device busy "
               f"{busy!r} ms ({ours!r} in this repo's kernels, {busy - ours!r} in "
               f"{(len(events) - len(mine)) // reps} other device ops), idle share "
@@ -2665,6 +3024,7 @@ def device_breakdown(calls: dict, reps: int = 3) -> None:
             print(f"[profile]   {name}, other ops taking most: " + "; ".join(
                 f"{us / 1e3 / reps:.3f} ms {op[:70]}" for op, us in top))
         torch.cuda.empty_cache()
+    return measured
 
 
 def pattern_times(data, reps: int) -> dict:
@@ -2872,11 +3232,25 @@ def main() -> int:
             capture_output=True, text=True, check=True, timeout=60).stdout.strip())
         print(f"[total] {time.perf_counter() - t0:.1f} s")
         return 0
+    marks = [("build", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+        print(f"[phase] {name}: {marks[-1][1] - marks[-2][1]:.1f} s")
+
     phase_kernels(args.seed)
+    mark("kernels")
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
-    phase_streaming(data, month, codes, launches)
-    phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2))
+    mark("main path")
+    stream = phase_streaming(data, month, codes, launches)
+    mark("streaming")
+    phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2), stream)
+    del stream
+    mark("mesh, mesh streaming and two ranks")
+    phase_telemetry(data, month, launches, args.reps)
+    mark("telemetry")
     entries = phase_times(data, month, codes, args.reps, launches, args.seed)
+    mark("times")
     print(f"[memory] peak device memory "
           f"{max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9:.2f} GB")
     for e in entries:

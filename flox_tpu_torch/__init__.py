@@ -2,8 +2,9 @@
 multi-statistic fusion, grouped scans, high-cardinality (sort) engine, label
 layers, xarray adapter, multi-device runtime (``parallel``: ``method=``
 and ``mesh=`` over ``torch.distributed``) and single-device streaming of host
-arrays larger than the card (``streaming_groupby_*``, with ``pipeline``,
-``resilience``, ``faults`` and ``profiling``).
+arrays larger than the card, alone or over a mesh (``streaming_groupby_*``,
+with ``pipeline``, ``resilience``, ``faults`` and ``profiling``), and the
+observability base (``telemetry``, ``costmodel``, ``metric_names``).
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and
@@ -17,7 +18,7 @@ flox_tpu, and imports without pandas.
 tensor([1.5000, 4.0000], dtype=torch.float64)
 """
 
-from . import cohorts, faults, kernels, profiling, resilience, xrlite
+from . import cohorts, faults, kernels, profiling, resilience, telemetry, xrlite
 from .aggregations import Aggregation, Scan, is_supported_aggregation
 from .core import groupby_reduce
 from .device import codes_device, groupby_reduce_device
@@ -66,6 +67,7 @@ __all__ = [
     "streaming_groupby_aggregate_many",
     "streaming_groupby_reduce",
     "streaming_groupby_scan",
+    "telemetry",
     "xarray_reduce",
     "xrlite",
 ]

@@ -29,6 +29,13 @@ labels are normalized and factorized on the host as above, the data stays
 where it is (a numpy array on the host) until each rank moves its own columns
 to its device, and the result comes back replicated on every rank. Without
 ``method=`` the method is chosen by cohort detection on the global codes.
+
+Telemetry (:mod:`.telemetry`, off by default) sees the reference's spans:
+``groupby_reduce`` over ``factorize``, ``dispatch``, ``combine`` and
+``finalize`` (on a mesh, ``combine`` over the mesh program's
+``program-build``); the kernels of a dispatch are billed to the cost ledger
+under ``bundle[<funcs>]`` (``sort[<funcs>]`` on the sort engine) with their
+device time and cost card.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from . import dtypes, factorize as fct, kernels, utils
+from . import dtypes, factorize as fct, kernels, telemetry, utils
 from .aggregations import (Aggregation, _initialize_aggregation, generic_aggregate,
                            set_nat_final_fill)
 from .options import OPTIONS
@@ -339,10 +346,23 @@ def _route_highcard(engine: str, codes_flat: np.ndarray | None, arr_flat: torch.
                 "set_options(dense_intermediate_bytes_max=...) if the device really has "
                 "the headroom."
             )
+        if engine == "torch":
+            telemetry.count("highcard.ceiling_routes")
         return "sort"
     if engine == "sort":
         return "sort"
     return "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "torch"
+
+
+def _note_highcard(size: int, ncap: int, n_present: int) -> None:
+    """The present-groups engine's accounting as telemetry gauges: the
+    compact capacity accumulated over against the dense universe."""
+    telemetry.count("highcard.sort_dispatches")
+    if not telemetry.enabled():
+        return
+    telemetry.METRICS.set_gauge("highcard.acc_groups", float(ncap))
+    telemetry.METRICS.set_gauge("highcard.present_groups", float(n_present))
+    telemetry.METRICS.set_gauge("highcard.dense_groups_avoided", float(max(0, size - ncap)))
 
 
 def _redevice_scattered(result, device: torch.device):
@@ -374,12 +394,15 @@ def chunk_reduce(
     dtypes_: Sequence[Any],
     engine: str = "torch",
     kwargss: Sequence[dict] | None = None,
+    prog_family: str = "bundle",
 ) -> list:
     """Run a bundle of grouped reductions over the trailing axis.
 
     ``array`` (..., N); ``codes`` (N,) with -1 for missing. Returns one
     (..., size) result per func. Repeated (func, fill, dtype, kwargs) entries
     are computed once and fanned out (parity: the reference's dedup).
+    ``prog_family`` names the bundle's cost-ledger and cost-card label,
+    ``<prog_family>[<func>+...]``.
     """
     if kwargss is None:
         kwargss = [{}] * len(funcs)
@@ -397,13 +420,37 @@ def chunk_reduce(
             seen[key] = len(plan)
             plan.append((func, fv, dt, kw))
         positions.append(seen[key])
-    results = [
-        generic_aggregate(
-            codes, array, engine=engine, func=f, size=size, fill_value=fv, dtype=dt, **kw
-        )
-        for f, fv, dt, kw in plan
-    ]
+
+    def run():
+        return [
+            generic_aggregate(
+                codes, array, engine=engine, func=f, size=size, fill_value=fv, dtype=dt, **kw
+            )
+            for f, fv, dt, kw in plan
+        ]
+
+    if engine == "numpy" or not telemetry.enabled():
+        with telemetry.span("dispatch", engine=engine, nkernels=len(plan), size=size):
+            results = run()
+        return [results[i] for i in positions]
+    from . import costmodel, faults
+
+    prog = prog_family + "[" + "+".join(str(p[0]) for p in plan) + "]"
+    with telemetry.span("dispatch", engine=engine, nkernels=len(plan), size=size,
+                        funcs=[p[0] for p in plan if isinstance(p[0], str)]):
+        with telemetry.device_timer(array.device) as timer, costmodel.capture() as cap:
+            if faults.dispatch_delay_active():
+                faults.dispatch_delay_poke(prog)  # the drift sentinel's injected slowdown
+            results = run()
+    telemetry.sample_hbm(program=prog)
+    costmodel.ensure_card(prog, cap, array.device)
+    telemetry.observe_cost(prog, timer=timer, nbytes=_nbytes(array) + _nbytes(codes))
     return [results[i] for i in positions]
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else int(
+        getattr(x, "nbytes", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +511,22 @@ def groupby_reduce(
     >>> groups
     array([0, 1])
     """
+    with telemetry.span(
+        "groupby_reduce", func=func if isinstance(func, str) else getattr(func, "name", "custom"),
+        method=method,
+    ):
+        return _groupby_reduce_impl(
+            array, *by, func=func, expected_groups=expected_groups, sort=sort, isbin=isbin,
+            axis=axis, fill_value=fill_value, dtype=dtype, min_count=min_count, method=method,
+            engine=engine, reindex=reindex, finalize_kwargs=finalize_kwargs, mesh=mesh,
+            axis_name=axis_name, device=device,
+        )
+
+
+def _groupby_reduce_impl(array, *by, func, expected_groups, sort, isbin, axis, fill_value, dtype,
+                         min_count, method, engine, reindex, finalize_kwargs, mesh, axis_name,
+                         device) -> tuple:
+    """The :func:`groupby_reduce` body, under its root span."""
     if not by:
         raise TypeError("Must pass at least one `by`")
     if method not in (None, "map-reduce", "blockwise", "cohorts"):
@@ -549,9 +612,12 @@ def groupby_reduce(
     keep_by_shape = tuple(bys[0].shape[:n_keep])
 
     # -- factorize (host) --------------------------------------------------
-    codes, found_groups, grp_shape, ngroups, size, _props = fct.factorize_cached(
-        tuple(bys), axes=tuple(range(n_keep, bndim)), expected_groups=expected_idx, sort=sort
-    )
+    with telemetry.span("factorize", nby=nby) as fsp:
+        codes, found_groups, grp_shape, ngroups, size, _props = fct.factorize_cached(
+            tuple(bys), axes=tuple(range(n_keep, bndim)), expected_groups=expected_idx,
+            sort=sort
+        )
+        fsp.set(ngroups=ngroups, size=size)
     if ngroups == 0 or size == 0:
         raise ValueError("No groups to reduce over (empty expected_groups?)")
 
@@ -595,9 +661,10 @@ def groupby_reduce(
         # device accumulators track the groups present, not the universe
         present = kernels.present_groups(codes_host, size)
         ncap = kernels.present_cap(len(present), size)
+        _note_highcard(size, ncap, len(present))
         ccodes = torch.as_tensor(kernels.compact_codes(codes_host, present), device=dev)
         result_c = _reduce_blockwise(arr_flat, ccodes, agg, size=ncap, engine="torch",
-                                     datetime_dtype=datetime_dtype)
+                                     datetime_dtype=datetime_dtype, prog_family="sort")
         result = _redevice_scattered(kernels.scatter_present_dense(result_c, present, size), dev)
     else:
         codes_flat = torch.as_tensor(codes_host, device=work)
@@ -633,14 +700,21 @@ def _mesh_reduce(arr_flat, codes_flat, agg: Aggregation, *, size: int, method, e
         if len(present) < size:
             codes_run = kernels.compact_codes(host, present)
             size_run = kernels.present_cap(len(present), size)
+            _note_highcard(size, size_run, len(present))
         else:
             present = None
-    result = sharded_groupby_reduce(arr_flat, codes_run, agg, size=size_run, mesh=mesh,
-                                    axis_name=axis_name, method=method,
-                                    nat=datetime_dtype is not None)
-    result = _astype_final(result, agg, datetime_dtype)
-    if present is not None:
-        result = _redevice_scattered(kernels.scatter_present_dense(result, present, size), dev)
+    # "combine" is the whole mesh program: the shard-local stage, the
+    # collective combine and the finalize (its program-build span is in
+    # parallel/mapreduce.py)
+    with telemetry.span("combine", method=method, size=size_run):
+        result = sharded_groupby_reduce(arr_flat, codes_run, agg, size=size_run, mesh=mesh,
+                                        axis_name=axis_name, method=method,
+                                        nat=datetime_dtype is not None)
+    with telemetry.span("finalize"):
+        result = _astype_final(result, agg, datetime_dtype)
+        if present is not None:
+            result = _redevice_scattered(kernels.scatter_present_dense(result, present, size),
+                                         dev)
     return result
 
 
@@ -832,7 +906,7 @@ def _reduce_non_numeric(arr: np.ndarray, bys, func: str, *, fill_value, **passth
 
 
 def _reduce_blockwise(arr_flat, codes_flat, agg: Aggregation, *, size: int, engine: str,
-                      datetime_dtype=None):
+                      datetime_dtype=None, prog_family: str = "bundle"):
     """Single-pass eager reduction + finalize. With ``datetime_dtype`` the
     kernels take ``nat=True`` (INT64_MIN is a missing marker, not a value)
     and the result comes back as a numpy array of that dtype."""
@@ -864,16 +938,19 @@ def _reduce_blockwise(arr_flat, codes_flat, agg: Aggregation, *, size: int, engi
 
     results = chunk_reduce(
         arr_flat, codes_flat, funcs=numpy_funcs, size=size, fill_values=fills,
-        dtypes_=kdtypes, engine=engine, kwargss=kwargss,
+        dtypes_=kdtypes, engine=engine, kwargss=kwargss, prog_family=prog_family,
     )
-    counts = results.pop() if agg.min_count > 0 else None
-    if agg.finalize is not None and len(agg.numpy) > 1:
-        result = agg.finalize(*results, **agg.finalize_kwargs)
-    else:
-        result = results[0]
-    if counts is not None:
-        result = _where(counts < agg.min_count, agg.final_fill_value, result)
-    return _astype_final(result, agg, datetime_dtype)
+    # "combine" eagerly: the per-kernel intermediates folded into one result
+    with telemetry.span("combine", nresults=len(results)):
+        counts = results.pop() if agg.min_count > 0 else None
+        if agg.finalize is not None and len(agg.numpy) > 1:
+            result = agg.finalize(*results, **agg.finalize_kwargs)
+        else:
+            result = results[0]
+        if counts is not None:
+            result = _where(counts < agg.min_count, agg.final_fill_value, result)
+    with telemetry.span("finalize"):
+        return _astype_final(result, agg, datetime_dtype)
 
 
 def _where(cond, fill, x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,10 @@ sum, multi-statistic and segment-min/max kernels share theirs
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU. For
 a CUDA tensor it launches the kernel or raises; there is no fallback. Each
 launch adds one to :data:`LAUNCHES`, so a run can show that it went through
-the kernels.
+the kernels. Each wrapper also declares the work of its call to the cost
+cards (``costmodel.note_launch``): the bytes it must move, each input read
+once and each output written once, and its operations, the counts of the
+bound column of PERF.md's kernel table.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import ctypes
 import torch
 
 from . import _build
+from .costmodel import note_launch
 from .options import OPTIONS, VALID_ACCUMS
 
 __all__ = [
@@ -78,6 +82,15 @@ _MAX_BINNED_COLS = 2**31 - 33
 _ROWS_PER_BLOCK = 256
 _STAGE_COLS = 32
 _BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 2, torch.int32: 3}
+
+
+def _declare(name: str, data: torch.Tensor, out_bytes: int, ops_per_elem: int) -> None:
+    """Declare one call's work to the cost cards: the (K, N) data and the
+    (N,) int32 codes read once, ``out_bytes`` written, ``ops_per_elem``
+    operations an element. A call with nothing to read launches nothing."""
+    if data.numel():
+        note_launch(name, data.numel() * data.element_size() + data.shape[-1] * 4 + out_bytes,
+                    ops_per_elem * data.numel())
 
 
 def reset_launches() -> None:
@@ -170,6 +183,7 @@ def segment_sum_raw(data: torch.Tensor, codes: torch.Tensor, size: int, accum: s
     if accum not in VALID_ACCUMS:
         raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
     _check_args(data, codes, size, _SUM_DTYPES, "segment_sum", max_cols=_MAX_BINNED_COLS)
+    _declare("segment_sum", data, 4 * int(size) * data.shape[0] * 4, 2)
     if data.device.type == "cpu":
         return segment_sum_raw_plain(data, codes, size, accum)
     return _segment_reduce_cuda("segment_sum", data, codes, int(size), accum)
@@ -286,6 +300,7 @@ def segment_sum_radixbin_raw(data: torch.Tensor, codes: torch.Tensor, size: int,
         raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
     _check_args(data, codes, size, _SUM_DTYPES, "segment_sum_radixbin",
                 max_groups=_RADIXBIN_MAX_GROUPS, max_cols=_MAX_BINNED_COLS)
+    _declare("segment_sum_radixbin", data, 4 * int(size) * data.shape[0] * 4, 2)
     if data.device.type == "cpu":
         return segment_sum_radixbin_plain(data, codes, size, accum)
     return _segment_sum_radixbin_cuda(data, codes, int(size), accum)
@@ -365,6 +380,7 @@ def segment_minmax(data: torch.Tensor, codes: torch.Tensor, size: int, op: str):
     if op not in _OP_CODES:
         raise ValueError(f"op must be 'min' or 'max'; got {op!r}")
     _check_args(data, codes, size, _MINMAX_DTYPES, "segment_minmax", max_cols=_MAX_BINNED_COLS)
+    _declare("segment_minmax", data, int(size) * data.shape[0] * data.element_size(), 1)
     if data.device.type == "cpu":
         return segment_minmax_plain(data, codes, size, op)
     return _segment_reduce_cuda("segment_minmax", data, codes, int(size), op)[0]
@@ -401,6 +417,8 @@ def segment_multistat(data: torch.Tensor, codes: torch.Tensor, size: int,
     if accum not in VALID_ACCUMS:
         raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
     _check_args(data, codes, size, _SUM_DTYPES, "segment_multistat", max_cols=_MAX_BINNED_COLS)
+    _declare("segment_multistat", data,
+             int(size) * data.shape[0] * (4 * 4 + 2 * data.element_size()), 4)
     if data.device.type == "cpu":
         return segment_multistat_plain(data, codes, size, accum)
     return _segment_reduce_cuda("segment_multistat", data, codes, int(size), accum)
@@ -439,6 +457,7 @@ def segment_cumsum(data: torch.Tensor, codes: torch.Tensor, size: int, skipna: b
         raise ValueError(
             f"segment_cumsum: size + 1 must be at most {_MAX_GROUPS}; got size={size}"
         )
+    _declare("segment_cumsum", data, data.numel() * data.element_size(), 1)
     if data.device.type == "cpu":
         return segment_cumsum_plain(data, codes, size, skipna)
     return _segment_cumsum_cuda(data, codes, int(size), bool(skipna))

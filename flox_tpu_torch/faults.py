@@ -14,14 +14,18 @@ inject them where the resilience layer must handle them:
   (:func:`poke`): :class:`SimulatedOOM` at chosen slab starts (the halving
   ladder) and :class:`StreamKilled` at a chosen start or after a chosen
   number of dispatches (checkpoint and resume);
-* :func:`misshaping_loader` breaks the loader's shape contract at one slab.
+* :func:`misshaping_loader` breaks the loader's shape contract at one slab;
+* :func:`dispatch_delay_inject` slows the dispatches of chosen program
+  labels (``core.chunk_reduce`` consults :func:`dispatch_delay_poke`), so
+  that their observed device time really diverges from the cost card's
+  model (the drift sentinel's tests).
 
 Everything is index-deterministic: the same plan against the same stream
 fires at the same slabs in the same order, prefetch on or off.
 
 Left out until their modules are ported (ROADMAP A9): the serve plan
-(``serve_inject``, ``SimulatedCompileError``, dispatch delays), the store
-plan (``store_inject``, ``StoreWriteKilled``), the SLO plan and the
+(``serve_inject``, ``SimulatedCompileError``), the store plan
+(``store_inject``, ``StoreWriteKilled``), the SLO plan and the
 schedule-stress harness.
 """
 
@@ -40,6 +44,9 @@ __all__ = [
     "SimulatedOOM",
     "StreamKilled",
     "active",
+    "dispatch_delay_active",
+    "dispatch_delay_inject",
+    "dispatch_delay_poke",
     "inject",
     "misshaping_loader",
     "poke",
@@ -208,3 +215,62 @@ def misshaping_loader(loader: Callable[[int, int], Any], at: int,
         return out
 
     return bad
+
+
+# ---------------------------------------------------------------------------
+# dispatch-delay injection: the drift sentinel's substrate
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _DelayPlan:
+    """A deterministic dispatch slowdown: program labels containing
+    ``substr`` sleep ``seconds`` before their dispatch, ``times`` times (-1:
+    always)."""
+
+    substr: str = ""
+    seconds: float = 0.0
+    times: int = -1
+    fired: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+
+_DELAY_PLAN: _DelayPlan | None = None
+
+
+def dispatch_delay_active() -> bool:
+    return _DELAY_PLAN is not None
+
+
+def dispatch_delay_poke(label: str) -> None:
+    """Dispatch-side hook: ``core.chunk_reduce`` calls it inside the timed
+    dispatch with its program label. A no-op unless a plan is installed."""
+    plan = _DELAY_PLAN
+    if plan is None or plan.substr not in str(label):
+        return
+    with plan._lock:
+        if plan.times == 0:
+            return
+        if plan.times > 0:
+            plan.times -= 1
+        plan.fired += 1
+        seconds = plan.seconds
+    import time
+
+    time.sleep(seconds)
+
+
+@contextlib.contextmanager
+def dispatch_delay_inject(substr: str, seconds: float, *, times: int = -1) -> Iterator[_DelayPlan]:
+    """Install a dispatch-delay plan for the scope: every dispatch whose
+    program label contains ``substr`` sleeps ``seconds`` first, ``times``
+    times (-1: for the whole scope). Yields the plan; ``fired`` counts the
+    delays."""
+    global _DELAY_PLAN
+    plan = _DelayPlan(substr=str(substr), seconds=float(seconds), times=int(times))
+    prev = _DELAY_PLAN
+    _DELAY_PLAN = plan
+    try:
+        yield plan
+    finally:
+        _DELAY_PLAN = prev

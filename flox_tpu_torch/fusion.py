@@ -20,6 +20,11 @@ the host engine and copies the results to the device. With ``method=``
 ("map-reduce" or "cohorts") or ``mesh=`` the whole plan runs as one mesh
 program (``parallel.mapreduce``): one shard-local pass, one combine of the
 deduplicated legs, the results replicated on every rank.
+
+Telemetry sees the reference's spans (``groupby_aggregate_many`` over
+``factorize``, ``dispatch`` or ``combine``, and ``finalize``); the fused
+dispatch is billed to the cost ledger once for the whole statistic set, under
+:func:`fused_program_label`, with its device time and cost card.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import factorize as fct, utils
+from . import factorize as fct, telemetry, utils
 from .aggregations import FUSABLE_FUNCS, FusedAggregation, fused_chunk_stats, plan_fused
 from .core import (
     _assert_by_is_aligned,
@@ -47,10 +52,15 @@ from .core import (
 from .options import OPTIONS
 from .sparse import is_sparse_array
 
-__all__ = ["FUSABLE_FUNCS", "finalize_many", "groupby_aggregate_many"]
+__all__ = ["FUSABLE_FUNCS", "finalize_many", "fused_program_label", "groupby_aggregate_many"]
 
 _ADDLIKE = frozenset({"sum", "nansum", "prod", "nanprod"})
 _BOOLSAFE = frozenset({"all", "any", "count"})
+
+
+def fused_program_label(funcs) -> str:
+    """The cost-ledger program label of a fused statistic set."""
+    return "fused[" + "+".join(funcs) + "]"
 
 
 def finalize_many(fused: FusedAggregation, results, out_shape=None) -> dict:
@@ -107,21 +117,24 @@ def groupby_aggregate_many(
     >>> out["max"]
     tensor([2., 8.], dtype=torch.float64)
     """
-    return _aggregate_many_impl(
-        array, *by, funcs=tuple(funcs), expected_groups=expected_groups, sort=sort,
-        isbin=isbin, axis=axis, fill_value=fill_value, dtype=dtype, min_count=min_count,
-        engine=engine, finalize_kwargs=finalize_kwargs, method=method, mesh=mesh,
-        axis_name=axis_name, device=device,
-    )
+    with telemetry.span("groupby_aggregate_many", funcs=list(funcs), method=method):
+        return _aggregate_many_impl(
+            array, *by, funcs=tuple(funcs), expected_groups=expected_groups, sort=sort,
+            isbin=isbin, axis=axis, fill_value=fill_value, dtype=dtype, min_count=min_count,
+            engine=engine, finalize_kwargs=finalize_kwargs, method=method, mesh=mesh,
+            axis_name=axis_name, device=device,
+        )
 
 
 def _mesh_fused(fused: FusedAggregation, arr_flat, codes_flat, size: int, out_shape: tuple,
                 method, mesh, axis_name) -> dict:
     from .parallel.mapreduce import sharded_groupby_reduce
 
-    results = sharded_groupby_reduce(arr_flat, codes_flat, fused, size=size, mesh=mesh,
-                                     axis_name=axis_name, method=method or "map-reduce")
-    return finalize_many(fused, results, out_shape)
+    with telemetry.span("combine", method=method or "map-reduce", size=size):
+        results = sharded_groupby_reduce(arr_flat, codes_flat, fused, size=size, mesh=mesh,
+                                         axis_name=axis_name, method=method or "map-reduce")
+    with telemetry.span("finalize"):
+        return finalize_many(fused, results, out_shape)
 
 
 def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin, axis,
@@ -158,9 +171,12 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
 
     arr, bys, n_keep, bndim = _normalize_reduce_axes(arr, bys, axis)
     keep_by_shape = tuple(bys[0].shape[:n_keep])
-    codes, found_groups, grp_shape, ngroups, size, _props = fct.factorize_cached(
-        tuple(bys), axes=tuple(range(n_keep, bndim)), expected_groups=expected_idx, sort=sort
-    )
+    with telemetry.span("factorize", nby=nby) as fsp:
+        codes, found_groups, grp_shape, ngroups, size, _props = fct.factorize_cached(
+            tuple(bys), axes=tuple(range(n_keep, bndim)), expected_groups=expected_idx,
+            sort=sort
+        )
+        fsp.set(ngroups=ngroups, size=size)
     if ngroups == 0 or size == 0:
         raise ValueError("No groups to reduce over (empty expected_groups?)")
 
@@ -256,7 +272,8 @@ def _run_fused(fused: FusedAggregation, codes_flat: torch.Tensor, arr_flat: torc
     reference)."""
     if engine == "numpy":
         inters = fused_chunk_stats(fused, codes_flat, arr_flat, size=size, engine="numpy")
-        out = finalize_many(fused, fused.finalize_fused(inters), out_shape)
+        with telemetry.span("finalize"):
+            out = finalize_many(fused, fused.finalize_fused(inters), out_shape)
         return {f: r.to(dev) for f, r in out.items()}
     lead_elems = int(np.prod(arr_flat.shape[:-1]))
     est = dense_intermediate_bytes(lead_elems, size, arr_flat.dtype, fused)
@@ -270,5 +287,19 @@ def _run_fused(fused: FusedAggregation, codes_flat: torch.Tensor, arr_flat: torc
             "set_options(dense_intermediate_bytes_max=...)."
         )
 
-    inters = fused_chunk_stats(fused, codes_flat, arr_flat, size=size, engine="torch")
-    return finalize_many(fused, fused.finalize_fused(inters), out_shape)
+    from . import costmodel
+
+    with telemetry.span("dispatch", engine="torch", nstats=len(fused.funcs), size=size):
+        with telemetry.device_timer(arr_flat.device) as timer, costmodel.capture() as cap:
+            results = fused.finalize_fused(
+                fused_chunk_stats(fused, codes_flat, arr_flat, size=size, engine="torch"))
+    if telemetry.enabled():
+        # the data is billed once for the whole statistic set: that 1x-vs-Nx
+        # ledger delta is the fusion win, per program label
+        prog = fused_program_label(fused.funcs)
+        telemetry.sample_hbm(program=prog)
+        costmodel.ensure_card(prog, cap, arr_flat.device)
+        telemetry.observe_cost(prog, timer=timer, nbytes=arr_flat.numel() * arr_flat.element_size()
+                               + codes_flat.numel() * codes_flat.element_size())
+    with telemetry.span("finalize"):
+        return finalize_many(fused, results, out_shape)

@@ -6,18 +6,56 @@ validated but has no effect: nothing is traced, so there is no buffer
 donation, and the streaming carry is updated in place always. The names of the
 engine, accumulation, group-cap and ceiling knobs are the reference's, so
 that one option set can drive both packages (:func:`from_reference`).
+
+The observability knobs (``telemetry*``, ``flight_recorder_*``,
+``profile_*``, ``metrics_sample_interval``, ``replica_id``, ``costmodel*``)
+take their defaults from the reference's ``FLOX_TPU_*`` environment names; a
+malformed or out-of-range value falls back to the default.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import re
 from typing import Any
 
 __all__ = ["OPTIONS", "VALID_ACCUMS", "from_reference", "set_options"]
 
 #: cross-chunk accumulation disciplines of the segment-sum kernel
 VALID_ACCUMS = ("plain", "kahan", "dd")
+
+#: characters a replica id may carry (it becomes a metric label value)
+_REPLICA_ID_OK = re.compile(r"^[A-Za-z0-9_.:\-]{1,64}$")
+
+
+def _env_int(name: str, default: int, lo: int = 0, hi: int | None = None) -> int:
+    try:
+        value = int(os.environ.get(name, default))
+    except ValueError:
+        return default
+    return default if value < lo or (hi is not None and value > hi) else value
+
+
+def _env_float(name: str, default: float, lo: float = 0.0, hi: float | None = None) -> float:
+    try:
+        value = float(os.environ.get(name, default))
+    except ValueError:
+        return default
+    if not math.isfinite(value) or value < lo or (hi is not None and value > hi):
+        return default
+    return value
+
+
+def _env_choice(name: str, default: str, valid: tuple[str, ...]) -> str:
+    value = os.environ.get(name, default)
+    return value if value in valid else default
+
+
+def _env_replica(name: str) -> str | None:
+    value = os.environ.get(name) or None
+    return None if value is not None and _REPLICA_ID_OK.match(value) is None else value
+
 
 OPTIONS: dict[str, Any] = {
     # engine of a call that names none: "torch" (dense accumulators over the
@@ -97,6 +135,39 @@ OPTIONS: dict[str, Any] = {
     # literal .npz path, for a resume in another process; None keeps them in
     # this process only
     "stream_checkpoint_path": None,
+    # telemetry (``telemetry``): the span tracer, the metrics registry and the
+    # cost ledger; off is a true no-op (no span objects, no CUDA events)
+    "telemetry": bool(_env_int("FLOX_TPU_TELEMETRY", 0, 0, 1)),
+    # "basic" records phase spans; "detailed" adds per-slab staging spans
+    "telemetry_level": _env_choice("FLOX_TPU_TELEMETRY_LEVEL", "basic",
+                                   ("basic", "detailed")),
+    # stream finished records to this file: *.jsonl appends as spans finish,
+    # any other path is written as one Chrome trace JSON at flush or exit;
+    # None keeps them in the in-process buffer (telemetry.spans())
+    "telemetry_export_path": os.environ.get("FLOX_TPU_TELEMETRY_EXPORT_PATH") or None,
+    # dump target of the flight-recorder ring (on a fatal stream fault and
+    # on SIGTERM/SIGUSR2 when installed); None disables dumping
+    "flight_recorder_path": os.environ.get("FLOX_TPU_FLIGHT_RECORDER_PATH") or None,
+    # records the flight-recorder ring retains
+    "flight_recorder_size": _env_int("FLOX_TPU_FLIGHT_RECORDER_SIZE", 2048, 16, 1_000_000),
+    # default root of profiling.trace() and of the on-demand captures, which
+    # rotate inside it keeping ``profile_keep``; None: no default root
+    "profile_dir": os.environ.get("FLOX_TPU_PROFILE_DIR") or None,
+    "profile_keep": _env_int("FLOX_TPU_PROFILE_KEEP", 8, 1, 1024),
+    # seconds between samples of the saturation gauges; 0 keeps the sampler off
+    "metrics_sample_interval": _env_float("FLOX_TPU_METRICS_SAMPLE_INTERVAL", 0.0, 0.0,
+                                          3600.0),
+    # this replica's name in a multi-replica deployment, stamped on records
+    "replica_id": _env_replica("FLOX_TPU_REPLICA_ID"),
+    # cost cards (``costmodel``): with telemetry, every dispatch site records
+    # the bytes and operations its hand kernels declare and a roofline
+    # predicted_ms against the card's peak row
+    "costmodel": bool(_env_int("FLOX_TPU_COSTMODEL", 0, 0, 1)),
+    # observed/model ratio past which costmodel.drift_report flags a program
+    "costmodel_drift_threshold": _env_float("FLOX_TPU_COSTMODEL_DRIFT_THRESHOLD", 10.0, 1.0,
+                                            1e6),
+    # dispatch-overhead floor (ms) of the drift model
+    "costmodel_overhead_ms": _env_float("FLOX_TPU_COSTMODEL_OVERHEAD_MS", 25.0, 0.0, 60_000.0),
 }
 
 _IMPLS = ("auto", "scatter", "kernel")
@@ -134,6 +205,21 @@ _VALIDATORS = {
     "stream_checkpoint_every": lambda x: _is_int(x) and x >= 0,
     "stream_checkpoint_path": lambda x: x is None or (
         isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "telemetry": lambda x: isinstance(x, bool),
+    "telemetry_level": lambda x: x in ("basic", "detailed"),
+    "telemetry_export_path": lambda x: x is None or (
+        isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "flight_recorder_path": lambda x: x is None or (
+        isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "flight_recorder_size": lambda x: _is_int(x) and 16 <= x <= 1_000_000,
+    "profile_dir": lambda x: x is None or (isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "profile_keep": lambda x: _is_int(x) and 1 <= x <= 1024,
+    "metrics_sample_interval": lambda x: _is_finite_num(x) and 0 <= x <= 3600,
+    "replica_id": lambda x: x is None or (
+        isinstance(x, str) and _REPLICA_ID_OK.match(x) is not None),
+    "costmodel": lambda x: isinstance(x, bool),
+    "costmodel_drift_threshold": lambda x: _is_finite_num(x) and 1 <= x <= 1e6,
+    "costmodel_overhead_ms": lambda x: _is_finite_num(x) and 0 <= x <= 60_000,
 }
 
 
@@ -187,7 +273,7 @@ def from_reference(opts: dict) -> dict:
         raise NotImplementedError(
             "autotune=True (measured dispatch, including the fused-vs-sequential "
             "choice of groupby_aggregate_many) has no counterpart in the port yet; "
-            "ROADMAP item: A9"
+            "ROADMAP item: A9.3"
         )
     out: dict[str, Any] = {}
     for key in OPTIONS:

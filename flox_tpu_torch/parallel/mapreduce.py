@@ -26,8 +26,10 @@ kernels as the eager path, and returns the full result, replicated, as a
 plain tensor on its device. Every decision that fixes which collectives run
 (the method, blocked or not, the cohort permutation, the kernels' row blocks)
 is taken from quantities all ranks hold alike: the global codes, ``size`` and
-the global shape. The reference's program cache and its telemetry and
-cost-model hooks have no counterpart: nothing here is traced or compiled.
+the global shape. The reference's program cache has no counterpart: nothing
+here is traced or compiled, so every call builds its program (the
+``program-build`` span) and runs it; the run is billed to the cost ledger
+under ``mesh[<agg>/<method>]`` with the rank's device time and cost card.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import utils
+from .. import telemetry, utils
 from ..aggregations import Aggregation, FusedAggregation, _masked_fill, shift_nat_identity_fills
 from ..core import _est_itemsize, dense_intermediate_bytes
 from ..multiarray import MultiArray
@@ -384,9 +386,20 @@ def sharded_groupby_reduce(
     arr_sh = utils.as_tensor(arr_sh, dev).contiguous()
     codes_sh = torch.as_tensor(codes[lo:hi], device=dev)
     size_pad = size + (-size) % ndev if method == "cohorts" else size
-    program = _build_program(agg, size=size, size_pad=size_pad, method=method, comm=comm,
-                             offset=lo, nat=nat, cohort_perm=cohort_perm, blocked=blocked)
-    return program(arr_sh, codes_sh)
+    from .. import costmodel
+
+    with telemetry.span("program-build", agg=agg.name, method=method, ndev=ndev, size=size):
+        program = _build_program(agg, size=size, size_pad=size_pad, method=method, comm=comm,
+                                 offset=lo, nat=nat, cohort_perm=cohort_perm, blocked=blocked)
+        with telemetry.device_timer(dev) as timer, costmodel.capture() as cap:
+            result = program(arr_sh, codes_sh)
+    if telemetry.enabled():
+        prog = f"mesh[{agg.name}/{method}]"
+        telemetry.sample_hbm(program=prog)
+        costmodel.ensure_card(prog, cap, dev)
+        telemetry.observe_cost(prog, timer=timer, nbytes=arr_sh.numel() * arr_sh.element_size()
+                               + codes_sh.numel() * codes_sh.element_size())
+    return result
 
 
 def _tiles_to_groups(result_own, comm: Collectives):

@@ -44,6 +44,7 @@ __all__ = [
     "mesh_device",
     "norm_axes",
     "shard_bounds",
+    "world_rank",
     "world_size",
 ]
 
@@ -59,6 +60,14 @@ class LocalMesh:
 
     def __repr__(self) -> str:
         return f"LocalMesh({self.device_type!r}, {self.mesh_dim_names})"
+
+
+def world_rank() -> int:
+    """This process's rank in its ``torch.distributed`` world (0 when it is
+    not initialized)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def world_size() -> int:

@@ -14,9 +14,11 @@ Every rank scans its own columns and then:
 
 ``method="blockwise"`` skips the exchange: valid only when every group is
 shard-local (checked on the host). The scanned shards are all-gathered into
-the full result, replicated on every rank. The streaming x mesh step of the
-reference (``build_stream_scan_step``) belongs to the streaming runtime and
-is not here.
+the full result, replicated on every rank.
+
+:func:`stream_scan_step` is the streaming x mesh step (the reference's
+``build_stream_scan_step``): the same Blelloch program on a rank's shard of
+one slab, plus a replicated per-group carry from the slabs before it.
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import utils
+from .. import telemetry, utils
 from ..aggregations import Scan
 from .mapreduce import resolve_mesh
 from .mesh import Collectives, collectives, shard_bounds
 
-__all__ = ["sharded_groupby_scan"]
+__all__ = ["sharded_groupby_scan", "stream_scan_step"]
 
 
 def sharded_groupby_scan(
@@ -64,18 +66,38 @@ def sharded_groupby_scan(
     codes_sh = torch.as_tensor(codes[lo:hi], device=dev)
     lead = tuple(arr_sh.shape[:-1])
     arr2 = arr_sh.reshape(math.prod(lead), hi - lo)  # K, not -1: a shard may be empty
-    if method == "blockwise":
-        from ..kernels import generic_kernel
+    with telemetry.annotated(f"flox:mesh-scan[{scan.name}/{method}]", ndev=ndev, size=size):
+        if method == "blockwise":
+            from ..kernels import generic_kernel
 
-        out = generic_kernel(scan.scan, codes_sh, arr2, size=size, nat=nat)
-    else:
-        out = _blelloch(scan, arr2, codes_sh, size=size, comm=comm, nat=nat)
-    if ndev > 1:
-        # replicate: every shard padded to ceil(N / ndev) columns, gathered
-        per = -(-n // ndev)
-        parts = comm.all_gather(torch.nn.functional.pad(out, (0, per - out.shape[-1])))
-        out = parts.permute(1, 0, 2).reshape(out.shape[0], ndev * per)[:, :n]
-    return out.reshape(lead + (n,))
+            out = generic_kernel(scan.scan, codes_sh, arr2, size=size, nat=nat)
+        else:
+            out = _blelloch(scan, arr2, codes_sh, size=size, comm=comm, nat=nat)
+        return gather_shards(out, comm, n).reshape(lead + (n,))
+
+
+def gather_shards(out: torch.Tensor, comm: Collectives, n: int) -> torch.Tensor:
+    """The (K, N) whole of every rank's (K, n_local) shard of an axis of
+    length ``n`` split by ``shard_bounds``, replicated: every shard padded to
+    ``ceil(n / ndev)`` columns and all-gathered."""
+    ndev = comm.size
+    if ndev == 1:
+        return out
+    per = -(-n // ndev)
+    parts = comm.all_gather(torch.nn.functional.pad(out, (0, per - out.shape[-1])))
+    return parts.permute(1, 0, 2).reshape(out.shape[0], ndev * per)[:, :n]
+
+
+def stream_scan_step(scan: Scan, arr: torch.Tensor, codes: torch.Tensor, *, size: int,
+                     comm: Collectives, nat: bool, carry: tuple | None):
+    """One slab of the streamed mesh scan on this rank's (K, n_local) shard:
+    ``(out_shard, carry_a, carry_b)``. ``carry`` is None on the first slab,
+    else the replicated ``(per-group sums, had-NaT)`` of cumsum-mode scans or
+    ``(per-group edge value, has-value)`` of ffill/bfill, folded from every
+    rank's shard of the slabs before (after, for bfill). The new carry is
+    computed from the gathered summaries, so it is the same on every rank."""
+    return _blelloch(scan, arr, codes, size=size, comm=comm, nat=nat, carry=carry,
+                     stream=True)
 
 
 def _validate_shard_local(codes: np.ndarray, ndev: int) -> None:
@@ -103,8 +125,9 @@ def _validate_shard_local(codes: np.ndarray, ndev: int) -> None:
 
 
 def _blelloch(scan: Scan, arr: torch.Tensor, codes: torch.Tensor, *, size: int,
-              comm: Collectives, nat: bool) -> torch.Tensor:
-    """The Blelloch program on this rank's shard ``arr`` (K, n_local)."""
+              comm: Collectives, nat: bool, carry: tuple | None = None, stream: bool = False):
+    """The Blelloch program on this rank's shard ``arr`` (K, n_local);
+    ``stream``: :func:`stream_scan_step`'s form, with ``carry`` in and out."""
     from ..kernels import (_NAT_INT, _nan_mask, _per_element, _safe_codes, fused_segment_stats,
                            generic_kernel)
 
@@ -128,19 +151,39 @@ def _blelloch(scan: Scan, arr: torch.Tensor, codes: torch.Tensor, *, size: int,
             gathered, g_had = g[:, 0], g[:, 1] > 0
         else:
             gathered = comm.all_gather(block)  # (ndev, K, size)
-        if me == 0:
-            return local  # no shard before the first: its carry is zero
-        # exclusive prefix over the shards strictly before this one: a
-        # select-then-sum, since NaN * 0 would poison every carry
         mask = (before < me).reshape(ndev, 1, 1)
-        carry = torch.where(mask, gathered, torch.zeros((), dtype=gathered.dtype,
-                                                        device=arr.device)).sum(dim=0)
-        carry_e = _per_element(carry.to(local.dtype), safe)
-        if not poison_channel:
-            return local.add_(carry_e)
-        poison = (mask & g_had).any(dim=0)
-        poison_e = _per_element(poison.to(torch.int8), safe) > 0
-        return torch.where(poison_e | (local == _NAT_INT), _NAT_INT, local + carry_e)
+        poison = (mask & g_had).any(dim=0) if poison_channel else None
+        if me == 0:
+            out = local  # no shard before the first: its carry is zero
+        else:
+            # exclusive prefix over the shards strictly before this one: a
+            # select-then-sum, since NaN * 0 would poison every carry
+            before_sum = torch.where(mask, gathered, torch.zeros(
+                (), dtype=gathered.dtype, device=arr.device)).sum(dim=0)
+            carry_e = _per_element(before_sum.to(local.dtype), safe)
+            # in place unless the NaT test below still reads ``local``
+            out = local + carry_e if poison_channel else local.add_(carry_e)
+        if stream:
+            # the slabs before: their per-group totals add to every element,
+            # and this slab's totals over every shard join the carry
+            slab_sum = gathered.sum(dim=0)
+            if carry is None:
+                new_sums = slab_sum
+            else:
+                out = out + _per_element(carry[0].to(out.dtype), safe)
+                new_sums = carry[0] + slab_sum.to(carry[0].dtype)
+            if poison_channel:
+                slab_had = g_had.any(dim=0)
+                if carry is not None:
+                    poison = poison | (carry[1] > 0)
+                    slab_had = slab_had | (carry[1] > 0)
+                new_had = slab_had.to(torch.int8)
+            else:
+                new_had = None if carry is None else carry[1]
+        if poison_channel:
+            poison_e = _per_element(poison.to(torch.int8), safe) > 0
+            out = torch.where(poison_e | (local == _NAT_INT), _NAT_INT, out)
+        return (out, new_sums, new_had) if stream else out
 
     # ffill/bfill: the carry is the last (first) valid value per group in
     # the shards strictly before (after) this one
@@ -157,9 +200,28 @@ def _blelloch(scan: Scan, arr: torch.Tensor, codes: torch.Tensor, *, size: int,
     else:
         pick = torch.where(eligible, dev_idx, -1).amax(dim=0)
     has_carry = (pick >= 0) & (pick < ndev)
-    carry = g_vals.gather(0, pick.clamp(0, ndev - 1).unsqueeze(0)).squeeze(0)
-    carry_e = _per_element(carry, safe)
+    from_shards = g_vals.gather(0, pick.clamp(0, ndev - 1).unsqueeze(0)).squeeze(0)
+    carry_e = _per_element(from_shards, safe)
     has_e = _per_element(has_carry.to(torch.int8), safe) > 0
     mask = _nan_mask(local, nat)
     still = ~mask if mask is not None else torch.zeros_like(has_e)
-    return torch.where(still & has_e & (codes >= 0), carry_e, local)
+    out = torch.where(still & has_e & (codes >= 0), carry_e, local)
+    if not stream:
+        return out
+    # the slabs before (after, for bfill): positions still missing take
+    # their carry; this slab's edge over every shard replaces it where the
+    # slab has a valid value
+    any_valid = g_valid.any(dim=0)
+    pick_all = (torch.where(g_valid, dev_idx, ndev).amin(dim=0) if reverse
+                else torch.where(g_valid, dev_idx, -1).amax(dim=0))
+    slab_edge = g_vals.gather(0, pick_all.clamp(0, ndev - 1).unsqueeze(0)).squeeze(0)
+    if carry is None:
+        return out, slab_edge, any_valid.to(torch.int8)
+    prev_val, prev_has = carry
+    mask2 = _nan_mask(out, nat)
+    still2 = ~mask2 if mask2 is not None else torch.zeros_like(has_e)
+    prev_e = _per_element(prev_has.to(torch.int8), safe) > 0
+    out = torch.where(still2 & prev_e & (codes >= 0), _per_element(prev_val, safe).to(out.dtype),
+                      out)
+    new_val = torch.where(any_valid, slab_edge.to(prev_val.dtype), prev_val)
+    return out, new_val, (prev_has.to(torch.bool) | any_valid).to(torch.int8)

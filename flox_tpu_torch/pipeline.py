@@ -26,11 +26,18 @@ of ``flox_tpu/pipeline.py``).
   ``stream_dispatch_depth`` slabs, so the host cannot run far ahead of the
   card.
 
+With telemetry on, each pass is one ``stream[<label>]`` span carrying the
+:class:`~flox_tpu_torch.profiling.StreamReport` totals, one cost-ledger row
+of that label (the device time between CUDA events recorded at the pass's
+start and end, the bytes staged) and one cost card over the kernels its
+steps launched; the staged bytes count on ``bytes.h2d``, and at level
+"detailed" each staging is a ``stage`` span. Staging workers re-bind the
+stream's trace id, so their records join the caller's trace.
+
 The reference's ``maybe_donate``/``donation_supported`` and the static-shape
 padding of the tail slab have no counterpart: nothing is traced, and the
-carry is updated in place. Left out until ROADMAP A9: the telemetry spans,
-cost ledger and autotune observations of a pass; the sharded staging of
-``mesh=`` comes with A8b.
+carry is updated in place. Its autotune observations of a pass come with
+the autotuner.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from . import utils
+from . import telemetry, utils
 
 __all__ = [
     "DispatchThrottle",
@@ -91,10 +98,18 @@ class Slab:
     dispatch_ms: float = 0.0
     nbytes: int = 0
     event: Any = field(default=None, repr=False)
+    #: the columns ``[a, b)`` this slab holds when they are not the whole
+    #: span ``[start, stop)``: a mesh rank's shard of the slab
+    own: tuple[int, int] | None = None
     #: an out-of-memory error raised while staging this slab in a prefetch
     #: worker: ``resilience.dispatch_slab`` raises it where the step would
     #: run, so that the halving ladder re-stages the span in halves
     error: BaseException | None = field(default=None, repr=False)
+
+    @property
+    def cols(self) -> tuple[int, int]:
+        """The columns this slab holds (the span the OOM ladder halves)."""
+        return self.own if self.own is not None else (self.start, self.stop)
 
     def ready(self) -> "Slab":
         """Make the caller's current (compute) stream wait for this slab's
@@ -156,11 +171,17 @@ class SlabStager:
     re-stages OOM-split sub-slabs through the same object. Retries run in
     whatever thread stages the slab, so one flaky slab never poisons the
     others queued in the prefetch pool.
+
+    ``shard=(ndev, index)``: a mesh rank's stager. A slab ``[s, e)`` is then
+    only this rank's columns of it, ``s + parallel.mesh.shard_bounds(e - s,
+    ndev, index)``: the loader is called with that range alone, and only
+    those columns are pinned and copied. The slab's ``offset`` is the
+    shard's first global column.
     """
 
     def __init__(self, loader: Callable[[int, int], Any], codes: np.ndarray, *, n: int,
                  batch_len: int, lead_shape: tuple, device: Any,
-                 counters: Any = None) -> None:
+                 counters: Any = None, shard: tuple[int, int] | None = None) -> None:
         from .resilience import RetryPolicy
 
         self.loader = loader
@@ -170,6 +191,7 @@ class SlabStager:
         self.lead = tuple(lead_shape)
         self.device = torch.device(device)
         self.counters = counters
+        self.shard = shard
         self.policy = RetryPolicy.from_options()
         self._dtype0: Any = None
         self._lock = threading.Lock()
@@ -178,6 +200,9 @@ class SlabStager:
         self._side = None
         self.codes_dev = torch.as_tensor(np.ascontiguousarray(codes, dtype=np.int32),
                                          device=self.device)
+        # the prefetch workers do not inherit the consumer's contextvars:
+        # staging re-binds the stream's trace id per call
+        self._trace_id = telemetry.current_trace()
         if self.device.type == "cuda":
             self._side = torch.cuda.Stream(device=self.device)
 
@@ -200,29 +225,61 @@ class SlabStager:
             if classify_error(exc) != OOM:
                 raise
             exc.__traceback__ = None  # its frames hold the failed staging's buffers
+            a, b = self.own_cols(s, e)
             return Slab(index=i, start=s, stop=e, data=None, codes=None,
-                        codes_host=self.codes[s:e], offset=s, error=exc)
+                        codes_host=self.codes[s:e], offset=a,
+                        own=None if self.shard is None else (a, b), error=exc)
+
+    def own_cols(self, s: int, e: int) -> tuple[int, int]:
+        """The columns of slab ``[s, e)`` this stager stages."""
+        if self.shard is None:
+            return s, e
+        from .parallel.mesh import shard_bounds
+
+        lo, hi = shard_bounds(e - s, *self.shard)
+        return s + lo, s + hi
 
     def stage_range(self, s: int, e: int, index: int = -1, consumer: bool = True) -> Slab:
-        """Stage ``[s, e)``. ``consumer``: the caller runs the slab's step
-        itself, so the slab comes back :meth:`Slab.ready`."""
+        """Stage slab ``[s, e)`` (this rank's columns of it on a mesh).
+        ``consumer``: the caller runs the slab's step itself, so the slab
+        comes back :meth:`Slab.ready`."""
+        a, b = self.own_cols(s, e)
+        return self._stage(a, b, (s, e), index, consumer)
+
+    def stage_cols(self, a: int, b: int) -> Slab:
+        """Stage exactly the columns ``[a, b)`` as a slab of their own: the
+        OOM ladder's sub-slabs, which halve the columns a slab held."""
+        return self._stage(a, b, (a, b), -1, True)
+
+    def _stage(self, a: int, b: int, span: tuple[int, int], index: int,
+               consumer: bool) -> Slab:
         from .resilience import call_with_retry
 
-        slab = call_with_retry(lambda: self._stage_once(s, e, index), policy=self.policy,
-                               counters=self.counters, what=f"[{s}:{e})")
+        def staged() -> Slab:
+            return call_with_retry(lambda: self._stage_once(a, b, span, index),
+                                   policy=self.policy, counters=self.counters, what=f"[{a}:{b})")
+
+        if self._trace_id is None or telemetry.current_trace() is not None:
+            slab = staged()
+        else:
+            with telemetry.trace(self._trace_id, observe=False):
+                slab = staged()
         return slab.ready() if consumer else slab
 
-    def _stage_once(self, s: int, e: int, index: int) -> Slab:
+    def _stage_once(self, a: int, b: int, span: tuple[int, int], index: int) -> Slab:
+        s, e = span
+        own = None if (a, b) == span else (a, b)
         t0 = perf_counter()
-        host = np.asarray(self.loader(s, e))
-        self._check_contract(host, s, e)
-        codes = self.codes_dev[s:e]
+        host = np.asarray(self.loader(a, b))
+        self._check_contract(host, a, b)
+        codes = self.codes_dev[a:b]
         if self._side is None:
             data = torch.from_numpy(np.ascontiguousarray(host))
             t1 = perf_counter()
+            self._note_staged(host.nbytes, t0, t1, a, b, index)
             return Slab(index=index, start=s, stop=e, data=data, codes=codes,
-                        codes_host=self.codes[s:e], offset=s, load_ms=(t1 - t0) * 1e3,
-                        nbytes=host.nbytes)
+                        codes_host=self.codes[s:e], offset=a, load_ms=(t1 - t0) * 1e3,
+                        nbytes=host.nbytes, own=own)
         ring = self._pinned_ring(host.dtype)
         buf = ring.take()
         try:
@@ -238,14 +295,28 @@ class SlabStager:
         finally:
             ring.give(buf)
         t2 = perf_counter()
+        self._note_staged(host.nbytes, t0, t2, a, b, index)
         return Slab(index=index, start=s, stop=e, data=data, codes=codes,
-                    codes_host=self.codes[s:e], offset=s, load_ms=(t1 - t0) * 1e3,
-                    stage_ms=(t2 - t1) * 1e3, nbytes=host.nbytes, event=event)
+                    codes_host=self.codes[s:e], offset=a, load_ms=(t1 - t0) * 1e3,
+                    stage_ms=(t2 - t1) * 1e3, nbytes=host.nbytes, event=event, own=own)
+
+    @staticmethod
+    def _note_staged(nbytes: int, t0: float, t1: float, a: int, b: int, index: int) -> None:
+        if not telemetry.enabled():
+            return
+        telemetry.METRICS.inc("bytes.h2d", int(nbytes))
+        if telemetry.tail_detail():
+            # staging runs on the prefetch workers: standalone spans; at level
+            # "basic" inside a trace they are kept only if the trace is slow
+            telemetry.record_span("stage", t0, t1, attrs={"start": a, "stop": b, "index": index},
+                                  detail=True)
 
     def _pinned_ring(self, dtype: np.dtype) -> _PinnedRing:
         with self._lock:
             if self._ring is None:
-                nelems = math.prod(self.lead) * self.batch_len
+                cols = self.batch_len if self.shard is None else -(-self.batch_len
+                                                                   // self.shard[0])
+                nelems = math.prod(self.lead) * cols
                 self._ring = _PinnedRing(nelems, utils.torch_dtype(dtype))
                 self._ring.limit = self._ring_limit
             return self._ring
@@ -279,6 +350,7 @@ def stream_slabs(stager: SlabStager, *, reverse: bool = False, prefetch: int | N
     k slabs in stream order (checkpoint resume: for a reversed stream the
     last k batches). Each pass emits one ``profiling.StreamReport``.
     """
+    from .costmodel import capture, ensure_card
     from .options import OPTIONS
     from .profiling import StreamReport, record_stream
 
@@ -297,7 +369,14 @@ def stream_slabs(stager: SlabStager, *, reverse: bool = False, prefetch: int | N
         source: Iterator[Slab] = iter(prefetcher)
     else:
         source = (stager.stage_index(i) for i in order)
+    prog = f"stream[{label}]" if label else "stream"
+    # the pass's device time and cost card: CUDA events at its start and end
+    # on the compute stream, and the kernels its steps launch (both no-ops
+    # with telemetry off)
+    timer, cap = telemetry.device_timer(stager.device), capture()
     t_begin = perf_counter()
+    timer.__enter__()
+    cap.__enter__()
     try:
         while True:
             t0 = perf_counter()
@@ -315,10 +394,26 @@ def stream_slabs(stager: SlabStager, *, reverse: bool = False, prefetch: int | N
             slab.release()
             report.slabs.append(slab)
     finally:
+        cap.__exit__(None, None, None)
+        timer.__exit__(None, None, None)
         if prefetcher is not None:
             prefetcher.close()
-        report.wall_ms = (perf_counter() - t_begin) * 1e3
+        t_end = perf_counter()
+        report.wall_ms = (t_end - t_begin) * 1e3
         record_stream(report)
+        if telemetry.enabled():
+            telemetry.sample_hbm(program=prog)
+            ensure_card(prog, cap, stager.device)
+            telemetry.observe_cost(prog, timer=timer, nbytes=report.nbytes)
+            telemetry.record_span(prog, t_begin, t_end, attrs={
+                "slabs": len(report.slabs), "nbatches": nbatches, "prefetch": depth,
+                "skip": skip, "load_ms": round(report.load_ms, 3),
+                "stage_ms": round(report.stage_ms, 3), "wait_ms": round(report.wait_ms, 3),
+                "dispatch_ms": round(report.dispatch_ms, 3),
+                "overlap_fraction": round(report.overlap_fraction, 4),
+                "retries": report.retries, "oom_splits": report.oom_splits,
+                "checkpoints": report.checkpoints,
+            })
 
 
 class _SlabPrefetcher:

@@ -30,13 +30,16 @@ re-execute a lost chunk, so this module is its re-execution, in three layers:
   device-to-host round trip is exact and the slabs fold in the same order.
 
 Counters of all of this (:class:`StreamCounters`) ride on every
-``profiling.StreamReport``. The deterministic fault harness is
-:mod:`flox_tpu_torch.faults`.
+``profiling.StreamReport``, and with telemetry on each retry, split,
+checkpoint and resume is also a counter and an event; a fatal or
+device-lost classification leaves a flight-recorder dump
+(``telemetry.flight_dump``) before it surfaces. The deterministic fault
+harness is :mod:`flox_tpu_torch.faults`.
 
-Left out (ROADMAP A9, with the telemetry plane): the flight-recorder dump on
-a fatal classification and the telemetry counters and events. The snapshot
-key has no trace fingerprint (nothing is traced); the mesh layout of
-``device_restore`` comes with A8b.
+On a mesh (``streaming`` with ``mesh=``) each rank keys its own snapshots
+with the mesh layout, its rank and the world size, resumes only from a
+cursor every rank agrees on, and halves only its own shard on the OOM
+ladder. The snapshot key has no trace fingerprint (nothing is traced).
 """
 
 from __future__ import annotations
@@ -233,6 +236,16 @@ class RetryPolicy:
         return cap * (u if u > 0.0 else 0.5)
 
 
+def _flight_on_fatal(exc: BaseException, what: str = "") -> None:
+    """Dump the flight recorder for a fatal or device-lost classification,
+    while the ring still holds the records leading up to it. A no-op when
+    telemetry is off or no dump path is configured; never raises."""
+    from . import telemetry
+
+    telemetry.event("fatal", what=what, error=type(exc).__name__)
+    telemetry.flight_dump(reason=f"fatal:{type(exc).__name__}" + (f" {what}" if what else ""))
+
+
 def call_with_retry(fn: Callable[[], Any], *, policy: RetryPolicy,
                     counters: "StreamCounters | None" = None, what: str = "") -> Any:
     """Run ``fn``, retrying transient failures with exponential backoff.
@@ -248,7 +261,10 @@ def call_with_retry(fn: Callable[[], Any], *, policy: RetryPolicy,
         try:
             return fn()
         except Exception as exc:
-            if classify_error(exc) != TRANSIENT:
+            cls = classify_error(exc)
+            if cls != TRANSIENT:
+                if cls in (FATAL, DEVICE_LOST):
+                    _flight_on_fatal(exc, what=what)
                 raise
             if attempt >= policy.retries:
                 raise
@@ -261,6 +277,12 @@ def call_with_retry(fn: Callable[[], Any], *, policy: RetryPolicy,
             attempt += 1
             if counters is not None:
                 counters.record_retry(delay)
+            from . import telemetry
+
+            if telemetry.enabled():
+                telemetry.METRICS.inc("stream.retries")
+                telemetry.event("retry", what=what, attempt=attempt,
+                                delay_ms=round(delay * 1e3, 3), error=type(exc).__name__)
             time.sleep(delay)
 
 
@@ -352,10 +374,14 @@ def dispatch_slab(apply_fn: Callable[[Any, Any], Any], carry: Any, sl: Any, *,
             raise sl.error  # the slab ran out of memory while it was staged
         return apply_fn(carry, sl)
     except Exception as exc:
-        if classify_error(exc) != OOM or stager is None:
+        cls = classify_error(exc)
+        if cls != OOM or stager is None:
+            if cls in (FATAL, DEVICE_LOST):
+                _flight_on_fatal(exc, what=f"[{sl.start}:{sl.stop})")
             raise
+        a, b = sl.cols  # on a mesh, the rank's own columns: its shard halves
         _drop_failed(exc, sl)
-        return _split_dispatch(apply_fn, carry, sl.start, sl.stop, stager, counters=counters,
+        return _split_dispatch(apply_fn, carry, a, b, stager, counters=counters,
                                quantum=shard_quantum, reverse=reverse, cause=exc,
                                highcard_hint=highcard_hint)
 
@@ -378,13 +404,18 @@ def _split_dispatch(apply_fn, carry, s, e, stager, *, counters, quantum, reverse
         raise cause
     if counters is not None:
         counters.record_split()
+    from . import telemetry
+
+    if telemetry.enabled():
+        telemetry.METRICS.inc("stream.oom_splits")
+        telemetry.event("oom-split", start=s, stop=e, half=half, depth=depth)
     spans = [(ss, min(ss + half, e)) for ss in range(s, e, half)]
     for ss, ee in reversed(spans) if reverse else spans:
         sub = None
         try:
             # staging inside the try: a sub-slab whose copy itself runs out
             # of memory splits again, as a failing step does
-            sub = stager.stage_range(ss, ee)
+            sub = stager.stage_cols(ss, ee)
             faults.poke(ss, ee)
             carry = apply_fn(carry, sub)
         except Exception as exc:
@@ -472,7 +503,10 @@ class StreamCheckpointer:
     def for_stream(cls, *, kind: str, name: str, n: int, batch_len: int, size: int,
                    codes: np.ndarray, lead_shape: tuple = (), extra: tuple = (),
                    data_probe: Any = None, counters: StreamCounters | None = None,
-                   enabled: bool = True) -> "StreamCheckpointer":
+                   enabled: bool = True, mesh_key: tuple | None = None) -> "StreamCheckpointer":
+        """``mesh_key``: a mesh rank's layout, ``(axes, ndev, rank, world
+        size, ...)``, so that each rank keys (and spills) its own carry and a
+        snapshot never crosses into another layout."""
         from .options import OPTIONS
 
         if not enabled or OPTIONS["stream_checkpoint_every"] <= 0:
@@ -487,12 +521,19 @@ class StreamCheckpointer:
                 np.ascontiguousarray(np.asarray(data_probe)).tobytes(), digest_size=8
             ).hexdigest()
         key = (kind, str(name), int(n), int(batch_len), int(size), tuple(lead_shape), fp,
-               probe_fp, tuple(extra))
+               probe_fp, mesh_key, tuple(extra))
         return cls(key, counters=counters)
 
-    def restore(self) -> Snapshot | None:
+    def restore(self, comm: Any = None, device: Any = None) -> Snapshot | None:
         """The latest snapshot of this stream (registry first, then the spill
-        file), or None for a fresh run."""
+        file), or None for a fresh run.
+
+        ``comm``: the stream's mesh collectives (``parallel.mesh.Collectives``),
+        with ``device`` the rank's device. Every rank of a mesh stream calls
+        this, and a rank resumes only from the cursor every rank's snapshot
+        agrees on (its ``pmin`` and ``pmax`` over the ranks are equal); else
+        every rank starts over, so the ranks fold the same slabs and run the
+        same collectives."""
         if not self.enabled:
             return None
         snap = _SNAPSHOTS.get(self.key)
@@ -500,9 +541,20 @@ class StreamCheckpointer:
             snap = _load_snapshot(self._file(), self.key)
             if snap is not None:
                 _SNAPSHOTS[self.key] = snap
+        if comm is not None:
+            cursor = -1 if snap is None else snap.phase * 2**32 + snap.slabs_done
+            t = torch.tensor([cursor], dtype=torch.int64, device=device)
+            if int(comm.pmin(t)) != int(comm.pmax(t)):
+                snap = None
         if snap is not None and self.counters is not None:
             self.counters.resumed_at = snap.slabs_done
             self.counters.resumed_phase = snap.phase
+        if snap is not None:
+            from . import telemetry
+
+            if telemetry.enabled():
+                telemetry.METRICS.inc("stream.resumes")
+                telemetry.event("stream-resume", slabs_done=snap.slabs_done, phase=snap.phase)
         return snap
 
     def tick(self, payload_fn: Callable[[], Any], *, slabs_done: int, phase: int = 0) -> None:
@@ -525,6 +577,14 @@ class StreamCheckpointer:
             _dump_snapshot(self._file(), snap)
         if self.counters is not None:
             self.counters.record_checkpoint()
+        from . import telemetry
+
+        if telemetry.enabled():
+            d2h = sum(leaf.numel() * leaf.element_size() for leaf in _tree_leaves(snap.payload)
+                      if isinstance(leaf, torch.Tensor))
+            telemetry.METRICS.inc("stream.checkpoints")
+            telemetry.METRICS.inc("bytes.d2h", d2h)
+            telemetry.event("checkpoint", slabs_done=slabs_done, phase=phase, bytes=d2h)
 
     def done(self) -> None:
         """The run completed: drop its snapshot (registry and spill file)."""
@@ -582,8 +642,11 @@ def _load_snapshot(path: str, key: tuple) -> Snapshot | None:
     except StoreCorruptionError as exc:
         import warnings
 
+        from . import telemetry
+
         warnings.warn(f"stream checkpoint {os.path.basename(path)} is corrupt or unreadable; "
                       f"restarting the stream fresh ({exc})", RuntimeWarning, stacklevel=2)
+        telemetry.count("stream.checkpoint_corrupt")
         return None
     try:
         skey, phase, done, skeleton, dtypes = pickle.loads(z["__meta__"].tobytes())
@@ -603,5 +666,9 @@ def _load_snapshot(path: str, key: tuple) -> Snapshot | None:
 
 
 def device_restore(payload: Any, device: Any) -> Any:
-    """Host snapshot payload -> the carry on ``device``."""
+    """Host snapshot payload -> the carry on ``device``. On a mesh each rank
+    holds and restores its own carry (its accumulators, or the replicated
+    scan and quantile state), so the reference's mesh branch, which lays a
+    per-device leading axis over the mesh, is this same copy on every
+    rank."""
     return _tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, payload)

@@ -15,7 +15,8 @@ scan over a mesh (``parallel.scan``): the Blelloch carry exchange, or, for
 ``method="blockwise"`` with a mesh, shard-local groups with no exchange;
 ``mesh=`` without ``method=`` takes blockwise when cohort detection finds
 every group on one shard (and the scan covers every label dim), else
-Blelloch.
+Blelloch. Telemetry sees the reference's spans: ``groupby_scan`` over
+``factorize``, ``dispatch`` and ``finalize``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import dtypes, factorize as fct, utils
+from . import dtypes, factorize as fct, telemetry, utils
 from .aggregations import Scan, _initialize_scan, generic_aggregate
 from .core import (_choose_engine, _convert_expected, _normalize_expected, _normalize_isbin,
                    _resolve_devices)
@@ -66,10 +67,14 @@ def groupby_scan(
     ...              func="ffill", device="cpu")
     tensor([1., nan, 1., 8.], dtype=torch.float64)
     """
-    return _groupby_scan_impl(
-        array, *by, func=func, expected_groups=expected_groups, axis=axis, dtype=dtype,
-        method=method, engine=engine, mesh=mesh, device=device,
-    )
+    with telemetry.span(
+        "groupby_scan", func=func if isinstance(func, str) else getattr(func, "name", "custom"),
+        method=method,
+    ):
+        return _groupby_scan_impl(
+            array, *by, func=func, expected_groups=expected_groups, axis=axis, dtype=dtype,
+            method=method, engine=engine, mesh=mesh, device=device,
+        )
 
 
 def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, engine, mesh,
@@ -135,9 +140,11 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
         arr = arr.permute(arr_order)
 
     # factorize_ offsets the codes per row when bndim > 1 (disjoint ranges)
-    codes, _found, _grp_shape, _ngroups, size, _props = fct.factorize_(
-        bys, axes=(bndim - 1,), expected_groups=expected_idx, sort=True
-    )
+    with telemetry.span("factorize", nby=nby) as fsp:
+        codes, _found, _grp_shape, ngroups, size, _props = fct.factorize_(
+            bys, axes=(bndim - 1,), expected_groups=expected_idx, sort=True
+        )
+        fsp.set(ngroups=ngroups, size=size)
     codes_flat = np.asarray(codes).reshape(-1)
     span = codes_flat.shape[0]
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
@@ -155,23 +162,26 @@ def _groupby_scan_impl(array, *by, func, expected_groups, axis, dtype, method, e
 
         if method is None:
             method = _auto_scan_method(codes_flat, size, mesh, bndim)
-        out = sharded_groupby_scan(arr_flat, codes_flat, scan, size=size, mesh=mesh,
-                                   dtype=dtype, method=method, nat=nat)
+        with telemetry.span("dispatch", method=method, size=size):
+            out = sharded_groupby_scan(arr_flat, codes_flat, scan, size=size, mesh=mesh,
+                                       dtype=dtype, method=method, nat=nat)
         work = out.device
     else:
-        out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=work), size=size,
-                          engine=engine, dtype=dtype, nat=nat)
+        with telemetry.span("dispatch", engine=engine, size=size):
+            out = _apply_scan(scan, arr_flat, torch.as_tensor(codes_flat, device=work),
+                              size=size, engine=engine, dtype=dtype, nat=nat)
 
-    nanmask = codes_flat < 0
-    if nanmask.any():  # missing labels belong to no group
-        out = _mask_positions(out, torch.as_tensor(nanmask, device=work), nat=nat)
-    out = out.to(dev)  # the host engine's one copy to the device
-    out = out.reshape(lead_shape + bys[0].shape)
-    if arr_order is not None:
-        out = out.permute(tuple(np.argsort(arr_order)))
-    if nat:
-        return out.cpu().numpy().view(datetime_dtype)
-    return out
+    with telemetry.span("finalize"):
+        nanmask = codes_flat < 0
+        if nanmask.any():  # missing labels belong to no group
+            out = _mask_positions(out, torch.as_tensor(nanmask, device=work), nat=nat)
+        out = out.to(dev)  # the host engine's one copy to the device
+        out = out.reshape(lead_shape + bys[0].shape)
+        if arr_order is not None:
+            out = out.permute(tuple(np.argsort(arr_order)))
+        if nat:
+            return out.cpu().numpy().view(datetime_dtype)
+        return out
 
 
 def _auto_scan_method(codes_flat: np.ndarray, size: int, mesh, bndim: int) -> str:

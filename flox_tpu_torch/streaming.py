@@ -22,11 +22,20 @@ device holds a few slabs and the (..., size) accumulators, never the array.
   ``bfill`` streams the slabs in reverse; an ``out=`` writer takes each
   result slab on the host as it is made.
 
-The reference's jit machinery has no counterpart (``_step_cached``, the step
-cache, buffer donation, the padding of the tail slab to a static shape).
-Left out until ROADMAP A8b: ``mesh=`` (the sharded steps, their collective
-finals and the streamed mesh scan); until A9: telemetry spans, cost cards
-and the autotuned slab size and routing.
+* ``mesh=``: each slab splits over the mesh's ``axis_name`` dims and each
+  rank stages and folds only its own columns (a loader is called with the
+  rank's own range), with no collective until one combine at the end (the
+  in-memory mesh's combine); above the dense-intermediate ceiling additive
+  reductions take the blocked owner-by-owner form; quantile passes sum
+  their counts over the ranks; scans run the mesh Blelloch step per slab.
+
+Telemetry sees the reference's spans (``streaming_groupby_*`` over
+``factorize``, one ``stream[...]`` span per pass, and ``finalize``), and
+each pass is a cost-ledger row with its device time and cost card
+(``pipeline.stream_slabs``). The reference's jit machinery has no
+counterpart (``_step_cached``, the step cache, buffer donation, the padding
+of the tail slab to a static shape); its autotuned slab size and routing
+come with the autotuner.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import dtypes as dtps, factorize as fct, kernels, utils
+from . import dtypes as dtps, factorize as fct, kernels, telemetry, utils
 from .aggregations import Aggregation, _initialize_aggregation, plan_fused
 from .multiarray import MultiArray
 from .options import OPTIONS
@@ -59,11 +68,36 @@ _ADDLIKE = frozenset({"sum", "nansum", "prod", "nanprod"})
 _FLOAT_FUNCS = frozenset({"mean", "nanmean", "var", "nanvar", "std", "nanstd"})
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= on the streaming entry points (slabs sharded over a mesh, one collective "
-            "combine at the end) has no counterpart in the port yet; ROADMAP item: A8b")
+def _stream_mesh(mesh, axis_name, device) -> tuple[torch.device, Any]:
+    """The device of a stream and, with ``mesh=``, the collectives of its
+    ``axis_name`` dims (None without a mesh)."""
+    if mesh is None:
+        return utils.resolve_device(device), None
+    from .parallel.mapreduce import resolve_mesh
+    from .parallel.mesh import collectives
+
+    mesh, dev = resolve_mesh(mesh, device)
+    return dev, collectives(mesh, axis_name)
+
+
+def _mesh_batch_len(batch_len: int, comm) -> int:
+    """The slab layout of a mesh stream (the reference's
+    ``_mesh_stream_layout``): ``batch_len`` rounds up to a multiple of the
+    shard count, so every full slab splits into equal shards; rank d holds
+    columns ``[s + d*L, s + (d+1)*L)`` of the slab at ``s``, and the tail
+    slab splits by ``parallel.mesh.shard_bounds`` (``pipeline.SlabStager``
+    with ``shard=``)."""
+    return batch_len if comm is None else -(-batch_len // comm.size) * comm.size
+
+
+def _mesh_key(comm, *extra) -> tuple | None:
+    """A mesh rank's part of its checkpoint key: the layout, its rank and
+    the world size."""
+    if comm is None:
+        return None
+    from .parallel.mesh import world_size
+
+    return (comm.axes, comm.size, comm.index, world_size()) + extra
 
 
 def streaming_groupby_reduce(
@@ -100,16 +134,29 @@ def streaming_groupby_reduce(
     quantiles and medians (``nbits + 1`` passes over the data); ``mode``
     does not. ``batch_len`` columns a slab, or as many as fit
     ``batch_bytes`` (default 256 MiB).
+
+    ``mesh=`` (a ``parallel.make_mesh`` mesh; every rank calls with the same
+    arguments): each slab splits over the ``axis_name`` dims, and each rank
+    stages only its own columns (a loader is called with the rank's own
+    ``(start, stop)``) and folds them into its own accumulators; no
+    collective runs while streaming. One combine at the end (the in-memory
+    mesh's ``_combine_intermediates``) gives every rank the whole result.
+    Above ``dense_intermediate_bytes_max`` additive reductions stream in
+    the blocked owner-by-owner form; quantiles sum each counting pass over
+    the ranks.
     """
     if isinstance(func, (tuple, list)):
         raise TypeError("streaming_groupby_reduce takes one func; pass statistic sets to "
                         "streaming_groupby_aggregate_many")
-    _no_mesh(mesh)
-    return _streaming_groupby_reduce_impl(
-        array, by, func=func, batch_len=batch_len, batch_bytes=batch_bytes,
-        expected_groups=expected_groups, isbin=isbin, sort=sort, axis=axis,
-        fill_value=fill_value, dtype=dtype, min_count=min_count,
-        finalize_kwargs=finalize_kwargs, engine=engine, device=device)
+    with telemetry.span("streaming_groupby_reduce",
+                        func=func if isinstance(func, str) else getattr(func, "name", "custom"),
+                        mesh=mesh is not None):
+        return _streaming_groupby_reduce_impl(
+            array, by, func=func, batch_len=batch_len, batch_bytes=batch_bytes,
+            expected_groups=expected_groups, isbin=isbin, sort=sort, axis=axis,
+            fill_value=fill_value, dtype=dtype, min_count=min_count,
+            finalize_kwargs=finalize_kwargs, engine=engine, device=device, mesh=mesh,
+            axis_name=axis_name)
 
 
 def streaming_groupby_aggregate_many(
@@ -135,13 +182,17 @@ def streaming_groupby_aggregate_many(
     """N grouped statistics in one streaming pass: the fusion planner
     (``aggregations.plan_fused``) merges them into one chunk plan, every slab
     is staged once and folds into one fused carry. Returns ``(results,
-    *groups)`` with ``results`` a dict func -> tensor."""
-    _no_mesh(mesh)
-    return _streaming_groupby_reduce_impl(
-        array, by, func=tuple(funcs), batch_len=batch_len, batch_bytes=batch_bytes,
-        expected_groups=expected_groups, isbin=isbin, sort=sort, axis=axis,
-        fill_value=fill_value, dtype=dtype, min_count=min_count,
-        finalize_kwargs=finalize_kwargs, engine=engine, device=device)
+    *groups)`` with ``results`` a dict func -> tensor. ``mesh=`` runs the
+    fused legs through the same per-rank step as
+    :func:`streaming_groupby_reduce`."""
+    with telemetry.span("streaming_groupby_aggregate_many", funcs=list(funcs),
+                        mesh=mesh is not None):
+        return _streaming_groupby_reduce_impl(
+            array, by, func=tuple(funcs), batch_len=batch_len, batch_bytes=batch_bytes,
+            expected_groups=expected_groups, isbin=isbin, sort=sort, axis=axis,
+            fill_value=fill_value, dtype=dtype, min_count=min_count,
+            finalize_kwargs=finalize_kwargs, engine=engine, device=device, mesh=mesh,
+            axis_name=axis_name)
 
 
 def _host_array(array) -> np.ndarray:
@@ -169,11 +220,12 @@ def _unsigned_wrap(loader, probe_dtype: np.dtype, func: str):
 
 def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, expected_groups,
                                    isbin, sort, axis, fill_value, dtype, min_count,
-                                   finalize_kwargs, engine, device) -> tuple:
+                                   finalize_kwargs, engine, device, mesh=None,
+                                   axis_name="data") -> tuple:
     from .core import (_astype_final, _convert_expected, _group_values, _normalize_expected,
                        _normalize_isbin, _normalize_reduce_axes)
 
-    dev = utils.resolve_device(device)
+    dev, comm = _stream_mesh(mesh, axis_name, device)
     labels = utils.asarray_host(by)
     keep_by_shape: tuple = ()
     loader: Callable[[int, int], Any]
@@ -204,8 +256,10 @@ def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, e
     # -- host factorize over the whole label span (labels only) -----------
     expected_idx = _convert_expected(_normalize_expected(expected_groups, 1),
                                      _normalize_isbin(isbin, 1), sort)
-    codes, found_groups, grp_shape, _ngroups, size, _props = fct.factorize_(
-        [labels], axes=red_axes, expected_groups=expected_idx, sort=sort)
+    with telemetry.span("factorize") as fsp:
+        codes, found_groups, grp_shape, ngroups, size, _props = fct.factorize_(
+            [labels], axes=red_axes, expected_groups=expected_idx, sort=sort)
+        fsp.set(ngroups=ngroups, size=size)
     # one contiguous int32 copy for the whole stream: slab codes are views
     codes = np.ascontiguousarray(np.asarray(codes).reshape(-1), dtype=np.int32)
     if size == 0:
@@ -290,18 +344,20 @@ def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, e
     if batch_len is None:
         batch_bytes = _DEFAULT_BATCH_BYTES if batch_bytes is None else batch_bytes
         batch_len = max(1, min(n, batch_bytes // max(row_bytes, 1)))
+    batch_len = _mesh_batch_len(batch_len, comm)
     out_shape = lead_shape + tuple(keep_by_shape) + tuple(grp_shape)
 
     if stream_orderstat:
         result = _stream_quantile(
             agg, loader, codes, size=size, n=n, batch_len=batch_len, lead_shape=lead_shape,
             probe_dtype=np.dtype(np.float64) if datetime_dtype is not None else probe.dtype,
-            data_probe=probe, device=dev)
-        result = _astype_final(result, agg, datetime_dtype)
-        result = _scatter_stream(result, present_table, size_full, dev)
-        shape = agg.new_dims() + out_shape
-        if tuple(result.shape) != shape:
-            result = result.reshape(shape)
+            data_probe=probe, device=dev, comm=comm)
+        with telemetry.span("finalize"):
+            result = _astype_final(result, agg, datetime_dtype)
+            result = _scatter_stream(result, present_table, size_full, dev)
+            shape = agg.new_dims() + out_shape
+            if tuple(result.shape) != shape:
+                result = result.reshape(shape)
         return (result,) + _group_values(found_groups)
 
     skipna = agg.name.startswith("nan") or agg.name == "count"
@@ -311,27 +367,62 @@ def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, e
 
         shift_nat_identity_fills(agg)
     hint = _highcard_oom_hint(agg, size, present_table)
+    blocked = False
+    if comm is not None:
+        # the in-memory mesh's ceiling routing: above it, additive reductions
+        # accumulate owner blocks, and everything else raises
+        from .parallel.mapreduce import _route_ceiling
+
+        lead_elems = int(np.prod(lead_shape, dtype=np.int64)) if lead_shape else 1
+        blocked = _route_ceiling(agg, size, lead_elems, probe.dtype, comm.size, "map-reduce")
     state = _run_reduce_stream(agg, loader, codes, size=size, n=n, batch_len=batch_len,
                                lead_shape=lead_shape, count_skipna=count_skipna, nat=nat,
                                probe=probe, device=dev, hint=hint,
-                               cast=_slab_cast(agg, probe.dtype, datetime_dtype is not None))
+                               cast=_slab_cast(agg, probe.dtype, datetime_dtype is not None),
+                               comm=comm, blocked=blocked)
+
+    with telemetry.span("finalize", **({"mesh": True} if comm is not None else {})):
+        if comm is not None:
+            result = _mesh_final(agg, state, comm, nat=nat, blocked=blocked, size=size,
+                                 keyed=keyed)
+        else:
+            from .parallel.mapreduce import _finalize_combined
+
+            inters, counts = state
+            if keyed:
+                inters = _unkey(agg, inters)
+            result = _finalize_combined(agg, inters, counts)
+        if fused_funcs is not None:
+            out = _finalize_many_stream(agg, result, out_shape, present_table, size_full, dev)
+            return (out,) + _group_values(found_groups)
+        result = _astype_final(result, agg, datetime_dtype)
+        result = _scatter_stream(result, present_table, size_full, dev)
+        # (..., size) -> (..., *keep_by, *groups): kept by-dims ride the group
+        # axis as disjoint code ranges and unfold here
+        if tuple(result.shape) != out_shape:
+            result = result.reshape(out_shape)
+    return (result,) + _group_values(found_groups)
+
+
+def _mesh_final(agg: Aggregation, state, comm, *, nat: bool, blocked: bool, size: int,
+                keyed: bool):
+    """The one combine of a mesh stream (the reference's
+    ``_build_mesh_final`` and ``_build_mesh_final_blocked``): each rank's
+    accumulators meet the in-memory mesh's combine, and every rank gets the
+    whole result. Blocked carries already hold each owner's combined block:
+    they finalize and are gathered."""
+    from .parallel.mapreduce import (_combine_intermediates, _finalize_combined, _map_result,
+                                     _tiles_to_groups)
 
     inters, counts = state
-    if keyed:
-        inters = _unkey(agg, inters)
-    from .parallel.mapreduce import _finalize_combined
-
-    result = _finalize_combined(agg, inters, counts)
-    if fused_funcs is not None:
-        out = _finalize_many_stream(agg, result, out_shape, present_table, size_full, dev)
-        return (out,) + _group_values(found_groups)
-    result = _astype_final(result, agg, datetime_dtype)
-    result = _scatter_stream(result, present_table, size_full, dev)
-    # (..., size) -> (..., *keep_by, *groups): kept by-dims ride the group
-    # axis as disjoint code ranges and unfold here
-    if tuple(result.shape) != out_shape:
-        result = result.reshape(out_shape)
-    return (result,) + _group_values(found_groups)
+    if blocked:
+        result_own = _finalize_combined(agg, inters, counts)
+        return _map_result(lambda r: r[..., :size], _tiles_to_groups(result_own, comm))
+    counts_g = None if counts is None else comm.psum(counts)
+    combined = _combine_intermediates(agg, inters, comm, nat)
+    if keyed:  # extrema combine in key space, then flip back
+        combined = _unkey(agg, combined)
+    return _finalize_combined(agg, combined, counts_g)
 
 
 def _unkey(agg: Aggregation, inters: list) -> list:
@@ -345,26 +436,34 @@ def _unkey(agg: Aggregation, inters: list) -> list:
 
 def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int, n: int,
                        batch_len: int, lead_shape: tuple, count_skipna: bool, nat: bool,
-                       probe: np.ndarray, device: torch.device, hint, cast=None):
+                       probe: np.ndarray, device: torch.device, hint, cast=None, comm=None,
+                       blocked: bool = False):
     """The slab loop of a reduction: stage, step, merge into the carry, with
     the OOM ladder, the throttle and the checkpointer. Returns the carry
-    ``(inters, counts)``."""
+    ``(inters, counts)``.
+
+    ``comm``: a mesh rank's collectives. The rank stages and folds only its
+    shard of each slab (the reference's ``_build_mesh_step``), with no
+    collective; its OOM ladder halves its own shard. ``blocked``: the
+    owner-by-owner form (``_build_mesh_step_blocked``), whose per-slab psums
+    every rank must run alike, so it has no ladder."""
     from .pipeline import DispatchThrottle, SlabStager, stream_slabs
     from .profiling import timed
     from .resilience import StreamCheckpointer, StreamCounters, device_restore, dispatch_slab
 
     counters = StreamCounters()
     stager = SlabStager(loader, codes, n=n, batch_len=batch_len, lead_shape=lead_shape,
-                        device=device, counters=counters)
+                        device=device, counters=counters,
+                        shard=None if comm is None else (comm.size, comm.index))
     ckpt = StreamCheckpointer.for_stream(
         # the resolved aggregation (dtype request, custom legs, kwargs): a
         # snapshot of a same-named but different aggregation must miss
         kind="reduce", name=_agg_identity(agg), n=n, batch_len=batch_len, size=size,
         codes=codes, lead_shape=lead_shape, extra=(nat, count_skipna, str(probe.dtype)),
-        data_probe=probe, counters=counters)
+        data_probe=probe, counters=counters, mesh_key=_mesh_key(comm, blocked))
     state = None
     skip = 0
-    snap = ckpt.restore()
+    snap = ckpt.restore(comm, device)
     if snap is not None:
         # bit-identical resume: the carry round-trips the host exactly and the
         # remaining slabs fold in the same order
@@ -375,8 +474,13 @@ def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int
     nbatches = math.ceil(n / batch_len)
 
     def apply_step(st, sl):
-        inters, counts = _slab_stats(agg, sl.data, sl.codes, sl.offset, size=size,
-                                     count_skipna=count_skipna, nat=nat, cast=cast)
+        if blocked:
+            inters, counts = _blocked_slab_stats(agg, sl.data, sl.codes, sl.offset, size=size,
+                                                 comm=comm, count_skipna=count_skipna, nat=nat,
+                                                 cast=cast)
+        else:
+            inters, counts = _slab_stats(agg, sl.data, sl.codes, sl.offset, size=size,
+                                         count_skipna=count_skipna, nat=nat, cast=cast)
         if st is None:
             return _init_state_like_merged(agg, inters, counts, nat=nat)
         merged = _merge_into(agg, st, inters, counts, nat=nat)
@@ -385,8 +489,8 @@ def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int
 
     with timed(f"stream [{agg.name}] {nbatches} slab(s) x {batch_len}"):
         for sl in stream_slabs(stager, label=f"reduce[{agg.name}]", skip=skip):
-            state = dispatch_slab(apply_step, state, sl, stager=stager, counters=counters,
-                                  highcard_hint=hint)
+            state = dispatch_slab(apply_step, state, sl, stager=None if blocked else stager,
+                                  counters=counters, highcard_hint=hint)
             throttle.tick(device)
             done += 1
             ckpt.tick(lambda: state, slabs_done=done)
@@ -453,7 +557,10 @@ def _route_stream_highcard(engine, codes, size: int, probe, lead_shape, agg) -> 
     ncap = kernels.present_cap(len(present), size)
     if over:
         est_sort = dense_intermediate_bytes(lead_elems, ncap, probe.dtype, agg, 1)
-        return "sort" if est_sort <= ceiling else "torch"
+        if est_sort > ceiling:
+            return "torch"  # the mesh blocked form, or the ceiling error, decides
+        telemetry.count("highcard.ceiling_routes")
+        return "sort"
     return "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "torch"
 
 
@@ -544,6 +651,30 @@ def _slab_stats(agg: Aggregation, slab: torch.Tensor, codes: torch.Tensor, offse
                                     last=agg.combine == ("last",), nat=nat, offset=offset)
         return [val, pos], counts
     return _local_stage(agg, codes, slab, size, nat, count_skipna)
+
+
+def _blocked_slab_stats(agg: Aggregation, slab, codes, offset: int, *, size: int, comm,
+                        count_skipna: bool, nat: bool, cast=None):
+    """One slab of the blocked owner-by-owner mesh stream: a loop over the
+    ranks' owner blocks of ``ceil(size / ndev)`` groups, each block's shard
+    intermediates combined over the ranks, the owner keeping its block. No
+    dense (..., size) buffer exists; the shard is read once a block.
+    Additive combines only (sum and the variance triple)."""
+    from .parallel.mapreduce import _combine_intermediates
+
+    ndev = comm.size
+    b = -(-size // ndev)
+    owned = None
+    for d in range(ndev):
+        in_block = (codes >= d * b) & (codes < (d + 1) * b)
+        bc = torch.where(in_block, codes - d * b, -1)
+        inters, counts = _slab_stats(agg, slab, bc, offset, size=b, count_skipna=count_skipna,
+                                     nat=nat, cast=cast)
+        counts = None if counts is None else comm.psum(counts)
+        outs = _combine_intermediates(agg, inters, comm, nat)
+        if d == comm.index:
+            owned = (outs, counts)
+    return owned
 
 
 def _argmerge_better(va, vb, arg_of_max: bool):
@@ -667,7 +798,7 @@ def _assign(dst, src) -> None:
 
 
 def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batch_len: int,
-                     lead_shape: tuple, probe_dtype, data_probe, device):
+                     lead_shape: tuple, probe_dtype, data_probe, device, comm=None):
     """Out-of-core exact quantile/median: the radix-select bisection
     (``kernels._radix_select``) consumes per-group counts only, and counts
     accumulate slab by slab, so order statistics stream in ``nbits + 1``
@@ -675,7 +806,13 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
     65 for float64). Bit for bit the eager select path: the same exact
     counts, the same bit-by-bit reconstruction and interpolation. The data
     is read ``nbits + 1`` times, a trade made for never holding the array.
-    Returns (*q, ..., size) on ``device``, before the final cast."""
+    Returns (*q, ..., size) on ``device``, before the final cast.
+
+    ``comm``: a mesh rank's collectives. The rank counts its own shard of
+    every slab, and each pass's counts sum over the ranks once, at the end
+    of the pass (the non-skipna NaN flags take their maximum), so every rank
+    runs the same collectives in the same order and holds the same
+    bisection state."""
     from .pipeline import DispatchThrottle, SlabStager, stream_slabs
     from .profiling import timed
     from .resilience import StreamCheckpointer, StreamCounters, device_restore, dispatch_slab
@@ -702,10 +839,11 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
     # one stager for every pass: the retry policy and the loader's dtype
     # contract hold across the whole multi-pass run
     stager = SlabStager(loader, codes, n=n, batch_len=batch_len, lead_shape=lead_shape,
-                        device=device, counters=counters)
+                        device=device, counters=counters,
+                        shard=None if comm is None else (comm.size, comm.index))
 
     def prep(sl):
-        data = sl.data.reshape(k, -1)
+        data = sl.data.reshape(k, sl.data.shape[-1])  # a rank's shard may be empty
         return data if data.dtype == fdtype else data.to(fdtype)
 
     def count_pass(st, sl):
@@ -723,8 +861,8 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
     ckpt = StreamCheckpointer.for_stream(
         kind="quantile", name=agg.name, n=n, batch_len=batch_len, size=size, codes=codes,
         lead_shape=lead_shape, extra=(tuple(qs.tolist()), method, str(fdtype)),
-        data_probe=data_probe, counters=counters)
-    snap = ckpt.restore()
+        data_probe=data_probe, counters=counters, mesh_key=_mesh_key(comm))
+    snap = ckpt.restore(comm, device)
     phase0, skip0 = (0, 0) if snap is None else (snap.phase, snap.slabs_done)
     throttle = DispatchThrottle()
 
@@ -747,6 +885,8 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
                 throttle.tick(device)
                 done += 1
                 ckpt.tick(lambda: (nn, hasnan), slabs_done=done, phase=0)
+            if comm is not None:
+                nn, hasnan = comm.psum(nn), comm.pmax(hasnan)
         else:
             nn, hasnan, prefix, rank, cnt0 = device_restore(snap.payload, device)
             bit0, bit_skip = phase0 - 1, skip0
@@ -779,6 +919,8 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
                 done += 1
                 ckpt.tick(lambda: (nn, hasnan, prefix, rank, cnt), slabs_done=done,
                           phase=1 + i)
+            if comm is not None:
+                cnt = comm.psum(cnt)
             prefix, rank = kernels._radix_update(prefix, rank, cnt, b)
     ckpt.done()
 
@@ -827,12 +969,17 @@ def streaming_groupby_scan(
     comes back as a numpy array on the host. The semantics are those of
     :func:`flox_tpu_torch.groupby_scan`, datetime NaT rules and integer
     promotion included.
+
+    ``mesh=``: each rank scans its own columns of every slab with the mesh
+    Blelloch program (``parallel.scan.stream_scan_step``) and a carry from
+    the slabs before; every rank gets (or writes) each whole result slab.
     """
-    _no_mesh(mesh)
-    return _streaming_groupby_scan_impl(array, by, func=func, batch_len=batch_len,
-                                        batch_bytes=batch_bytes,
-                                        expected_groups=expected_groups, dtype=dtype, out=out,
-                                        device=device)
+    with telemetry.span("streaming_groupby_scan", func=func, mesh=mesh is not None):
+        return _streaming_groupby_scan_impl(array, by, func=func, batch_len=batch_len,
+                                            batch_bytes=batch_bytes,
+                                            expected_groups=expected_groups, dtype=dtype,
+                                            out=out, device=device, mesh=mesh,
+                                            axis_name=axis_name)
 
 
 def _scan_slab_fn(scan, *, size: int, dtype, nat: bool):
@@ -847,7 +994,7 @@ def _scan_slab_fn(scan, *, size: int, dtype, nat: bool):
 
     if scan.mode == "apply_binary_op":
 
-        def slab_scan(slab, codes, carry, had):
+        def slab_scan(slab, codes, carry, had, _width=None):
             sc = kernels._safe_codes(codes, size)
             local = gk(scan.scan, codes, slab, size=size, dtype=dtype, **kw)
             if nat:
@@ -878,7 +1025,7 @@ def _scan_slab_fn(scan, *, size: int, dtype, nat: bool):
 
         return slab_scan
 
-    def fill_scan(slab, codes, carry, has):  # ffill / bfill
+    def fill_scan(slab, codes, carry, has, _width=None):  # ffill / bfill
         sc = kernels._safe_codes(codes, size)
         local = gk(scan.scan, codes, slab, size=size, **kw)
         is_float = slab.is_floating_point()
@@ -903,6 +1050,26 @@ def _scan_slab_fn(scan, *, size: int, dtype, nat: bool):
     return fill_scan
 
 
+def _mesh_scan_slab_fn(scan, *, size: int, dtype, nat: bool, comm, lead_shape: tuple):
+    """``slab_scan(shard, codes, carry_a, carry_b, width)`` of a mesh stream
+    (the reference's ``_run_mesh_stream_scan`` step): the rank's shard runs
+    ``parallel.scan.stream_scan_step``, and the shards are gathered into the
+    whole ``width``-column result slab, replicated."""
+    from .parallel.scan import gather_shards, stream_scan_step
+
+    k = int(np.prod(lead_shape, dtype=np.int64)) if lead_shape else 1
+
+    def slab_scan(shard, codes, carry, had, width):
+        arr = shard.reshape(k, shard.shape[-1])
+        if dtype is not None:
+            arr = arr.to(dtype)  # the promotion of accumulating scans
+        out, c2, h2 = stream_scan_step(scan, arr, codes, size=size, comm=comm, nat=nat,
+                                       carry=None if carry is None else (carry, had))
+        return gather_shards(out, comm, width).reshape(tuple(lead_shape) + (width,)), c2, h2
+
+    return slab_scan
+
+
 def _scan_ckpt_id(scan) -> str:
     """The resolved scan's identity for the checkpoint key: a custom scan
     sharing a builtin's name misses the builtin's snapshot."""
@@ -913,7 +1080,7 @@ def _scan_ckpt_id(scan) -> str:
 
 
 def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, expected_groups,
-                                 dtype, out, device) -> Any:
+                                 dtype, out, device, mesh=None, axis_name="data") -> Any:
     from .aggregations import _initialize_scan
     from .core import _convert_expected, _normalize_expected, _normalize_isbin
     from .pipeline import SlabStager, stream_slabs
@@ -921,7 +1088,7 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
     from .resilience import StreamCheckpointer, StreamCounters, device_restore, dispatch_slab
     from .scan import _check_datetime_scan
 
-    dev = utils.resolve_device(device)
+    dev, comm = _stream_mesh(mesh, axis_name, device)
     labels = utils.asarray_host(by)
     if labels.ndim != 1:
         raise NotImplementedError("streaming_groupby_scan scans the streamed axis: pass 1-D "
@@ -939,8 +1106,10 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
 
     expected_idx = _convert_expected(_normalize_expected(expected_groups, 1),
                                      _normalize_isbin(False, 1), True)
-    codes, _found, _grp_shape, _ngroups, size, _props = fct.factorize_(
-        [labels], axes=(0,), expected_groups=expected_idx, sort=True)
+    with telemetry.span("factorize") as fsp:
+        codes, _found, _grp_shape, ngroups, size, _props = fct.factorize_(
+            [labels], axes=(0,), expected_groups=expected_idx, sort=True)
+        fsp.set(ngroups=ngroups, size=size)
     codes = np.ascontiguousarray(np.asarray(codes).reshape(-1), dtype=np.int32)
     if size == 0:
         raise ValueError("No groups to scan over (empty expected_groups?)")
@@ -972,23 +1141,29 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
     if batch_len is None:
         batch_bytes = _DEFAULT_BATCH_BYTES if batch_bytes is None else batch_bytes
         batch_len = max(1, min(n, batch_bytes // max(row_bytes, 1)))
+    batch_len = _mesh_batch_len(batch_len, comm)
     nbatches = math.ceil(n / batch_len)
     has_missing = bool((codes < 0).any())
     reverse = scan.name == "bfill"
-    slab_scan = _scan_slab_fn(scan, size=size, dtype=dtype, nat=nat)
+    if comm is None:
+        slab_scan = _scan_slab_fn(scan, size=size, dtype=dtype, nat=nat)
+    else:
+        slab_scan = _mesh_scan_slab_fn(scan, size=size, dtype=dtype, nat=nat, comm=comm,
+                                       lead_shape=lead_shape)
 
     counters = StreamCounters()
     stager = SlabStager(loader, codes, n=n, batch_len=batch_len, lead_shape=lead_shape,
-                        device=dev, counters=counters)
+                        device=dev, counters=counters,
+                        shard=None if comm is None else (comm.size, comm.index))
     # a scan's checkpoint needs the emitted slabs to survive the kill, which
     # only a writer gives: snapshots are taken on the out= path only
     ckpt = StreamCheckpointer.for_stream(
         kind="scan", name=_scan_ckpt_id(scan), n=n, batch_len=batch_len, size=size,
         codes=codes, lead_shape=lead_shape, extra=(nat, str(dtype), has_missing, reverse),
-        data_probe=probe, counters=counters, enabled=out is not None)
+        data_probe=probe, counters=counters, enabled=out is not None, mesh_key=_mesh_key(comm))
     carry = had = None
     skip = 0
-    snap = ckpt.restore()
+    snap = ckpt.restore(comm, dev)
     if snap is not None:
         skip = snap.slabs_done
         carry, had = device_restore(snap.payload, dev)
@@ -998,7 +1173,7 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
     def apply_scan(cur, sl):
         nonlocal result_arr
         c, h = cur
-        out_slab, c2, h2 = slab_scan(sl.data, sl.codes, c, h)
+        out_slab, c2, h2 = slab_scan(sl.data, sl.codes, c, h, sl.stop - sl.start)
         # the slab's result reaches the host before the carry moves on: a
         # split or a failure after this point never re-emits a slab
         if keyed:  # uint64 fills streamed as keys: the values back
@@ -1013,7 +1188,10 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
 
     with timed(f"stream-scan [{scan.name}] {nbatches} slab(s)"):
         for sl in stream_slabs(stager, reverse=reverse, label=f"scan[{scan.name}]", skip=skip):
-            carry, had = dispatch_slab(apply_scan, (carry, had), sl, stager=stager,
+            # a mesh slab's exchange is collective: a split on one rank would
+            # leave the others waiting, so the mesh scan has no OOM ladder
+            carry, had = dispatch_slab(apply_scan, (carry, had), sl,
+                                       stager=stager if comm is None else None,
                                        counters=counters, reverse=reverse)
             done += 1
             ckpt.tick(lambda: (carry, had), slabs_done=done)

@@ -70,6 +70,10 @@ def as_tensor(x: Any, device: torch.device) -> torch.Tensor:
     arr = np.asarray(x)
     if any(s < 0 for s in arr.strides):
         arr = np.ascontiguousarray(arr)  # torch cannot view negative strides
+    from . import telemetry
+
+    if telemetry.enabled():
+        telemetry.METRICS.inc("bytes.h2d", int(arr.nbytes))
     return torch.as_tensor(arr, device=device)
 
 

@@ -9,7 +9,6 @@ ALLOWED_GAPS = {
     "autotune": "A9 (autotune)",
     "cache": "A9 (cache)",
     "serve": "A9 (serving)",
-    "telemetry": "A9 (observability base)",
 }
 
 
@@ -25,7 +24,7 @@ def test_exported_names_resolve():
                  "streaming_groupby_reduce", "streaming_groupby_aggregate_many",
                  "streaming_groupby_scan"):
         assert callable(getattr(flox_tpu_torch, name)), name
-    for module in ("cohorts", "faults", "profiling", "resilience", "kernels"):
+    for module in ("cohorts", "faults", "profiling", "resilience", "kernels", "telemetry"):
         assert getattr(flox_tpu_torch, module).__name__ == f"flox_tpu_torch.{module}"
 
 

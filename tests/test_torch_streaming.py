@@ -182,12 +182,23 @@ def test_custom_aggregation_streams():
 
 
 def test_mesh_names_a8b():
+    """mesh= (ROADMAP A8b) streams on all three entry points: on a one-rank
+    mesh, bit for bit the single-device stream (tests/test_torch_mesh_streaming.py
+    holds the 4-rank world against the reference)."""
+    from flox_tpu_torch.parallel import make_mesh
+
     vals, labels = _data()
+    mesh = make_mesh(device_type="cpu")
     for fn, kw in ((pst.streaming_groupby_reduce, {"func": "sum"}),
                    (pst.streaming_groupby_aggregate_many, {"funcs": ("sum",)}),
                    (pst.streaming_groupby_scan, {"func": "cumsum"})):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            fn(vals, labels, mesh=object(), device="cpu", **kw)
+        single = fn(vals, labels, device="cpu", batch_len=300, **kw)
+        meshed = fn(vals, labels, mesh=mesh, batch_len=300, **kw)
+        if isinstance(single, tuple):
+            single, meshed = single[0], meshed[0]
+        if isinstance(single, dict):
+            single, meshed = single["sum"], meshed["sum"]
+        assert np.asarray(single).tobytes() == np.asarray(meshed).tobytes(), fn.__name__
 
 
 def test_default_device_is_the_card(monkeypatch):

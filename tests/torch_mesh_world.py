@@ -1,5 +1,7 @@
 """A spawned ``torch.distributed`` world of CPU ranks that runs the port's mesh
-cases (flox_tpu_torch.parallel) for tests/test_torch_sharded.py.
+cases (flox_tpu_torch.parallel) for tests/test_torch_sharded.py, and its
+streamed mesh cases (``STREAM_CASE_IDS``: the ``streaming_groupby_*`` entry
+points with ``mesh=``) for tests/test_torch_mesh_streaming.py.
 
 This module imports numpy, torch and flox_tpu_torch only: every spawned rank
 re-imports it, so it stays cheap and never imports JAX. The cases are
@@ -90,6 +92,211 @@ def _case_ids() -> list[str]:
 
 CASE_IDS = _case_ids()
 
+#: the reference's streaming aggregations (tests/test_streaming.py STREAM_FUNCS)
+STREAM_FUNCS = [
+    "sum", "nansum", "prod", "nanprod", "mean", "nanmean", "var", "nanvar",
+    "std", "nanstd", "max", "nanmax", "min", "nanmin", "count", "all", "any",
+    "argmax", "argmin", "nanargmax", "nanargmin",
+    "first", "last", "nanfirst", "nanlast",
+]
+STREAM_DT_FUNCS = ["min", "nanmax", "first", "nanlast", "mean", "count"]
+STREAM_KILL_KINDS = ["reduce", "scan", "quantile"]
+#: funcs streamed with a tail slab of 2 columns, so ranks 2 and 3 hold empty
+#: shards of it and must fold in the identity
+STREAM_TAIL_FUNCS = ["nanmean", "max", "argmax", "nanlast", "nanvar", "nanmedian", "nancumsum"]
+
+
+def _stream_case_ids() -> list[str]:
+    ids = [f"stream-{f}" for f in STREAM_FUNCS]
+    ids += ["stream-batch-rounds", "stream-loader", "stream-rms", "stream-min-count"]
+    ids += [f"stream-datetime-{f}" for f in STREAM_DT_FUNCS]
+    ids += ["stream-blocked-sum", "stream-blocked-nanvar", "stream-blocked-100k",
+            "stream-blocked-dense-sum", "stream-blocked-dense-nanvar",
+            "stream-nonadditive-sort", "stream-nonadditive-raises"]
+    ids += ["stream-median-nan", "stream-quantile-2axis", "stream-nanmedian",
+            "stream-nanquantile"]
+    ids += ["stream-many-trio", "stream-many-five"]
+    ids += [f"stream-scan-{f}" for f in SCAN_FUNCS]
+    ids += ["stream-scan-td-nat", "stream-scan-int-writer", "stream-scan-dt-ffill"]
+    ids += ["stream-split-argmax"] + [f"stream-kill-{k}" for k in STREAM_KILL_KINDS]
+    ids += [f"stream-tail-{f}" for f in STREAM_TAIL_FUNCS]
+    return ids
+
+
+STREAM_CASE_IDS = _stream_case_ids()
+
+
+def _mdata():
+    """TestMeshStreaming's data (tests/test_streaming.py)."""
+    rng = np.random.default_rng(11)
+    n = 6000
+    vals = rng.normal(size=(4, n))
+    vals[:, ::13] = np.nan
+    return vals, rng.integers(0, 9, n)
+
+
+def _qdata():
+    """TestStreamingOrderStats's data."""
+    rng = np.random.default_rng(23)
+    n = 5000
+    vals = rng.normal(size=(3, n))
+    vals[:, ::11] = np.nan
+    return vals, rng.integers(0, 9, n)
+
+
+def _msdata():
+    """TestMeshStreamingScan's data."""
+    rng = np.random.default_rng(41)
+    n = 4096
+    vals = rng.normal(size=(2, n))
+    vals[:, ::9] = np.nan
+    return vals, rng.integers(0, 6, n)
+
+
+def _rdata():
+    """The resilience tests' data (tests/test_resilience.py's fixture)."""
+    rng = np.random.default_rng(0)
+    n = 4000
+    vals = rng.normal(size=(3, n))
+    vals[:, ::17] = np.nan
+    return vals, rng.integers(0, 8, n)
+
+
+def stream_case(cid: str) -> dict:
+    """One streamed mesh case, in :func:`case`'s form; ``special`` names what
+    each side builds in its own way: "loader" (a loader instead of the host
+    array), "writer" (an ``out=`` writer), "rms" (the custom aggregation),
+    "dense" (the pinned dense engine: "torch" here, "jax" there), "oom" (a
+    dispatch-side OOM at ``kw``'s first slab past 800), "kill" (a
+    kill-and-resume run of ``kind``)."""
+    out = {"entry": "streaming_groupby_reduce", "mesh": "1d", "ceiling": None,
+           "special": None}
+    name = cid[len("stream-"):]
+    parts = name.split("-")
+    if name in STREAM_FUNCS:
+        vals, labels = _mdata()
+        v = vals if name not in ("any", "all") else ~np.isnan(vals)
+        out.update(args=(v, labels), kw=dict(func=name, batch_len=997))
+    elif name == "batch-rounds":
+        out.update(args=_mdata(), kw=dict(func="nansum", batch_len=1001))
+    elif name == "loader":
+        out.update(args=_mdata(), kw=dict(func="nanmean", batch_len=512), special="loader")
+    elif name == "rms":
+        out.update(args=_mdata(), kw=dict(batch_len=800), special="rms")
+    elif name == "min-count":
+        out.update(args=_mdata(), kw=dict(func="nansum", min_count=800, batch_len=900))
+    elif parts[0] == "datetime":
+        rng = np.random.default_rng(5)
+        n = 4000
+        labels = rng.integers(0, 6, n)
+        dt = (np.datetime64("2021-06-01")
+              + rng.integers(0, 10**6, n).astype("timedelta64[s]")).astype("datetime64[ns]")
+        dt[rng.random(n) < 0.04] = np.datetime64("NaT")
+        out.update(args=(dt, labels), kw=dict(func=parts[1], batch_len=640))
+    elif parts[0] == "blocked":
+        rng = np.random.default_rng(17)
+        if parts[1] == "dense":
+            # the dense engine pinned, so the sort engine cannot take the
+            # call: above the ceiling the owner-by-owner form runs
+            n, size = 6000, 40_000
+            out.update(args=(rng.normal(size=(4, n)), rng.integers(0, size, n)),
+                       ceiling=(2 if parts[2] == "sum" else 3) * 2**20, special="dense",
+                       kw=dict(func=parts[2], expected_groups=np.arange(size), batch_len=800))
+        elif parts[1] == "100k":
+            # __graft_entry__.dryrun_multichip's streamed 100,000-group sum
+            n = 2048
+            codes = rng.integers(0, 100_000, n)
+            out.update(args=(np.round(rng.normal(size=n), 2), codes), ceiling=1_100_000,
+                       kw=dict(func="sum", expected_groups=np.arange(100_000),
+                               fill_value=0.0, batch_len=n // 2))
+        else:
+            n, size = 6000, 40_000
+            labels = rng.integers(0, size, n)
+            vals = rng.normal(size=(4, n))
+            kw = dict(func=parts[1], expected_groups=np.arange(size), batch_len=800)
+            if parts[1] == "sum":
+                kw["fill_value"] = 0
+            out.update(args=(vals, labels), ceiling=4 * 2**20, kw=kw)
+    elif parts[0] == "nonadditive":
+        rng = np.random.default_rng(17)
+        n, size = 2000, 40_000
+        labels = rng.integers(0, size, n)
+        vals = rng.normal(size=(4, n))
+        out.update(args=(vals, labels), ceiling=2 * 2**20,
+                   kw=dict(func="max", expected_groups=np.arange(size), batch_len=800),
+                   special="dense" if parts[1] == "raises" else None)
+    elif name == "median-nan":
+        # one NaN, in slab 1's third shard: only the max over the ranks of
+        # the non-skipna NaN flags carries it to the other ranks
+        rng = np.random.default_rng(99)
+        n, batch_len = 4096, 1024
+        labels = rng.integers(0, 9, n)
+        vals = rng.normal(size=(2, n))
+        vals[:, batch_len + 2 * (batch_len // NRANKS) + 3] = np.nan
+        out.update(args=(vals, labels), kw=dict(func="median", batch_len=batch_len))
+    elif name == "quantile-2axis":
+        out.update(args=_qdata(), mesh="2d",
+                   kw=dict(func="nanmedian", batch_len=700, axis_name=("dcn", "ici")))
+    elif name == "nanmedian":
+        out.update(args=_qdata(), kw=dict(func="nanmedian", batch_len=700))
+    elif name == "nanquantile":
+        out.update(args=_qdata(), kw=dict(func="nanquantile", batch_len=700,
+                                          finalize_kwargs={"q": [0.1, 0.9]}))
+    elif parts[0] == "many":
+        funcs = (("nanmean", "nanmin", "nanmax") if parts[1] == "trio"
+                 else ("count", "nanmean", "nanstd", "nanmin", "nanmax"))
+        out.update(entry="streaming_groupby_aggregate_many", args=_mdata(),
+                   kw=dict(funcs=funcs, batch_len=997))
+    elif parts[0] == "scan":
+        out["entry"] = "streaming_groupby_scan"
+        vals, labels = _msdata()
+        n = labels.shape[0]
+        if parts[1] in SCAN_FUNCS:
+            out.update(args=(vals, labels), kw=dict(func=parts[1], batch_len=1000))
+        elif parts[1] == "td":
+            td = np.random.default_rng(6).integers(1, 100, n).astype("timedelta64[ns]")
+            td[7] = np.timedelta64("NaT")
+            out.update(args=(td, labels), kw=dict(func="cumsum", batch_len=1000))
+        elif parts[1] == "int":
+            out.update(args=((np.arange(n) % 97).astype(np.int32), labels),
+                       kw=dict(func="cumsum", batch_len=1000), special="writer")
+        else:
+            rng = np.random.default_rng(8)
+            dt = np.datetime64("2020-01-01", "ns") + rng.integers(0, 10**9, n).astype(
+                "timedelta64[ns]")
+            dt[::13] = np.datetime64("NaT")
+            out.update(args=(dt, labels), kw=dict(func="ffill", batch_len=1000))
+    elif parts[0] == "tail":
+        rng = np.random.default_rng(31)
+        n = 4002  # slabs of 1000 columns, then a tail of 2: one column for ranks 0 and 1
+        vals = rng.normal(size=(3, n))
+        vals[:, ::7] = np.nan
+        labels = rng.integers(0, 5, n)
+        out.update(args=(vals, labels), kw=dict(func=parts[1], batch_len=1000))
+        if parts[1] == "nancumsum":
+            out["entry"] = "streaming_groupby_scan"
+    elif name == "split-argmax":
+        vals, labels = _rdata()
+        out.update(args=(np.nan_to_num(vals, nan=0.5)[:, :2400], labels[:2400]),
+                   kw=dict(func="argmax", batch_len=800), special="oom")
+    elif name == "raise":
+        # rank 1's loader fails on its shard of the last slab: the other
+        # ranks are then waiting in the final combine
+        out.update(args=_rdata(), kw=dict(func="nanmean", batch_len=800), special="raise")
+    elif parts[0] == "kill":
+        vals, labels = _rdata()
+        vals, labels = vals[:, :2400], labels[:2400]
+        if parts[1] == "quantile":
+            vals = vals.astype(np.float32)  # 33 passes, not 65
+        kw = dict(func={"reduce": "nanmean", "quantile": "nanmedian"}.get(parts[1], "nancumsum"),
+                  batch_len=800)
+        out.update(args=(vals, labels), kw=kw, special="kill", kind=parts[1],
+                   entry="streaming_groupby_scan" if parts[1] == "scan"
+                   else "streaming_groupby_reduce")
+    else:
+        raise KeyError(cid)
+    return out
+
 
 def case(cid: str) -> dict:
     """One case: ``entry`` (the entry point's name), ``args`` (numpy inputs),
@@ -98,6 +305,8 @@ def case(cid: str) -> dict:
     ``dense_intermediate_bytes_max`` to set around the call) and ``special``
     (a case each side builds in its own way: a custom Aggregation, a
     resharded layout, a DTensor, a direct scan program)."""
+    if cid.startswith("stream-"):
+        return stream_case(cid)
     rng = _rng(cid)
     out = {"entry": "groupby_reduce", "mesh": "1d", "ceiling": None, "special": None}
     parts = cid.split("-")
@@ -350,6 +559,94 @@ def _to_host(x):
     return x
 
 
+def _kill_and_resume(entry, args, kw, kind: str):
+    """Kill the stream (every rank at the same dispatch), resume it in the
+    same processes, and return the resumed result, after checking that it
+    resumed and is bit for bit the uninterrupted run."""
+    import flox_tpu_torch
+    from flox_tpu_torch import faults, profiling
+
+    fn = getattr(flox_tpu_torch, entry)
+    buf = np.full(args[0].shape, np.nan, dtype=args[0].dtype)
+
+    def run():
+        # the scan writes into one buffer: the killed run writes the slabs
+        # before the kill and the resumed run the rest, so a slab that
+        # neither writes stays NaN and fails the comparison
+        if kind == "scan":
+            r = fn(*args, out=lambda s, e, res: buf.__setitem__((..., slice(s, e)), res), **kw)
+            assert r is None
+            return (buf.copy(),)
+        return (_to_host(fn(*args, **kw)[0]),)
+
+    base = run()
+    buf[...] = np.nan
+    plan = {"kill_after": 8} if kind == "quantile" else {"kill_at": [2 * kw["batch_len"]]}
+    with flox_tpu_torch.set_options(stream_checkpoint_every=1):
+        with faults.inject(**plan):
+            try:
+                run()
+            except faults.StreamKilled:
+                pass
+            else:
+                raise AssertionError("the fault plan did not kill the stream")
+        with profiling.stream_monitor() as reports:
+            got = run()
+    assert reports[-1].counters.resumed_at is not None, "the stream did not resume"
+    assert got[0].tobytes() == base[0].tobytes(), "the resumed run differs from the base run"
+    return got
+
+
+def _run_stream_case(c, args, kw):
+    """A streamed mesh case on this rank (see :func:`stream_case`)."""
+    import flox_tpu_torch
+    from flox_tpu_torch import faults
+
+    fn = getattr(flox_tpu_torch, c["entry"])
+    special = c["special"]
+    if special == "kill":
+        return _kill_and_resume(c["entry"], args, kw, c["kind"])
+    if special == "rms":
+        kw["func"] = _rms_port()
+    elif special == "dense":
+        kw["engine"] = "torch"
+    calls: list = []
+    if special == "loader":
+        arr = args[0]
+
+        def loader(s, e):
+            calls.append((s, e))
+            return arr[..., s:e]
+
+        args = (loader,) + tuple(args[1:])
+    if special == "raise":
+        import torch.distributed as dist
+
+        arr, rank = args[0], dist.get_rank()
+
+        def loader(s, e):
+            if rank == 1 and s >= 1600:  # its shard of the last slab
+                raise ValueError(f"rank 1 cannot read [{s}:{e})")
+            return arr[..., s:e]
+
+        args = (loader,) + tuple(args[1:])
+    if special == "writer":
+        buf = np.empty(args[0].shape, np.int64)
+        r = fn(*args, out=lambda s, e, res: buf.__setitem__((..., slice(s, e)), res), **kw)
+        assert r is None
+        return (buf,)
+    if special == "oom":
+        with faults.inject(oom_at=[800]) as plan:
+            out = fn(*args, **kw)
+        assert ("SimulatedOOM", 800, 1600) in plan.log, plan.log
+    else:
+        out = fn(*args, **kw)
+    out = _to_host(out) if isinstance(out, tuple) else (_to_host(out),)
+    if special == "loader":
+        out = out + (np.asarray(calls, dtype=np.int64).reshape(-1, 2),)
+    return out
+
+
 def run_port_case(cid: str, meshes: dict):
     """The case on this rank: ``(result, *groups)`` as host arrays."""
     import torch
@@ -362,6 +659,10 @@ def run_port_case(cid: str, meshes: dict):
     c = case(cid)
     kw = dict(c["kw"], mesh=meshes[c["mesh"]])
     args = c["args"]
+    if cid.startswith("stream-"):
+        with flox_tpu_torch.set_options(**({"dense_intermediate_bytes_max": c["ceiling"]}
+                                           if c["ceiling"] else {})):
+            return _run_stream_case(c, args, kw)
     if c["special"] == "rms":
         kw["func"] = _rms_port()
     elif c["special"] == "reshard":
@@ -437,6 +738,84 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str, case_ids: list,
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     dist.destroy_process_group()
+
+
+def _resume_worker(rank: int, world: int, init_file: str, out_dir: str, spill_dir: str,
+                   kill: str, timeout_s: float) -> None:
+    """One rank of a checkpoint world: stream the ``stream-kill-reduce``
+    case with snapshots spilled to ``spill_dir``. ``kill``: "none" (a plain
+    run, which resumes when the spill allows it), "all" (every rank killed
+    at slab 2) or "one" (only rank 1 killed there: the others then fail in
+    the final combine). A killed rank records its outcome and leaves
+    without closing the world."""
+    import torch
+
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=timeout_s))
+    import flox_tpu_torch
+    from flox_tpu_torch import faults, profiling
+    from flox_tpu_torch.parallel import make_mesh
+
+    c = stream_case("stream-kill-reduce")
+    kw = dict(c["kw"], mesh=make_mesh(device_type="cpu"))
+    outcome: tuple
+    killed = kill == "all" or (kill == "one" and rank == 1)
+    with flox_tpu_torch.set_options(stream_checkpoint_every=1, stream_checkpoint_path=spill_dir):
+        try:
+            with faults.inject(**({"kill_at": [2 * kw["batch_len"]]} if killed else {})):
+                with profiling.stream_monitor() as reports:
+                    got, _ = flox_tpu_torch.streaming_groupby_reduce(*c["args"], **kw)
+            outcome = ("ok", _to_host(got), reports[-1].counters.resumed_at)
+        except faults.StreamKilled:
+            outcome = ("killed",)
+        except Exception as err:  # noqa: BLE001 - a peer's failure, reported to the test
+            outcome = ("err", type(err).__name__, str(err))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(outcome, f)
+    if outcome[0] == "killed":
+        os._exit(0)  # a killed process: its peers find its connections closed
+    dist.destroy_process_group()
+
+
+def run_resume_world(out_dir: str, spill_dir: str, kill: str, *, world: int = NRANKS,
+                     deadline_s: float = 90.0, timeout_s: float = 20.0) -> list:
+    """Spawn a fresh checkpoint world (:func:`_resume_worker`) and return each
+    rank's outcome; a rank that is still running at the deadline is
+    terminated and reported as None."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    init_file = os.path.join(out_dir, "init")
+    procs = [ctx.Process(target=_resume_worker, args=(r, world, init_file, out_dir, spill_dir,
+                                                      kill, timeout_s), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+    out = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                out.append(pickle.load(f))
+        else:
+            out.append(None)
+    return out
 
 
 class WorldFailed(RuntimeError):
