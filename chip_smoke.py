@@ -70,7 +70,23 @@ Phases; any failure exits nonzero:
    streamed nancumsum into a host writer, the streamed sort engine on
    day-aligned slabs (bit for bit the eager one), a loader, a simulated OOM
    that the ladder halves, a real ``torch.cuda.OutOfMemoryError`` under a
-   memory cap, and a killed stream resumed from its checkpoint bit for bit.
+   memory cap, and a killed stream resumed from its checkpoint bit for bit;
+   then the serving plane (:func:`phase_serve`): the host copy put twice
+   into the resident dataset registry (month and day labels, not sharded in
+   a world of one), served through ``Dispatcher`` by reference (month
+   nanmean, nanmax and the trio, the daily nanmean, a year's row window),
+   each bit for bit its eager call with one launch and timed in turns
+   against it, four identical requests coalesced into one dispatch, eight
+   64 x 8760 inline payloads micro-batched into one dispatch and one launch,
+   a simulated device loss whose recovery restages the dataset while
+   ``/readyz`` answers 503 and then 200, one ``/metrics`` scrape, and two
+   ``python -m flox_tpu_torch.serve`` processes sharing a warmup directory,
+   the second warming with zero ``nvcc`` builds and answering identically;
+   then the durable store (:func:`phase_store`): the trio over the months
+   appended from the host copy in the streaming slabs (one multi-statistic
+   launch each), a replay acknowledged, compaction, a reopen and the query
+   held against the float64 reference and the streamed trio, and a kill at
+   one durable write on a cut, reopened bit for bit.
    Each call runs with the launch
    counts set to 0 just before it, must launch exactly its kernels, and is
    checked against a float64 (or exact) reduction of the same data on the
@@ -807,6 +823,13 @@ def _drive(ck, name: str, fn, want: dict, totals: dict):
     it and read just after; fails unless they are ``want`` (zeros elsewhere)."""
     ck.reset_launches()
     out = fn()
+    _check_launches(ck, name, want, totals)
+    return out
+
+
+def _check_launches(ck, name: str, want: dict, totals: dict) -> None:
+    """The launches since the last ``reset_launches``, added to ``totals``
+    and held to ``want`` (zeros elsewhere)."""
     torch.cuda.synchronize()
     got = dict(ck.LAUNCHES)
     for kk, v in got.items():
@@ -814,7 +837,6 @@ def _drive(ck, name: str, fn, want: dict, totals: dict):
     expect = {kk: want.get(kk, 0) for kk in got}
     check(got == expect, f"{name}: launches {got}, expected {expect}")
     print(f"[main] {name}: launches {got}")
-    return out
 
 
 def _check_close(name, out, ref, tol_rel=1e-5):
@@ -2772,6 +2794,426 @@ def phase_telemetry(data, month, totals: dict, reps: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the serving plane and the durable store (A9.2, A9.4)
+# ---------------------------------------------------------------------------
+
+
+SERVE_SMALL_ROWS = 64  # rows of each inline micro-batch payload
+SERVE_LINE_ROWS = 8  # rows of each JSON-lines payload of the subprocesses
+SERVE_TURNS = 3  # served and eager calls timed in turns
+SERVE_BATCH_WINDOW = 0.05  # seconds the micro-batch check's batch stays open
+STORE_CUT_ROWS = 8192  # the store's kill-and-reopen check runs on this cut
+
+
+async def _served_checks(d, data, month, day, totals: dict) -> list:
+    """The registry-referenced calls through the dispatcher, in one event
+    loop, each with its launches counted from 0 and its result bit for bit
+    the eager call on the same tensor, then served and eager timed in
+    turns."""
+    import flox_tpu_torch
+    from flox_tpu_torch import cuda_kernels as ck
+
+    trio = ("nanmean", "nanmin", "nanmax")
+    year = 8760
+
+    def eager_reduce(func, x, labels):
+        return lambda: flox_tpu_torch.groupby_reduce(x, labels, func=func, device=DEVICE)[0]
+
+    calls = [
+        ("month nanmean", dict(func="nanmean", dataset="month"), {"segment_sum": 1},
+         eager_reduce("nanmean", data, month)),
+        ("month nanmax", dict(func="nanmax", dataset="month"), {"segment_minmax": 1},
+         eager_reduce("nanmax", data, month)),
+        ("month trio", dict(func=trio, dataset="month"), {"segment_multistat": 1},
+         lambda: flox_tpu_torch.groupby_aggregate_many(data, month, funcs=trio,
+                                                       device=DEVICE)[0]),
+        ("daily nanmean", dict(func="nanmean", dataset="day"), {"segment_sum_radixbin": 1},
+         eager_reduce("nanmean", data, day)),
+        ("year window nanmean", dict(func="nanmean", dataset="month", rows=[0, year]),
+         {"segment_sum": 1}, eager_reduce("nanmean", data[:, :year], month[:year])),
+    ]
+    rows = []
+    for name, req, want, eager in calls:
+        ck.reset_launches()
+        got = await d.submit(**req)
+        _check_launches(ck, f"served {name}", want, totals)
+        ref = eager()
+        if isinstance(ref, dict):
+            ok = all(same(torch.from_numpy(np.ascontiguousarray(got.result[f])), ref[f].cpu())
+                     for f in ref)
+        else:
+            ok = same(torch.from_numpy(np.ascontiguousarray(got.result)), ref.cpu())
+        check(ok, f"served {name}: differs from the eager call")
+        del ref
+        served, eager_ms = [], []
+        for _ in range(SERVE_TURNS):
+            t0 = time.perf_counter()
+            res = await d.submit(**req)
+            served.append(((time.perf_counter() - t0) * 1e3, res.queue_ms, res.device_ms))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eager()
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            del out
+        row = {"call": name, "request_ms": statistics.median(s[0] for s in served),
+               "queue_ms": statistics.median(s[1] for s in served),
+               "device_ms": statistics.median(s[2] for s in served),
+               "eager_ms": statistics.median(eager_ms),
+               "overhead_ms": statistics.median(s[0] - e for s, e in zip(served, eager_ms))}
+        rows.append(row)
+        print(f"[serve] {name}: bit for bit the eager call; request {row['request_ms']!r} ms "
+              f"(queue {row['queue_ms']!r}, device {row['device_ms']!r}), eager "
+              f"{row['eager_ms']!r} ms, the serving plane's own {row['overhead_ms']!r} ms "
+              f"(median of {SERVE_TURNS} turns)")
+    return rows
+
+
+def _sixteenths(x: np.ndarray) -> np.ndarray:
+    return np.round(x.astype(np.float64) * 16) / 16
+
+
+def _serve_lines(host, month, day) -> list:
+    """The JSON lines the serve-loop subprocesses answer. JSON carries the
+    payload as float64, whose grouped sums run on ``index_add_`` (atomic
+    adds, in no fixed order): the values are rounded to sixteenths, so every
+    order gives the same sums and the two processes the same answers."""
+    x = _sixteenths(host[:SERVE_LINE_ROWS, :8760])
+    by = month[:8760]
+    return [
+        {"id": "mean", "func": "nanmean", "array": x.tolist(), "by": by.tolist()},
+        {"id": "trio", "func": ["nanmean", "nanmin", "nanmax"], "array": x.tolist(),
+         "by": by.tolist()},
+        {"id": "daily", "func": "nanmean", "array": x.tolist(), "by": day[:8760].tolist()},
+    ]
+
+
+class _ServeProcess:
+    """``python -m flox_tpu_torch.serve`` on the card, started at once and
+    fed from a thread (each process needs seconds to reach the card, which
+    the phase spends on other work): the lines, then stats and a shutdown.
+    :meth:`answers` waits for it and returns its JSON answers; a process
+    past its time is killed."""
+
+    def __init__(self, lines: list, aot_dir: str, warmup: bool) -> None:
+        import threading
+
+        cmd = [sys.executable, "-m", "flox_tpu_torch.serve", "--device", DEVICE,
+               "--aot-dir", aot_dir] + (["--warmup"] if warmup else [])
+        stdin = "".join(json.dumps(m) + "\n" for m in lines)
+        stdin += '{"op": "drain"}\n{"op": "stats"}\n{"op": "shutdown"}\n'
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.out: dict = {}
+        self.thread = threading.Thread(target=self._talk, args=(stdin,), daemon=True)
+        self.thread.start()
+
+    def _talk(self, stdin: str) -> None:
+        try:
+            self.out["stdout"], self.out["stderr"] = self.proc.communicate(stdin, timeout=180)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+        self.out["seconds"] = time.perf_counter() - self.t0
+
+    def answers(self) -> list:
+        self.thread.join(timeout=200)
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        check("stdout" in self.out and self.proc.returncode == 0,
+              f"serve loop exited {self.proc.returncode}: {self.out.get('stderr', '')[-2000:]}")
+        return [json.loads(line) for line in self.out["stdout"].splitlines()
+                if line.startswith("{")]
+
+
+def phase_serve(data, month, totals: dict, host: np.ndarray) -> dict:
+    """The serving plane at full width: the host copy put twice into the
+    resident dataset registry (month and day labels), the registry-referenced
+    calls through an in-process ``Dispatcher`` bit for bit their eager calls
+    with one launch each, four identical requests coalesced into one
+    dispatch, eight small inline payloads micro-batched into one dispatch
+    and one launch, a simulated device loss restaging the dataset with
+    ``/readyz`` flipping back, one scrape of ``/metrics``, and two
+    ``python -m flox_tpu_torch.serve`` processes sharing a warmup directory,
+    the second warming with zero ``nvcc`` builds and answering identically."""
+    import shutil
+    import tempfile
+
+    day = np.arange(data.shape[1]) // 24
+    out: dict = {}
+    # two serve-loop processes share one warmup directory: the first starts
+    # now and reaches the card while the puts run
+    aot_dir = tempfile.mkdtemp(prefix="flox_aot_")
+    lines = _serve_lines(host, month, day)
+    procs = [_ServeProcess(lines, aot_dir, warmup=False)]
+    try:
+        _serve_in_process(data, month, day, totals, host, out, lines, aot_dir, procs)
+    finally:
+        for proc in procs:
+            if proc.proc.poll() is None:
+                proc.proc.kill()
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    return out
+
+
+def _serve_in_process(data, month, day, totals: dict, host: np.ndarray, out: dict,
+                      lines: list, aot_dir: str, procs: list) -> None:
+    import asyncio
+    import urllib.request
+
+    import flox_tpu_torch
+    from flox_tpu_torch import cuda_kernels as ck, exposition, faults, serve
+    from flox_tpu_torch.options import OPTIONS
+    from flox_tpu_torch.parallel.mesh import world_size
+    from flox_tpu_torch.serve import registry
+    from flox_tpu_torch.telemetry import METRICS
+
+    # -- two puts of the same data ------------------------------------------
+    for name, labels in (("month", month), ("day", day)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = registry.put(name, host, labels, device=DEVICE)
+        torch.cuda.synchronize()
+        out[f"put_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        check(not info["sharded"], f"put {name}: sharded in a world of one")
+        print(f"[serve] put {name}: {info['nbytes'] / 1e9:.3f} GB on the card, "
+              f"{info['ngroups']} groups, {out[f'put_{name}_ms']!r} ms (fingerprint, "
+              f"factorize, copy)")
+    threshold = int(OPTIONS["registry_shard_threshold_bytes"])
+    check(host.nbytes >= threshold and world_size() == 1,
+          "the data should pass the shard threshold in a world of one rank")
+    stats, budget = registry.registry_stats(), registry.budget_bytes()
+    check(stats["bytes"] <= budget and stats["datasets"] == 2, f"registry {stats}, budget {budget}")
+    print(f"[serve] registry {stats['bytes'] / 1e9:.2f} GB of a {budget / 1e9:.2f} GB budget; "
+          f"{host.nbytes / 1e9:.2f} GB >= the {threshold / 2**30:.0f} GiB shard threshold, "
+          f"one rank: not sharded")
+    # the first process has recorded its programs: the second, warming up
+    # from them, reaches the card while the rest of the phase runs
+    first = procs[0].answers()
+    procs.append(_ServeProcess(lines, aot_dir, warmup=True))
+    d = serve.Dispatcher(device=DEVICE)
+    out["calls"] = asyncio.run(_served_checks(d, data, month, day, totals))
+
+    # -- coalescing: four identical requests, one dispatch --------------------
+    async def four():
+        return await asyncio.gather(*[d.submit(func="nanmean", dataset="month")
+                                      for _ in range(4)])
+
+    before = METRICS.get("serve.dispatches")
+    res = _drive(ck, "four identical served nanmeans", lambda: asyncio.run(four()),
+                 {"segment_sum": 1}, totals)
+    check(METRICS.get("serve.dispatches") - before == 1
+          and sum(r.coalesced for r in res) == 3, "four identical requests: not coalesced")
+    print("[serve] four identical requests: one dispatch, three coalesced")
+
+    # -- micro-batching: eight inline payloads, one dispatch ------------------
+    small = [host[i * SERVE_SMALL_ROWS:(i + 1) * SERVE_SMALL_ROWS, :8760].copy()
+             for i in range(8)]
+    by = month[:8760]
+    # each 2.2 MB payload is digested on a worker thread before it joins a
+    # batch: a window of SERVE_BATCH_WINDOW s holds the batch open for all
+    # eight, where the default 2 ms races the digests
+    d8 = serve.Dispatcher(device=DEVICE, batch_window=SERVE_BATCH_WINDOW)
+
+    async def eight():
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[d8.submit(func="nanmean", array=p, by=by) for p in small])
+        return got, (time.perf_counter() - t0) * 1e3
+
+    before = METRICS.get("serve.dispatches")
+    res, wall = _drive(ck, "eight micro-batched nanmeans", lambda: asyncio.run(eight()),
+                       {"segment_sum": 1}, totals)
+    check(METRICS.get("serve.dispatches") - before == 1
+          and all(r.batch_size == 8 for r in res), "eight inline requests: not one batch")
+    for p, r in zip(small, res):
+        ref = flox_tpu_torch.groupby_reduce(torch.from_numpy(p).to(DEVICE), by,
+                                            func="nanmean", device=DEVICE)[0]
+        check(same(torch.from_numpy(r.result), ref.cpu()), "a micro-batched row differs")
+    out["microbatch"] = {"wall_ms": wall, "queue_ms": [r.queue_ms for r in res],
+                         "device_ms": res[0].device_ms}
+    print(f"[serve] eight inline {SERVE_SMALL_ROWS} x 8760 payloads, a {SERVE_BATCH_WINDOW} s "
+          f"window: one dispatch, one launch, "
+          f"rows bit for bit their solo calls; wall {wall!r} ms, device {res[0].device_ms!r} ms, "
+          f"queue {min(r.queue_ms for r in res)!r}-{max(r.queue_ms for r in res)!r} ms")
+
+    # -- a simulated device loss: recovery restages, /readyz flips back -------
+    registry.delete("day")
+    torch.cuda.empty_cache()
+    port = exposition.start_metrics_server(port=0)
+    exposition.set_ready(True)
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    async def lose():
+        with faults.serve_inject(device_loss_at=(1,)):
+            try:
+                await d.submit(func="nanmean", dataset="month")
+            except serve.DeviceLostError:
+                unready = (not exposition.ready(), exposition.ready_reason())
+            else:
+                raise AssertionError("the injected device loss did not fail its request")
+            t0 = time.perf_counter()
+            await asyncio.wait_for(d.close(), 300)
+            return unready, (time.perf_counter() - t0) * 1e3
+
+    (unready, reason), recover_ms = asyncio.run(lose())
+    status, body = get("/readyz")
+    check(unready and status == 200 and exposition.ready(),
+          f"readiness around the device loss: unready {unready} ({reason}), /readyz {status}")
+    again = asyncio.run(d.submit(func="nanmean", dataset="month"))
+    ref = flox_tpu_torch.groupby_reduce(data, month, func="nanmean", device=DEVICE)[0]
+    check(same(torch.from_numpy(again.result), ref.cpu()), "after recovery: differs")
+    del ref
+    status, metrics = get("/metrics")
+    check(status == 200 and "flox_tpu_serve_device_lost_total 1" in metrics
+          and "flox_tpu_serve_recoveries_total 1" in metrics, "the /metrics scrape")
+    out["recover_ms"] = recover_ms
+    print(f"[serve] device loss: /readyz 503 ({reason}) then 200 after {recover_ms!r} ms "
+          f"(reinitialize, restage {host.nbytes / 1e9:.2f} GB); the next request bit for bit; "
+          f"/metrics scraped ({len(metrics.splitlines())} lines)")
+    exposition.stop_metrics_server()
+    registry.clear()
+    del d
+    torch.cuda.empty_cache()
+
+    # -- the two serve-loop processes ----------------------------------------
+    second = procs[1].answers()
+    answers = [{m["id"]: m["result"] for m in got if m.get("ok") and "id" in m}
+               for got in (first, second)]
+    warmed = [m for m in second if "warmed" in m]
+    stats = [m for m in second if m.get("op") == "stats"]
+    check(len(answers[0]) == len(lines) and answers[0] == answers[1],
+          "the restarted serve loop answers differently: "
+          f"{[m for m in first + second if not m.get('ok', True)]}")
+    check(warmed and warmed[0]["warmed"] == len(lines) and warmed[0]["compiles"] == 0
+          and stats and stats[0]["compiles"] == 0,
+          f"the warm restart: {warmed} {stats and stats[0]['compiles']}")
+    # JSON carries the payload as float64
+    x64 = torch.from_numpy(_sixteenths(host[:SERVE_LINE_ROWS, :8760])).to(DEVICE)
+    want = flox_tpu_torch.groupby_reduce(x64, month[:8760], func="nanmean", device=DEVICE)[0]
+    check(np.array_equal(np.asarray(answers[0]["mean"]), want.cpu().numpy()),
+          "the serve loop's nanmean differs from the eager call")
+    out["process_s"] = (procs[0].out["seconds"], procs[1].out["seconds"])
+    print(f"[serve] python -m flox_tpu_torch.serve --device {DEVICE}: {len(lines)} lines "
+          f"answered in {out['process_s'][0]:.1f} s (start to exit, beside the puts); "
+          f"restarted with --warmup ({warmed[0]['warmed']} specs, 0 nvcc builds) and answered "
+          f"identically in {out['process_s'][1]:.1f} s (beside the checks below)")
+
+
+def _store_slabs(n: int, batch_len: int):
+    return [(i, s, min(n, s + batch_len)) for i, s in enumerate(range(0, n, batch_len))]
+
+
+def phase_store(data, month, totals: dict, host: np.ndarray, streamed_trio: dict) -> dict:
+    """The durable store at full width: the trio over the month labels,
+    appended from the host copy in the streaming phase's slabs (one
+    multi-statistic launch each), a replayed slab acknowledged as already
+    ingested, compaction, a reopen (recovery replays the journal and
+    verifies every segment) and the query, held against the float64
+    reference on the card and compared with the streamed trio; then a kill
+    at one durable write on the 8192-row cut, reopened and re-appended, bit
+    for bit the uninterrupted store."""
+    import shutil
+    import tempfile
+
+    from flox_tpu_torch import cuda_kernels as ck, faults
+    from flox_tpu_torch.store import IncrementalAggregationStore, open_store
+
+    k, n = data.shape
+    trio = ("nanmean", "nanmin", "nanmax")
+    batch_len = _stream_len(k)
+    slabs = _store_slabs(n, batch_len)
+    root = tempfile.mkdtemp(prefix="flox_store_")
+    out: dict = {}
+    try:
+        path = os.path.join(root, "months")
+        s = IncrementalAggregationStore.create(path, funcs=trio, size=NGROUPS,
+                                               array_dtype="float32", device=DEVICE)
+        append_ms, seg_bytes = [], []
+        for i, s0, e in slabs:
+            t0 = time.perf_counter()
+            ack = _drive(ck, f"store append {i}",
+                         lambda: s.append(month[s0:e], host[:, s0:e], slab_id=f"slab-{i}"),
+                         {"segment_multistat": 1}, totals)
+            append_ms.append((time.perf_counter() - t0) * 1e3)
+            seg_bytes.append(os.path.getsize(os.path.join(path, f"seg-{ack['gen']:08d}.npz")))
+            check(ack["ack"] == "ingested", f"append {i}: {ack}")
+        print(f"[store] {len(slabs)} appends of {batch_len} columns, one multi-statistic launch "
+              f"each: {statistics.median(append_ms)!r} ms median ({min(append_ms)!r}-"
+              f"{max(append_ms)!r}), segments {statistics.median(seg_bytes) / 1e6:.2f} MB median")
+        i, s0, e = slabs[3]
+        ck.reset_launches()
+        replay = s.append(month[s0:e], host[:, s0:e], slab_id=f"slab-{i}")
+        check(replay["ack"] == "slab_already_ingested" and sum(ck.LAUNCHES.values()) == 0,
+              f"replay: {replay}")
+        t0 = time.perf_counter()
+        comp = s.compact()
+        compact_ms = (time.perf_counter() - t0) * 1e3
+        check(comp["compacted"] and comp["replaced"] == len(slabs), f"compact: {comp}")
+        t0 = time.perf_counter()
+        s2 = open_store(path, device=DEVICE)
+        reopen_ms = (time.perf_counter() - t0) * 1e3
+        check(not s2.recovered and s2.gen == len(slabs), f"reopen: gen {s2.gen}")
+        t0 = time.perf_counter()
+        q = s2.query()
+        torch.cuda.synchronize()
+        query_ms = (time.perf_counter() - t0) * 1e3
+        codes = torch.from_numpy(month).to(DEVICE)
+        _check_close("store nanmean", q["nanmean"], _f64_reference(data, codes, NGROUPS, "nanmean"))
+        for f in ("nanmin", "nanmax"):
+            check(torch.equal(q[f], _f64_reference(data, codes, NGROUPS, f)), f"store {f}: inexact")
+        streamed_same = {f: bool(same(q[f], streamed_trio[f])) for f in trio}
+        out.update(append_ms=append_ms, segment_bytes=seg_bytes, compact_ms=compact_ms,
+                   reopen_ms=reopen_ms, query_ms=query_ms, streamed_same=streamed_same)
+        print(f"[store] replay acknowledged as already ingested, no launch; compact "
+              f"{compact_ms!r} ms; reopen (journal replay, segment verify) {reopen_ms!r} ms; "
+              f"query {query_ms!r} ms; nanmean within the float64 bar, nanmin/nanmax exact; "
+              f"bit for bit the streamed trio: {streamed_same}")
+        del q, codes
+
+        # -- a kill at one durable write on the cut, reopened bit for bit ------
+        cut = np.ascontiguousarray(host[:STORE_CUT_ROWS])
+        ctrl = IncrementalAggregationStore.create(os.path.join(root, "ctrl"), funcs=trio,
+                                                  size=NGROUPS, array_dtype="float32",
+                                                  device=DEVICE)
+        for i, s0, e in slabs[:4]:
+            ctrl.append(month[s0:e], cut[:, s0:e], slab_id=f"slab-{i}")
+        want = ctrl.query()
+        killed = os.path.join(root, "killed")
+        # writes: 1 create, then a journal record and a segment per append;
+        # the 7th is the third append's segment, so its intent is rolled back
+        with faults.store_inject(kill_at=(7,)) as plan:
+            ks = IncrementalAggregationStore.create(killed, funcs=trio, size=NGROUPS,
+                                                    array_dtype="float32", device=DEVICE)
+            try:
+                for i, s0, e in slabs[:4]:
+                    ks.append(month[s0:e], cut[:, s0:e], slab_id=f"slab-{i}")
+                raise AssertionError("the injected kill did not fire")
+            except faults.StoreWriteKilled:
+                pass
+        ks = IncrementalAggregationStore.open(killed, device=DEVICE)
+        resumed_at = ks.gen
+        for i, s0, e in slabs[:4]:
+            ks.append(month[s0:e], cut[:, s0:e], slab_id=f"slab-{i}")
+        got = ks.query()
+        check(all(same(got[f], want[f]) for f in trio) and ks.gen == 4,
+              "the killed store differs from the uninterrupted one")
+        print(f"[store] killed at durable write 7 ({plan.log[-1][1]}), reopened at generation "
+              f"{resumed_at}, re-appended: bit for bit the uninterrupted store "
+              f"({STORE_CUT_ROWS}-row cut)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def phase_times(data, month, codes, reps: int, launches: dict, seed: int = 0) -> list[dict]:
     import flox_tpu_torch
     from flox_tpu_torch import cuda_kernels as ck
@@ -2937,8 +3379,9 @@ def phase_times(data, month, codes, reps: int, launches: dict, seed: int = 0) ->
     # and two traced ones keep the script near its time with the mesh phases
     _family_times(ck, family, 1)
     labels = label_times(ck, data, month, seed, max(3, reps // 2))
+    # one traced call each: the serve and store phases take their room
     device_breakdown({**wrapper_calls(data), **{name: calls[name] for name in list(calls)[:6]},
-                      **family, **labels}, reps=2)
+                      **family, **labels}, reps=1)
     del family, labels
     torch.cuda.empty_cache()
     cut = data[:SORT_ROWS]
@@ -3244,12 +3687,18 @@ def main() -> int:
     mark("main path")
     stream = phase_streaming(data, month, codes, launches)
     mark("streaming")
+    phase_serve(data, month, launches, stream["host"])
+    mark("serve")
+    phase_store(data, month, launches, stream["host"], stream["singles"]["trio"])
+    mark("store")
     phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2), stream)
     del stream
     mark("mesh, mesh streaming and two ranks")
     phase_telemetry(data, month, launches, args.reps)
     mark("telemetry")
-    entries = phase_times(data, month, codes, args.reps, launches, args.seed)
+    # half the reps of the earlier slices: the serve and store phases take
+    # their room inside the script's time limit
+    entries = phase_times(data, month, codes, max(4, args.reps // 2), launches, args.seed)
     mark("times")
     print(f"[memory] peak device memory "
           f"{max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9:.2f} GB")

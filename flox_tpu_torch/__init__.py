@@ -3,8 +3,12 @@ multi-statistic fusion, grouped scans, high-cardinality (sort) engine, label
 layers, xarray adapter, multi-device runtime (``parallel``: ``method=``
 and ``mesh=`` over ``torch.distributed``) and single-device streaming of host
 arrays larger than the card, alone or over a mesh (``streaming_groupby_*``,
-with ``pipeline``, ``resilience``, ``faults`` and ``profiling``), and the
-observability base (``telemetry``, ``costmodel``, ``metric_names``).
+with ``pipeline``, ``resilience``, ``faults`` and ``profiling``), the
+observability base (``telemetry``, ``costmodel``, ``metric_names``,
+``exposition``), the durable incremental aggregation store (``store``) and
+the serving plane (``serve``: dispatcher, resident dataset registry, stores,
+breakers, warmup manifest and ``python -m flox_tpu_torch.serve``), with the
+host caches in ``cache``.
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and
@@ -18,7 +22,7 @@ flox_tpu, and imports without pandas.
 tensor([1.5000, 4.0000], dtype=torch.float64)
 """
 
-from . import cohorts, faults, kernels, profiling, resilience, telemetry, xrlite
+from . import cache, cohorts, faults, kernels, profiling, resilience, serve, telemetry, xrlite
 from .aggregations import Aggregation, Scan, is_supported_aggregation
 from .core import groupby_reduce
 from .device import codes_device, groupby_reduce_device
@@ -46,6 +50,7 @@ __all__ = [
     "ReindexArrayType",
     "ReindexStrategy",
     "Scan",
+    "cache",
     "codes_device",
     "cohorts",
     "factorize_",
@@ -63,6 +68,7 @@ __all__ = [
     "rechunk_for_cohorts",
     "reshard_for_blockwise",
     "resilience",
+    "serve",
     "set_options",
     "streaming_groupby_aggregate_many",
     "streaming_groupby_reduce",

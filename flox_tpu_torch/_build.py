@@ -7,6 +7,13 @@ next to this file, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt and
 an unchanged one is loaded as it is. Only sources in this package are
 compiled. A failed build raises with the compiler's output.
+
+:func:`library` is safe to call from several threads at once (the serving
+dispatcher runs batches on worker threads): one lock covers the check, the
+build and the load, so a library is built and loaded once per process.
+:data:`BUILDS` counts the libraries that ``nvcc`` compiled in this process
+and their seconds, the port's counterpart of the reference's compile
+counters.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -38,6 +46,11 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+#: libraries compiled by ``nvcc`` in this process, and their wall seconds
+BUILDS = {"count": 0, "seconds": 0.0}
+_BUILDS_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -79,7 +92,8 @@ def build(names=None) -> dict[str, dict]:
     procs = {}
     for n in todo:
         out = library_path(n)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        # unique per process and thread: two builds never share a file
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
@@ -96,6 +110,9 @@ def build(names=None) -> dict[str, dict]:
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         report[n] = {"seconds": seconds, "log": log}
+        with _BUILDS_LOCK:
+            BUILDS["count"] += 1
+            BUILDS["seconds"] += seconds
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return report
@@ -104,15 +121,30 @@ def build(names=None) -> dict[str, dict]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if it is missing."""
     lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        lib.flox_error_string.argtypes = [ctypes.c_int]
-        lib.flox_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            lib.flox_error_string.argtypes = [ctypes.c_int]
+            lib.flox_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib
+
+
+def load_all() -> None:
+    """Build what is missing (one ``nvcc`` per source, all started
+    together) and load every kernel library."""
+    with _LOCK:
+        missing = [n for n in SOURCES if n not in _LIBS and not library_path(n).exists()]
+        if missing:
+            build(missing)
+    for n in SOURCES:
+        library(n)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -64,6 +64,7 @@ __all__ = [
     "predicted_ms",
     "program_report",
     "publish_gauges",
+    "serve_alias",
     "stamp_capture",
 ]
 
@@ -92,6 +93,14 @@ _CAPTURES: contextvars.ContextVar[tuple] = contextvars.ContextVar(
 
 #: device index -> power limit string (``nvidia-smi``), read once
 _POWER_LIMITS: dict[int, str | None] = {}
+
+#: the serving plane's program label for whatever runs inside its dispatch:
+#: cards recorded (or re-touched) inside a :func:`serve_alias` scope also
+#: index under the serving label, so a ``serve[nanmean#ab12]`` ledger row
+#: joins the card of the kernels its dispatch launched
+_ALIAS: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "flox_tpu_torch_costmodel_alias", default=None
+)
 
 
 def enabled() -> bool:
@@ -221,6 +230,37 @@ def _digest(label: str, sig: str) -> str:
     return hashlib.blake2b(f"{label}\x1f{sig}".encode(), digest_size=12).hexdigest()
 
 
+class serve_alias:
+    """Bind the serving plane's program label: every card recorded or
+    re-touched inside also indexes under ``label``. ``None`` binds nothing."""
+
+    __slots__ = ("_label", "_token")
+
+    def __init__(self, label: str | None) -> None:
+        self._label = label
+        self._token: contextvars.Token | None = None
+
+    def __enter__(self) -> "serve_alias":
+        if self._label is not None:
+            self._token = _ALIAS.set(str(self._label))
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        if self._token is not None:
+            _ALIAS.reset(self._token)
+            self._token = None
+        return False
+
+
+def _index(label: str, digest: str) -> None:
+    """Point ``label``, and the active serve alias, at ``digest``. Callers
+    hold :data:`_LOCK`."""
+    _CARD_LABELS[label] = digest
+    alias = _ALIAS.get()
+    if alias is not None:
+        _CARD_LABELS[alias] = digest
+
+
 def ensure_card(label: str, cap: Any, device: Any = None) -> str | None:
     """Record (once per label and work signature) the card of the launches
     ``cap`` collected for the program ``label`` on ``device``. Returns the
@@ -235,7 +275,7 @@ def ensure_card(label: str, cap: Any, device: Any = None) -> str | None:
         digest = _digest(label, sig)
         with _LOCK:
             if digest in _CARD_REGISTRY:
-                _CARD_LABELS[label] = digest
+                _index(label, digest)
                 return digest
             if len(_CARD_REGISTRY) >= _REGISTRY_MAX:
                 telemetry.count("costmodel.cards_dropped")
@@ -264,7 +304,7 @@ def ensure_card(label: str, cap: Any, device: Any = None) -> str | None:
         card["predicted_ms"] = round(predicted_ms(card), 6) if card["analysis"] == "ok" else 0.0
         with _LOCK:
             _CARD_REGISTRY[digest] = card
-            _CARD_LABELS[label] = digest
+            _index(label, digest)
         telemetry.METRICS.inc("costmodel.card_analysis_ms", (time.perf_counter() - t0) * 1e3)
         telemetry.count("costmodel.cards_recorded")
         return digest

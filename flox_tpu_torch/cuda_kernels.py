@@ -41,6 +41,7 @@ bound column of PERF.md's kernel table.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -68,6 +69,13 @@ __all__ = [
 #: kernel launches since the last reset, one per launch of each kernel
 LAUNCHES = {"segment_sum": 0, "segment_minmax": 0, "segment_multistat": 0, "segment_cumsum": 0,
             "segment_sum_radixbin": 0}
+#: the serving dispatcher launches from worker threads: increments take it
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 _SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MINMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -94,8 +102,9 @@ def _declare(name: str, data: torch.Tensor, out_bytes: int, ops_per_elem: int) -
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def minmax_identity(op: str, dtype: torch.dtype):
@@ -253,7 +262,7 @@ def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
         *(o.data_ptr() for o in outs), _stream(data.device),
     )
     _build.check(lib, err, f"{name} launch")
-    LAUNCHES[name] += 1
+    _count_launch(name)
     return tuple(outs)
 
 
@@ -351,7 +360,7 @@ def _segment_sum_radixbin_cuda(data, codes, size: int, accum: str):
         _stream(data.device),
     )
     _build.check(lib, err, "segment_sum_radixbin launch")
-    LAUNCHES["segment_sum_radixbin"] += 1
+    _count_launch("segment_sum_radixbin")
     return tuple(outs)
 
 
@@ -485,7 +494,7 @@ def _segment_cumsum_cuda(data, codes, size: int, skipna: bool):
         state.data_ptr(), out.data_ptr(), _stream(data.device),
     )
     _build.check(lib, err, "segment_cumsum launch")
-    LAUNCHES["segment_cumsum"] += 1
+    _count_launch("segment_cumsum")
     return out
 
 

@@ -26,13 +26,21 @@ __all__ = ["codes_device", "groupby_reduce_device", "memory_stats", "reinitializ
 
 def reinitialize() -> bool:
     """Drop this package's caches (the factorization memo and the sort
-    engine's present-groups memo), the recovery step after a device fault.
+    engine's present-groups memo), the recovery step after a device fault;
+    on a CUDA device, also wait for the card (``torch.cuda.synchronize``)
+    and return the caching allocator's free blocks
+    (``torch.cuda.empty_cache``).
 
     Returns ``False``: torch has no backend teardown to run, so this is the
-    cache-drop half of the reference's recovery only. Never raises.
+    cache-drop half of the reference's recovery. A sticky CUDA error (a
+    context the card poisoned) is not swallowed: ``synchronize`` raises it,
+    and a replica that cannot recover stays unready.
     """
     fct.clear_caches()
     kernels._PRESENT_CACHE.clear()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     return False
 
 

@@ -20,12 +20,19 @@ inject them where the resilience layer must handle them:
   that their observed device time really diverges from the cost card's
   model (the drift sentinel's tests).
 
-Everything is index-deterministic: the same plan against the same stream
-fires at the same slabs in the same order, prefetch on or off.
+* :func:`serve_inject` installs a serve plan that the serving dispatcher
+  consults just before each dispatch (:func:`serve_poke`): poisoned
+  payloads, failing programs, a device loss or a hang at chosen dispatch
+  numbers (quarantine, breakers, recovery, the watchdog);
+* :func:`store_inject` installs a store plan that the durable store's write
+  funnel consults before each durable write (:func:`store_poke`): a kill, a
+  torn write or a flipped bit at chosen write ordinals (the recovery matrix).
 
-Left out until their modules are ported (ROADMAP A9): the serve plan
-(``serve_inject``, ``SimulatedCompileError``), the store plan
-(``store_inject``, ``StoreWriteKilled``), the SLO plan and the
+Everything is index-deterministic: the same plan against the same stream
+fires at the same slabs in the same order, prefetch on or off; a serve or
+store plan fires at the same dispatch or write numbers.
+
+Left out until their modules are ported (ROADMAP A9.5): the SLO plan and the
 schedule-stress harness.
 """
 
@@ -40,8 +47,10 @@ import numpy as np
 
 __all__ = [
     "FlakyLoader",
+    "SimulatedCompileError",
     "SimulatedDeviceLoss",
     "SimulatedOOM",
+    "StoreWriteKilled",
     "StreamKilled",
     "active",
     "dispatch_delay_active",
@@ -50,6 +59,12 @@ __all__ = [
     "inject",
     "misshaping_loader",
     "poke",
+    "serve_active",
+    "serve_inject",
+    "serve_poke",
+    "store_active",
+    "store_inject",
+    "store_poke",
 ]
 
 
@@ -77,6 +92,15 @@ class SimulatedDeviceLoss(RuntimeError):
 
     def __init__(self, where: str = "") -> None:
         super().__init__(f"DEVICE_LOST (simulated): device lost {where}".rstrip())
+
+
+class SimulatedCompileError(RuntimeError):
+    """A dispatch that fails the same way every time: classified fatal (no
+    status token), never retried or split; the substrate of the quarantine
+    and circuit-breaker tests."""
+
+    def __init__(self, where: str = "") -> None:
+        super().__init__(f"INVALID_PROGRAM (simulated): compile failed {where}".rstrip())
 
 
 @dataclass
@@ -274,3 +298,215 @@ def dispatch_delay_inject(substr: str, seconds: float, *, times: int = -1) -> It
         yield plan
     finally:
         _DELAY_PLAN = prev
+
+
+# ---------------------------------------------------------------------------
+# the serve plan: faults at the serving dispatcher's dispatches
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _ServePlan:
+    """One installed serve plan and its log. ``Dispatcher._execute`` consults
+    it through :func:`serve_poke` just before each dispatch."""
+
+    #: payload digest -> fault: a dispatch whose leaves include the digest
+    #: raises, so the quarantine's bisection meets it until it runs alone
+    poison: dict[str, _Fault] = field(default_factory=dict)
+    #: program func label -> fault
+    fail_compile: dict[str, _Fault] = field(default_factory=dict)
+    #: 1-based dispatch numbers that raise SimulatedDeviceLoss
+    device_loss_at: frozenset = frozenset()
+    #: 1-based dispatch numbers that sleep ``hang_seconds`` first
+    hang_at: frozenset = frozenset()
+    hang_seconds: float = 1.0
+    dispatches: int = 0
+    #: (kind | None, label, dispatch number) per dispatch, in order
+    log: list = field(default_factory=list)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+
+_SERVE_PLAN: _ServePlan | None = None
+
+
+def serve_active() -> bool:
+    return _SERVE_PLAN is not None
+
+
+def serve_poke(label: str, digests: tuple = ()) -> None:
+    """The dispatcher's hook, called with the program's func label and the
+    payload digests of the leaves it dispatches. No-op unless a plan is
+    installed. A hang sleeps outside the plan's lock, so a concurrent
+    dispatch is never held by it."""
+    plan = _SERVE_PLAN
+    if plan is None:
+        return
+    hang = 0.0
+    with plan._lock:
+        plan.dispatches += 1
+        n = plan.dispatches
+        for digest in digests:
+            fault = plan.poison.get(digest)
+            if fault is not None and fault.times != 0:
+                if fault.times > 0:
+                    fault.times -= 1
+                plan.log.append(("poison", label, n))
+                raise fault.exc(f"poisoned member {digest[:8]} in dispatch #{n}")
+        fault = plan.fail_compile.get(label)
+        if fault is not None and fault.times != 0:
+            if fault.times > 0:
+                fault.times -= 1
+            plan.log.append(("fail-compile", label, n))
+            raise fault.exc(f"for program {label!r} at dispatch #{n}")
+        if n in plan.device_loss_at:
+            plan.log.append(("device-loss", label, n))
+            raise SimulatedDeviceLoss(f"at dispatch #{n}")
+        if n in plan.hang_at:
+            plan.log.append(("hang", label, n))
+            hang = plan.hang_seconds
+        else:
+            plan.log.append((None, label, n))
+    if hang > 0:
+        import time
+
+        time.sleep(hang)
+
+
+@contextlib.contextmanager
+def serve_inject(
+    *,
+    poison_digests: tuple[str, ...] | list[str] = (),
+    poison_times: int = -1,
+    fail_compile_for: tuple[str, ...] | list[str] = (),
+    fail_times: int = -1,
+    device_loss_at: tuple[int, ...] | list[int] = (),
+    hang_at: tuple[int, ...] | list[int] = (),
+    hang_seconds: float = 1.0,
+) -> Iterator[_ServePlan]:
+    """Install a serve plan for the scope.
+
+    ``poison_digests``: payload digests (``serve.payload_digest`` of a
+    request's array) whose every dispatch raises
+    :class:`SimulatedCompileError`, ``poison_times`` times (-1: always).
+    ``fail_compile_for``: program func labels whose dispatches raise it
+    ``fail_times`` times. ``device_loss_at``: 1-based dispatch numbers that
+    raise :class:`SimulatedDeviceLoss`. ``hang_at``: dispatch numbers that
+    sleep ``hang_seconds`` before they run. Yields the plan; its ``log``
+    records every dispatch.
+    """
+    global _SERVE_PLAN
+    plan = _ServePlan(
+        device_loss_at=frozenset(int(n) for n in device_loss_at),
+        hang_at=frozenset(int(n) for n in hang_at),
+        hang_seconds=float(hang_seconds),
+    )
+    for d in poison_digests:
+        plan.poison[str(d)] = _Fault(SimulatedCompileError, poison_times)
+    for label in fail_compile_for:
+        plan.fail_compile[str(label)] = _Fault(SimulatedCompileError, fail_times)
+    prev = _SERVE_PLAN
+    _SERVE_PLAN = plan
+    try:
+        yield plan
+    finally:
+        _SERVE_PLAN = prev
+
+
+# ---------------------------------------------------------------------------
+# the store plan: faults at the durable store's writes
+# ---------------------------------------------------------------------------
+
+
+class StoreWriteKilled(RuntimeError):
+    """A simulated ``kill -9`` inside a durable store write: the process
+    "dies" leaving whatever bytes the injected action put on disk. The store
+    never catches it; a test reopens the directory and checks recovery."""
+
+    def __init__(self, where: str = "") -> None:
+        super().__init__(f"store write killed (simulated crash) {where}".rstrip())
+
+
+@dataclass
+class _StorePlan:
+    """One installed store plan and its log. The store's write funnel
+    consults it through :func:`store_poke` once per durable write (a journal
+    append, a segment landing, a compaction's delete), in write order."""
+
+    #: 1-based write ordinals that die before any byte lands
+    kill_at: frozenset = frozenset()
+    #: ordinals that land half their bytes at the final path, then die
+    torn_at: frozenset = frozenset()
+    #: ordinals that land every byte with one bit flipped, silently
+    flip_at: frozenset = frozenset()
+    #: count only this kind ("journal", "segment" or "swap"); None: all
+    op: str | None = None
+    writes: int = 0
+    #: (action | None, kind, file name, ordinal) per counted write, in order
+    log: list = field(default_factory=list)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+
+_STORE_PLAN: _StorePlan | None = None
+
+
+def store_active() -> bool:
+    return _STORE_PLAN is not None
+
+
+def store_poke(kind: str, path: str) -> str | None:
+    """The store's hook before each durable write: ``None`` (write as
+    usual), ``"kill"`` (raise before any byte), ``"torn"`` (land half the
+    bytes at the final path, then raise) or ``"flip"`` (land every byte with
+    one bit flipped). The write site does the raising and the mangling, so
+    they happen where a real write would."""
+    import os
+
+    plan = _STORE_PLAN
+    if plan is None:
+        return None
+    with plan._lock:
+        if plan.op is not None and plan.op != kind:
+            return None
+        plan.writes += 1
+        n = plan.writes
+        action = None
+        if n in plan.kill_at:
+            action = "kill"
+        elif n in plan.torn_at:
+            action = "torn"
+        elif n in plan.flip_at:
+            action = "flip"
+        plan.log.append((action, kind, os.path.basename(str(path)), n))
+        return action
+
+
+@contextlib.contextmanager
+def store_inject(
+    *,
+    kill_at: tuple[int, ...] | list[int] = (),
+    torn_at: tuple[int, ...] | list[int] = (),
+    flip_at: tuple[int, ...] | list[int] = (),
+    op: str | None = None,
+) -> Iterator[_StorePlan]:
+    """Install a store plan for the scope.
+
+    Ordinals are 1-based positions in the store's sequence of durable writes
+    (journal appends, segment landings, compaction deletes), counted across
+    the scope; ``op`` counts only one kind. ``kill_at`` dies before any byte
+    lands, ``torn_at`` lands half a file at the final path, ``flip_at``
+    lands a silent one-bit flip that only the checksum at the next open
+    sees. Yields the plan; its ``log`` records every counted write.
+    """
+    global _STORE_PLAN
+    plan = _StorePlan(
+        kill_at=frozenset(int(n) for n in kill_at),
+        torn_at=frozenset(int(n) for n in torn_at),
+        flip_at=frozenset(int(n) for n in flip_at),
+        op=op,
+    )
+    prev = _STORE_PLAN
+    _STORE_PLAN = plan
+    try:
+        yield plan
+    finally:
+        _STORE_PLAN = prev

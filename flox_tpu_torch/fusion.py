@@ -52,7 +52,8 @@ from .core import (
 from .options import OPTIONS
 from .sparse import is_sparse_array
 
-__all__ = ["FUSABLE_FUNCS", "finalize_many", "fused_program_label", "groupby_aggregate_many"]
+__all__ = ["FUSABLE_FUNCS", "finalize_many", "fused_program_label", "groupby_aggregate_many",
+           "store_program_label"]
 
 _ADDLIKE = frozenset({"sum", "nansum", "prod", "nanprod"})
 _BOOLSAFE = frozenset({"all", "any", "count"})
@@ -61,6 +62,13 @@ _BOOLSAFE = frozenset({"all", "any", "count"})
 def fused_program_label(funcs) -> str:
     """The cost-ledger program label of a fused statistic set."""
     return "fused[" + "+".join(funcs) + "]"
+
+
+def store_program_label(kind: str, funcs) -> str:
+    """The cost-ledger program label of a durable-store operation
+    (``store.append[fused[sum+count]]``): the operation around the fused
+    statistic set the store carries."""
+    return f"store.{kind}[{fused_program_label(funcs)}]"
 
 
 def finalize_many(fused: FusedAggregation, results, out_shape=None) -> dict:

@@ -10,17 +10,36 @@ that one option set can drive both packages (:func:`from_reference`).
 The observability knobs (``telemetry*``, ``flight_recorder_*``,
 ``profile_*``, ``metrics_sample_interval``, ``replica_id``, ``costmodel*``)
 take their defaults from the reference's ``FLOX_TPU_*`` environment names; a
-malformed or out-of-range value falls back to the default.
+malformed or out-of-range value falls back to the default. So do the durable
+store's (``store_*``), the serving plane's (``serve_*``, ``registry_*``) and
+the metrics endpoint's (``metrics_port``).
+
+``OPTIONS`` reads through a contextvar overlay: :class:`scoped` installs
+option values visible only to the current context (an asyncio task, or a
+worker thread that ``asyncio.to_thread`` started with a copy of it), so the
+serving dispatcher runs concurrent requests with different knobs without
+racing on the process-wide dict. :class:`set_options` writes the process-wide
+values, as before.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 import os
 import re
 from typing import Any
 
-__all__ = ["OPTIONS", "VALID_ACCUMS", "from_reference", "set_options"]
+__all__ = [
+    "OPTIONS",
+    "VALID_ACCUMS",
+    "explicitly_set",
+    "from_reference",
+    "scope_overrides",
+    "scoped",
+    "set_options",
+    "trace_fingerprint",
+]
 
 #: cross-chunk accumulation disciplines of the segment-sum kernel
 VALID_ACCUMS = ("plain", "kahan", "dd")
@@ -37,12 +56,14 @@ def _env_int(name: str, default: int, lo: int = 0, hi: int | None = None) -> int
     return default if value < lo or (hi is not None and value > hi) else value
 
 
-def _env_float(name: str, default: float, lo: float = 0.0, hi: float | None = None) -> float:
+def _env_float(name: str, default: float, lo: float = 0.0, hi: float | None = None,
+               lo_open: bool = False) -> float:
     try:
         value = float(os.environ.get(name, default))
     except ValueError:
         return default
-    if not math.isfinite(value) or value < lo or (hi is not None and value > hi):
+    if (not math.isfinite(value) or value < lo or (lo_open and value == lo)
+            or (hi is not None and value > hi)):
         return default
     return value
 
@@ -55,6 +76,33 @@ def _env_choice(name: str, default: str, valid: tuple[str, ...]) -> str:
 def _env_replica(name: str) -> str | None:
     value = os.environ.get(name) or None
     return None if value is not None and _REPLICA_ID_OK.match(value) is None else value
+
+
+#: the active overlay: ``(values, pinned names)`` installed by :class:`scoped`,
+#: or ``None`` outside any scope
+_SCOPE: contextvars.ContextVar[tuple[dict, frozenset] | None] = contextvars.ContextVar(
+    "flox_tpu_torch_option_scope", default=None
+)
+
+
+class _ScopedOptions(dict):
+    """The process-wide option dict, read through the innermost
+    :class:`scoped` overlay. Writes (``set_options``, ``update``) reach the
+    process-wide values: a scope is an overlay, never a copy."""
+
+    __slots__ = ()
+
+    def __getitem__(self, key: str) -> Any:
+        scope = _SCOPE.get()
+        if scope is not None and key in scope[0]:
+            return scope[0][key]
+        return dict.__getitem__(self, key)
+
+    def get(self, key: str, default: Any = None) -> Any:
+        scope = _SCOPE.get()
+        if scope is not None and key in scope[0]:
+            return scope[0][key]
+        return dict.get(self, key, default)
 
 
 OPTIONS: dict[str, Any] = {
@@ -168,7 +216,55 @@ OPTIONS: dict[str, Any] = {
                                             1e6),
     # dispatch-overhead floor (ms) of the drift model
     "costmodel_overhead_ms": _env_float("FLOX_TPU_COSTMODEL_OVERHEAD_MS", 25.0, 0.0, 60_000.0),
+    # durable stores (``store``): the directory under which the serve loop's
+    # store ops create and open stores, one subdirectory per name; None
+    # turns the serve loop's store surface off
+    "store_root": os.environ.get("FLOX_TPU_STORE_ROOT") or None,
+    # compact a store once it holds more than this many live delta segments
+    # after an append; 0 leaves compaction to the caller
+    "store_compact_threshold": _env_int("FLOX_TPU_STORE_COMPACT_THRESHOLD", 0, 0),
+    # "off" skips the fsyncs of journal and segment writes: for tests and
+    # throwaway stores only (a power loss could then reorder commit points)
+    "store_fsync": _env_choice("FLOX_TPU_STORE_FSYNC", "on", ("on", "off")),
+    # serving (``serve``): requests pending in a dispatcher (queued and
+    # executing) past which a submit is shed with LoadShedError; 0: no bound
+    "serve_queue_depth": _env_int("FLOX_TPU_SERVE_QUEUE_DEPTH", 64, 0),
+    # default per-request deadline in seconds from submit; 0: none
+    "serve_deadline": _env_float("FLOX_TPU_SERVE_DEADLINE", 0.0),
+    # requests stacked into one micro-batch dispatch; 1 turns batching off
+    "serve_microbatch_max": _env_int("FLOX_TPU_SERVE_MICROBATCH_MAX", 8, 1, 1024),
+    # seconds a new batch stays open for compatible requests to join
+    "serve_batch_window": _env_float("FLOX_TPU_SERVE_BATCH_WINDOW", 0.002, 0.0, 60.0),
+    # payloads above this many elements dispatch alone
+    "serve_microbatch_max_elems": _env_int("FLOX_TPU_SERVE_MICROBATCH_MAX_ELEMS", 1 << 20, 0),
+    # seconds a draining serve loop waits for in-flight requests
+    "serve_drain_timeout": _env_float("FLOX_TPU_SERVE_DRAIN_TIMEOUT", 30.0),
+    # seconds one dispatch may run before its waiters fail with
+    # WatchdogTimeoutError; 0: no watchdog
+    "serve_watchdog_timeout": _env_float("FLOX_TPU_SERVE_WATCHDOG_TIMEOUT", 0.0),
+    # consecutive fatal failures of one program key that open its circuit
+    # breaker; 0 turns breakers off
+    "serve_breaker_threshold": _env_int("FLOX_TPU_SERVE_BREAKER_THRESHOLD", 5, 0, 10_000),
+    # seconds an open breaker fast-fails before one half-open probe
+    "serve_breaker_cooldown": _env_float("FLOX_TPU_SERVE_BREAKER_COOLDOWN", 30.0),
+    # share of the card's memory the dataset registry may hold
+    "registry_budget_fraction": _env_float("FLOX_TPU_REGISTRY_BUDGET_FRACTION", 0.5, 0.0,
+                                           1.0, lo_open=True),
+    # the registry's byte budget where the device reports no capacity (the
+    # CPU); 0 turns the budget off
+    "registry_budget_bytes": _env_int("FLOX_TPU_REGISTRY_BUDGET_BYTES", 1 << 30, 0),
+    # datasets of at least this many bytes are sharded over the mesh's ranks
+    # when there is more than one; 0: never
+    "registry_shard_threshold_bytes": _env_int("FLOX_TPU_REGISTRY_SHARD_THRESHOLD_BYTES",
+                                               1 << 30, 0),
+    # the warmup manifest's directory (``serve.aot``); None turns it off
+    "serve_aot_dir": os.environ.get("FLOX_TPU_SERVE_AOT_DIR") or None,
+    # port of the /metrics, /healthz and /readyz endpoint (``exposition``);
+    # 0 leaves it off
+    "metrics_port": _env_int("FLOX_TPU_METRICS_PORT", 0, 0, 65535),
 }
+
+OPTIONS = _ScopedOptions(OPTIONS)
 
 _IMPLS = ("auto", "scatter", "kernel")
 
@@ -220,7 +316,111 @@ _VALIDATORS = {
     "costmodel": lambda x: isinstance(x, bool),
     "costmodel_drift_threshold": lambda x: _is_finite_num(x) and 1 <= x <= 1e6,
     "costmodel_overhead_ms": lambda x: _is_finite_num(x) and 0 <= x <= 60_000,
+    "store_root": lambda x: x is None or (isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "store_compact_threshold": lambda x: _is_int(x) and x >= 0,
+    "store_fsync": lambda x: x in ("on", "off"),
+    "serve_queue_depth": lambda x: _is_int(x) and x >= 0,
+    "serve_deadline": lambda x: _is_finite_num(x) and x >= 0,
+    "serve_microbatch_max": lambda x: _is_int(x) and 1 <= x <= 1024,
+    "serve_batch_window": lambda x: _is_finite_num(x) and 0 <= x <= 60,
+    "serve_microbatch_max_elems": lambda x: _is_int(x) and x >= 0,
+    "serve_drain_timeout": lambda x: _is_finite_num(x) and x >= 0,
+    "serve_watchdog_timeout": lambda x: _is_finite_num(x) and x >= 0,
+    "serve_breaker_threshold": lambda x: _is_int(x) and 0 <= x <= 10_000,
+    "serve_breaker_cooldown": lambda x: _is_finite_num(x) and x >= 0,
+    "registry_budget_fraction": lambda x: _is_finite_num(x) and 0 < x <= 1,
+    "registry_budget_bytes": lambda x: _is_int(x) and x >= 0,
+    "registry_shard_threshold_bytes": lambda x: _is_int(x) and x >= 0,
+    "serve_aot_dir": lambda x: x is None or (isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "metrics_port": lambda x: _is_int(x) and 0 <= x <= 65535,
 }
+
+
+def trace_fingerprint() -> tuple:
+    """The options that choose a call's kernels and lowering: a key of
+    anything that holds work per lowering (the serving dispatcher's program
+    keys) must include it, or a changed option would share a dispatch made
+    under another."""
+    return (
+        OPTIONS["segment_sum_impl"],
+        OPTIONS["pallas_num_groups_max"],
+        OPTIONS["radixbin_num_groups_max"],
+        OPTIONS["pallas_accum"],
+        OPTIONS["segment_minmax_impl"],
+        OPTIONS["pallas_minmax_num_groups_max"],
+        OPTIONS["scan_impl"],
+        OPTIONS["pallas_scan_num_groups_max"],
+        OPTIONS["quantile_impl"],
+        OPTIONS["stream_donate"],
+    )
+
+
+#: option names the user set: through ``set_options`` since import
+_EXPLICIT_OPTIONS: set[str] = set()
+
+
+def explicitly_set(name: str) -> bool:
+    """Whether ``name`` was set by the user (``set_options``, or the innermost
+    :class:`scoped` overlay while it is live) rather than riding its default."""
+    scope = _SCOPE.get()
+    if scope is not None and name in scope[1]:
+        return True
+    return name in _EXPLICIT_OPTIONS
+
+
+def scope_overrides() -> dict:
+    """The active :class:`scoped` overlay, innermost value winning; ``{}``
+    outside any scope."""
+    scope = _SCOPE.get()
+    return dict(scope[0]) if scope is not None else {}
+
+
+def _check(kwargs: dict) -> None:
+    for k, v in kwargs.items():
+        if k not in OPTIONS:
+            raise ValueError(
+                f"argument name {k!r} is not in the set of valid options {set(OPTIONS)!r}"
+            )
+        if not _VALIDATORS[k](v):
+            raise ValueError(f"option {k!r} given an invalid value: {v!r}")
+
+
+class scoped:
+    """Option values visible only to the current context.
+
+    >>> from flox_tpu_torch.options import OPTIONS, scoped
+    >>> with scoped(default_engine="numpy"):
+    ...     OPTIONS["default_engine"]
+    'numpy'
+    >>> OPTIONS["default_engine"]
+    'torch'
+
+    Unlike :class:`set_options`, which writes the process-wide dict, a scope
+    is a contextvar overlay: asyncio tasks inherit a copy at creation,
+    threads start without it (``asyncio.to_thread`` carries it over), and
+    nested scopes merge with the innermost value winning. Values are
+    validated at construction, as ``set_options`` validates them.
+    """
+
+    def __init__(self, **overrides: Any) -> None:
+        _check(overrides)
+        self._overrides = overrides
+        self._token: contextvars.Token | None = None
+
+    def __enter__(self) -> "scoped":
+        parent = _SCOPE.get()
+        if parent is None:
+            values, pins = dict(self._overrides), frozenset(self._overrides)
+        else:
+            values = {**parent[0], **self._overrides}
+            pins = parent[1] | frozenset(self._overrides)
+        self._token = _SCOPE.set((values, pins))
+        return self
+
+    def __exit__(self, *args: Any) -> None:
+        if self._token is not None:
+            _SCOPE.reset(self._token)
+            self._token = None
 
 
 class set_options:
@@ -232,15 +432,12 @@ class set_options:
     """
 
     def __init__(self, **kwargs: Any) -> None:
-        self.old: dict[str, Any] = {}
-        for k, v in kwargs.items():
-            if k not in OPTIONS:
-                raise ValueError(
-                    f"argument name {k!r} is not in the set of valid options {set(OPTIONS)!r}"
-                )
-            if not _VALIDATORS[k](v):
-                raise ValueError(f"option {k!r} given an invalid value: {v!r}")
-            self.old[k] = OPTIONS[k]
+        _check(kwargs)
+        # the process-wide value, not the scope's: leaving the block must
+        # restore it, never write an overlay value into the dict
+        self.old: dict[str, Any] = {k: dict.__getitem__(OPTIONS, k) for k in kwargs}
+        self._newly_explicit = set(kwargs) - _EXPLICIT_OPTIONS
+        _EXPLICIT_OPTIONS.update(kwargs)
         OPTIONS.update(kwargs)
 
     def __enter__(self) -> None:
@@ -248,6 +445,7 @@ class set_options:
 
     def __exit__(self, *args: Any) -> None:
         OPTIONS.update(self.old)
+        _EXPLICIT_OPTIONS.difference_update(self._newly_explicit)
 
 
 #: reference implementation names with no counterpart in the port, and the

@@ -44,6 +44,7 @@ __all__ = [
     "mesh_device",
     "norm_axes",
     "shard_bounds",
+    "shard_last_axis",
     "world_rank",
     "world_size",
 ]
@@ -292,6 +293,14 @@ def shard_bounds(n: int, nshards: int, index: int) -> tuple[int, int]:
     per = -(-n // nshards)
     lo = min(index * per, n)
     return lo, min(lo + per, n)
+
+
+def shard_last_axis(t: torch.Tensor, mesh) -> Any:
+    """``t`` as a ``DTensor`` sharded along its last axis over every dim of
+    ``mesh`` (the serving registry's sharded put)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    return distribute_tensor(t, mesh, [Shard(t.ndim - 1)] * mesh.ndim)
 
 
 def is_dtensor(x) -> bool:

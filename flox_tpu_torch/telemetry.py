@@ -38,9 +38,12 @@ ledger with device time, and the exporters (the port of
 
 The reference's ``jax.monitoring`` compile listener (the ``jax.compiles``,
 ``jax.traces`` and ``jax.compile_ms`` counters, ``card_compile_accounting``)
-has no counterpart: the port compiles no programs. The serve and SLO
-sections of the flight dump and of the saturation sampler stay empty until
-those planes are ported.
+has no counterpart: the port compiles no programs. The flight dump and the
+saturation sampler carry the serving plane's state (breakers, queue depth,
+open batches, the dataset registry and the stores); the SLO section stays
+empty until that plane is ported (ROADMAP A9.5). ``python -m
+flox_tpu_torch.telemetry serve-metrics`` is a standalone ``/metrics``
+endpoint (``exposition``).
 
 Knobs: ``telemetry`` (``FLOX_TPU_TELEMETRY``), ``telemetry_level``
 (``FLOX_TPU_TELEMETRY_LEVEL``), ``telemetry_export_path``
@@ -67,6 +70,7 @@ __all__ = [
     "FLIGHT_RECORDER",
     "HIST_EDGES_MS",
     "METRICS",
+    "RESIDENT_GAUGES",
     "SATURATION_GAUGES",
     "MetricsRegistry",
     "anchor_event",
@@ -93,11 +97,13 @@ __all__ = [
     "observe_cost",
     "parse_traceparent",
     "profile_call",
+    "record_serve_error",
     "record_span",
     "replica_id",
     "replica_instance",
     "reset",
     "sample_hbm",
+    "sample_resident_state",
     "sample_saturation",
     "seed_hbm_limit",
     "seed_saturation_gauges",
@@ -643,6 +649,20 @@ def event(name: str, **attrs: Any) -> None:
     )
 
 
+def record_serve_error(exc: BaseException, what: str = "") -> None:
+    """Record one serving-plane exception that is answered rather than
+    raised into the flight ring and the counters, so a handled serve error
+    is never invisible to crash forensics. No-op while telemetry is off;
+    never raises."""
+    if not enabled():
+        return
+    try:
+        METRICS.inc("serve.swallowed_errors")
+        event("serve-error", what=what, error=type(exc).__name__, detail=str(exc)[:200])
+    except Exception:  # noqa: BLE001 — forensics never break the answer path
+        pass
+
+
 def current_set(**attrs: Any) -> None:
     """Attach attributes to the innermost live span, if any."""
     sp = _CURRENT.get() if enabled() else None
@@ -830,9 +850,15 @@ FLIGHT_RECORDER = _FlightRecorder()
 
 
 def _breaker_snapshot() -> dict:
-    """The serve plane's breaker state for the flight-dump header: empty
-    until the serve plane is ported."""
-    return {}
+    """``cache.stats()["serve_breakers"]`` for the flight-dump header,
+    imported lazily and guarded: a dump must succeed in a process that never
+    touched the serving plane, or at interpreter shutdown."""
+    try:
+        from .serve.breaker import breaker_stats
+
+        return breaker_stats()
+    except Exception:  # noqa: BLE001 — forensics are best-effort
+        return {}
 
 
 def _alert_snapshot() -> dict:
@@ -884,6 +910,10 @@ def flight_dump(path: Any = None, reason: str = "") -> str | None:
                 "alerts": _alert_snapshot(),
                 "saturation": {
                     name: METRICS.get(name) for name in SATURATION_GAUGES
+                },
+                # the resident state (dataset registry, stores) at the time
+                "resident": {
+                    name: METRICS.get(name) for name in RESIDENT_GAUGES
                 },
             },
         }
@@ -1260,14 +1290,25 @@ def hbm_by_program() -> dict[str, float]:
 
 
 #: the live saturation gauges the sampler publishes, seeded to 0 so the
-#: series exist before the first sample. The ``serve.*`` gauges stay at 0
-#: until the serve plane is ported; the reference's resident-state gauges
-#: (dataset registry, stores) have no source in the port yet.
+#: series exist before the first sample
 SATURATION_GAUGES: tuple[str, ...] = (
     "serve.queue_depth",
     "serve.inflight_batches",
     "serve.breakers_open",
     "stream.prefetch_occupancy",
+)
+
+#: the resident-state gauges (dataset registry occupancy, store footprint),
+#: sampled between requests too: resident state outlives any request, so
+#: the request histograms cannot show it. The per-store
+#: ``store.staleness_s|store=`` series appear with the first sample.
+RESIDENT_GAUGES: tuple[str, ...] = (
+    "registry.bytes",
+    "registry.pinned_bytes",
+    "registry.budget_bytes",
+    "registry.occupancy",
+    "store.open_stores",
+    "store.state_bytes",
 )
 
 _SAMPLER_LOCK = threading.Lock()
@@ -1280,23 +1321,68 @@ def seed_saturation_gauges() -> None:
     if not enabled():
         return
     live = METRICS.gauges()
-    for name in SATURATION_GAUGES:
+    for name in (*SATURATION_GAUGES, *RESIDENT_GAUGES):
         if name not in live:
             METRICS.set_gauge(name, 0)
 
 
 def sample_saturation() -> None:
-    """One sample of the live saturation gauges: the prefetch pools'
-    occupancy and the device-memory gauges (what the process is doing right
-    now, between calls). Never raises (sampler contract)."""
+    """One sample of the live saturation gauges: the serving queue's depth
+    and open micro-batches, open breakers, the prefetch pools' occupancy,
+    the resident state and the device-memory gauges (what the process is
+    doing right now, between calls). Never raises (sampler contract); each
+    source is guarded on its own."""
     if not enabled():
         return
+    try:
+        from .serve.dispatcher import _BATCH_REGISTRY, _PENDING_REGISTRY
+
+        METRICS.set_gauge("serve.queue_depth", len(_PENDING_REGISTRY))
+        METRICS.set_gauge("serve.inflight_batches", len(_BATCH_REGISTRY))
+    except Exception:  # noqa: BLE001 — sampling must never break the caller
+        pass
+    try:
+        from .serve.breaker import open_breakers
+
+        METRICS.set_gauge("serve.breakers_open", len(open_breakers()))
+    except Exception:  # noqa: BLE001
+        pass
     try:
         from .pipeline import prefetch_occupancy
 
         METRICS.set_gauge("stream.prefetch_occupancy", prefetch_occupancy())
+    except Exception:  # noqa: BLE001
+        pass
+    sample_resident_state()
+    try:
         sample_hbm()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def sample_resident_state() -> None:
+    """One sample of the resident-state gauges: the dataset registry's
+    occupancy against its budget and each open store's staleness. Never
+    raises (sampler contract)."""
+    if not enabled():
+        return
+    try:
+        from .serve.registry import budget_bytes, registry_stats
+
+        budget = float(budget_bytes())
+        stats = registry_stats()
+        METRICS.set_gauge("registry.bytes", float(stats["bytes"]))
+        METRICS.set_gauge("registry.pinned_bytes", float(stats["pinned_bytes"]))
+        METRICS.set_gauge("registry.budget_bytes", budget)
+        METRICS.set_gauge("registry.occupancy",
+                          round(float(stats["bytes"]) / budget, 4) if budget > 0 else 0.0)
     except Exception:  # noqa: BLE001 — sampling must never break the caller
+        pass
+    try:
+        from .serve import stores as serve_stores
+
+        serve_stores.publish_staleness()
+    except Exception:  # noqa: BLE001
         pass
 
 
@@ -2060,7 +2146,39 @@ def main(argv: list[str] | None = None) -> int:
         help="drift ratio that flags a program (default: "
         "OPTIONS['costmodel_drift_threshold'])",
     )
+    srv = sub.add_parser(
+        "serve-metrics",
+        help="standalone /metrics + /healthz + /readyz HTTP endpoint (Prometheus text "
+        "format, standard library only)",
+    )
+    srv.add_argument(
+        "--port", type=int, default=None,
+        help="TCP port (default: OPTIONS['metrics_port'] or 8000; 0 picks an ephemeral "
+        "port and prints it)",
+    )
+    srv.add_argument("--host", default="127.0.0.1")
     args = parser.parse_args(argv)
+    if args.command == "serve-metrics":
+        # a process whose only job is to be scraped: telemetry forced on, ready
+        # at once (no warmup manifest), SIGTERM leaving a flight record
+        from . import exposition, profiling
+        from .options import OPTIONS, set_options
+
+        set_options(telemetry=True)
+        install_signal_dumps()
+        profiling.install_capture_signal()
+        port = args.port if args.port is not None else (OPTIONS["metrics_port"] or 8000)
+        bound = exposition.start_metrics_server(port=port, host=args.host)
+        exposition.set_ready(True)
+        print(f"serving /metrics /healthz /readyz on http://{args.host}:{bound}", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            exposition.stop_metrics_server()
+        return 0
     if args.command == "costs":
         if args.top is not None and args.top < 1:
             parser.error("--top must be >= 1")

@@ -6,9 +6,7 @@ import flox_tpu_torch
 #: names of ``flox_tpu.__all__`` the port has not ported yet, each with the
 #: ROADMAP item that brings it
 ALLOWED_GAPS = {
-    "autotune": "A9 (autotune)",
-    "cache": "A9 (cache)",
-    "serve": "A9 (serving)",
+    "autotune": "A9.3 (autotune)",
 }
 
 
@@ -24,8 +22,22 @@ def test_exported_names_resolve():
                  "streaming_groupby_reduce", "streaming_groupby_aggregate_many",
                  "streaming_groupby_scan"):
         assert callable(getattr(flox_tpu_torch, name)), name
-    for module in ("cohorts", "faults", "profiling", "resilience", "kernels", "telemetry"):
+    for module in ("cache", "cohorts", "faults", "profiling", "resilience", "kernels", "serve",
+                   "telemetry"):
         assert getattr(flox_tpu_torch, module).__name__ == f"flox_tpu_torch.{module}"
+    from flox_tpu_torch import cache, exposition, serve, store
+
+    for name in ("LRUCache", "clear_all", "stats"):
+        assert callable(getattr(cache, name)), name
+    for name in ("Dispatcher", "AggregationRequest", "ServeResult", "payload_digest"):
+        assert getattr(serve, name) is getattr(serve.dispatcher, name), name
+    for module in ("aot", "breaker", "registry", "stores"):
+        assert getattr(serve, module).__name__ == f"flox_tpu_torch.serve.{module}"
+    for name in ("IncrementalAggregationStore", "open_store"):
+        assert getattr(store, name) is not None, name
+    for name in ("prometheus_text", "start_metrics_server", "stop_metrics_server", "set_ready",
+                 "ready", "ready_reason", "MetricsServer"):
+        assert getattr(exposition, name) is not None, name
 
 
 def test_gaps_are_still_gaps():

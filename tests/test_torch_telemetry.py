@@ -21,6 +21,7 @@ The cases of tests/test_telemetry.py that the port has a counterpart for
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -635,11 +636,34 @@ _REF_ONLY_PREFIXES = ("jax.", "cache.")
 _REF_ONLY = {"costmodel.card_traces", "costmodel.card_compiles", "costmodel.card_compile_ms"}
 
 
+@contextlib.contextmanager
+def _plane_on(package):
+    """Telemetry and cost cards on for ``package``: for the reference, in
+    every option dict its modules may read (``flox_tpu.costmodel`` bound
+    ``OPTIONS`` at import, while ``set_options`` writes
+    ``flox_tpu.options.OPTIONS``, which a reload of that module, as one of
+    the reference's option tests does, replaces with another dict)."""
+    if package is not flox_tpu:
+        with package.set_options(telemetry=True, costmodel=True):
+            yield
+        return
+    dicts = {id(m.OPTIONS): m.OPTIONS for name, m in list(sys.modules.items())
+             if name.startswith("flox_tpu.") and isinstance(getattr(m, "OPTIONS", None), dict)}
+    saved = [(d, {k: dict.get(d, k) for k in ("telemetry", "costmodel")}) for d in dicts.values()]
+    try:
+        for d, _ in saved:
+            d.update(telemetry=True, costmodel=True)
+        yield
+    finally:
+        for d, old in saved:
+            d.update(old)
+
+
 def _names(mod, package, call):
     """Span names (with their attribute names) and counter names of one
     instrumented call of ``package``."""
     mod.reset()
-    with package.set_options(telemetry=True, costmodel=True):
+    with _plane_on(package):
         call()
     recs = mod.drain()
     spans = sorted((r["name"], tuple(sorted(r["attrs"]))) for r in recs if r["type"] == "span")
