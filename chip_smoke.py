@@ -121,7 +121,24 @@ Phases; any failure exits nonzero:
    span tree, the cost ledger's device time (CUDA events) beside a profile's
    busy time, the exports and a flight dump read back, the cost card's
    ``predicted_ms`` equal to the segment-sum kernel's bound, and one
-   ``profiling.trace`` capture;
+   ``profiling.trace`` capture; then the autotuner (:func:`phase_autotune`,
+   ``autotune=True`` with a store file, from ``cache.clear_all()``): the
+   month nanmean at full width with its one ``segment_sum`` sweep (each
+   candidate's GB/s, the decision, its launches, on and off timed in
+   turns), the trio and the climatology set (the ``fused`` family), the
+   3-q nanquantile on the cut (the ``quantile`` sweep), the 36524-day
+   universe on the cut left to the engine choice (the ``highcard`` sweep),
+   the month nanmean streamed twice from a host copy of the cut (the
+   stream picks) and a second process on the same store file (0 sweeps,
+   cache hits, the same decision), each tuned call bit for bit its untuned
+   twin on the same kernels and within the sums bar where one of them ran
+   ``index_add_``; then the SLO plane and fleet federation
+   (:func:`phase_slo_fleet`): two serve loops with a metrics port and a
+   0.5 s canary, each with its canary probes, no failure and healthy
+   objectives, a ``fleet federate`` process over both (``/readyz`` 200,
+   ``/metrics`` the replicas' sum, no alerts), ``fleet top --once --plain``,
+   and in process a corrupted canary's correctness page firing on the
+   synthetic clock with its flight dump;
 4. time, with CUDA events (median of ``--reps`` runs after a warm-up), each
    kernel at the main path's shapes against its bound, its plain version and
    one library call (or a labelled yardstick), and the end-to-end calls; the
@@ -153,9 +170,11 @@ import argparse
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2790,6 +2809,564 @@ def phase_telemetry(data, month, totals: dict, reps: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the autotuner, the SLO plane and fleet federation (A9.3, A9.5, A9.6)
+# ---------------------------------------------------------------------------
+
+
+def _swept(autotune, family: str, dtype: str, ngroups: int, nelems: int, plat: str) -> dict:
+    """The swept (or nearest) record of a family's key: {candidate: GB/s}."""
+    rec = autotune.lookup(family, dtype=dtype, ngroups=ngroups, nelems=nelems, platform=plat)
+    return {} if rec is None else {c: v["gbps"] for c, v in rec["candidates"].items()}
+
+
+def _launched(ck, fn, totals: dict, tuned: bool = False, **pinned):
+    """``fn()`` (under ``autotune=True`` when ``tuned``, and the ``pinned``
+    options) with its launches counted from 0, added to ``totals``:
+    (result, launches)."""
+    import flox_tpu_torch
+
+    ck.reset_launches()
+    with flox_tpu_torch.set_options(autotune=tuned, **pinned):
+        out = fn()
+    torch.cuda.synchronize()
+    got = dict(ck.LAUNCHES)
+    for kk in totals:
+        totals[kk] += got[kk]
+    return out, got
+
+
+_SUM_KERNEL_OF = {"kernel": "segment_sum", "radixbin": "segment_sum_radixbin"}
+
+
+def _held(name: str, on, twin, on_l: dict, twin_l: dict, kernels: bool = True) -> str:
+    """A tuned result against its untuned twin, the same call with the route
+    the tuner chose pinned by options: the same launches (at least one where
+    ``kernels``: the route runs the hand-written kernels) and bit for bit
+    (the kernels are deterministic)."""
+    check(on_l == twin_l and (any(on_l.values()) or not kernels),
+          f"tuned {name}: launches {on_l}, its pinned twin {twin_l}")
+    for f in on if isinstance(on, dict) else (None,):
+        a, b = (on, twin) if f is None else (on[f], twin[f])
+        check(same(a, b), f"tuned {name}{'' if f is None else ' ' + f}: differs from its "
+                          "pinned twin")
+    return "bit for bit"
+
+
+def autotune_child(seed: int, shape: tuple, device: str, path: str, out_path: str) -> None:
+    """The second process of :func:`phase_autotune`: the month nanmean on the
+    same data with the tuner on and the same store file; prints its sweeps,
+    cache hits and segment-sum winner, and saves its result to ``out_path``."""
+    import flox_tpu_torch
+    from flox_tpu_torch import autotune
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    data = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    with flox_tpu_torch.set_options(autotune=True, autotune_cache_path=path):
+        out = flox_tpu_torch.groupby_reduce(data, month_labels(shape[1]), func="nanmean",
+                                            device=device)[0]
+        rec = autotune.decision_record()
+        winner = autotune.decide("segment_sum", "none", ("kernel", "radixbin", "scatter"),
+                                 dtype="float32", ngroups=NGROUPS, nelems=data.numel(),
+                                 platform=torch.device(device).type)
+    np.save(out_path, out.cpu().numpy())
+    print(json.dumps({"sweeps": rec["sweeps"], "cache_hits": rec["cache_hits"],
+                      "winner": winner}))
+
+
+def phase_autotune(data, month, totals: dict, reps: int, seed: int) -> dict:
+    """The measured dispatch (``autotune=True``, a store file in a temporary
+    directory, from ``cache.clear_all()``), through the entry points. On the
+    card every decision is among routes that run the hand-written kernels,
+    and each tuned call is held bit for bit, with the same launches, to its
+    untuned twin: the same call with the chosen route pinned by options
+    (:func:`_held`).
+
+    1. the month nanmean at full width: exactly one segment-sum sweep (8 x
+       8192, the kernels' GB/s printed), the decision and the launches it
+       gives, the full-width time with the tuner on and off, in turns;
+    2. the trio and the climatology set: the ``fused`` family's decision
+       and the launches it gives;
+    3. nanquantile(0.1, 0.5, 0.9) on the SORT_ROWS cut: the ``quantile``
+       sweep (sort against select) and its decision, also within the
+       float32 interpolation bar of the untuned (sort) call;
+    4. the 36524-day universe on the cut, left to the engine choice
+       (``sort_engine_min_groups`` lowered under it): dense accumulators
+       there would be ``index_add_``, so the ``highcard`` family has the
+       sort engine alone and sweeps nothing; then a 16384-day universe,
+       where both engines run B5: its sweep and decision;
+    5. the month nanmean streamed twice from a host copy of the cut: the
+       first pass feeds ``observe_stream``, the second prints the picks;
+    6. a second process on the same store file: 0 sweeps, cache hits, the
+       same decision, and its month nanmean against this process's.
+    """
+    import shutil
+    import tempfile
+
+    import flox_tpu_torch
+    from flox_tpu_torch import autotune, cache, cuda_kernels as ck, streaming
+
+    k, n = data.shape
+    plat = torch.device(DEVICE).type
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    path = os.path.join(tmp, "autotune.json")
+    child_out = os.path.join(tmp, "child.npy")
+    cache.clear_all()
+    out: dict = {}
+    child = None
+    try:
+        with flox_tpu_torch.set_options(autotune_cache_path=path):
+            # 1. the month nanmean at full width
+            def mean_call():
+                return flox_tpu_torch.groupby_reduce(data, month, func="nanmean")[0]
+
+            off, off_l = _launched(ck, mean_call, totals)
+            t0 = time.perf_counter()
+            first, first_l = _launched(ck, mean_call, totals, tuned=True)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            record = autotune.decision_record()
+            check(record["sweeps"] == 1, f"month nanmean: {record['sweeps']} sweeps, not 1")
+            cands = _swept(autotune, "segment_sum", "float32", NGROUPS, k * n, plat)
+            with flox_tpu_torch.set_options(autotune=True):
+                winner = autotune.decide("segment_sum", "none", tuple(cands), dtype="float32",
+                                         ngroups=NGROUPS, nelems=k * n, platform=plat)
+            print(f"[autotune] segment_sum sweep at {autotune._SWEEP_ROWS} x "
+                  f"{autotune._SWEEP_N_MAX} float32 over {NGROUPS} groups, GB/s "
+                  f"{ {c: cands[c] for c in sorted(cands)} }; decision {winner!r} for the "
+                  f"{k} x {n} month nanmean; launches with the sweep {first_l}")
+            check(set(cands) == {"kernel", "radixbin"},
+                  f"segment_sum sweep candidates {sorted(cands)}: the card's are the kernels")
+            for cand in cands:
+                check(first_l[_SUM_KERNEL_OF[cand]] >= 3,
+                      f"sweep: {cand} timed without its launches")
+            on, on_l = _launched(ck, mean_call, totals, tuned=True)
+            twin, twin_l = _launched(ck, mean_call, totals, segment_sum_impl=winner)
+            check(on_l == {kk: int(kk == _SUM_KERNEL_OF[winner]) for kk in on_l},
+                  f"tuned month nanmean: launches {on_l}, decision {winner!r}")
+            how = _held("month nanmean", on, twin, on_l, twin_l)
+            if winner == "kernel":
+                check(same(on, off), "tuned month nanmean: differs from the untuned call")
+                vs_off = "bit for bit"
+            else:
+                _check_close("tuned month nanmean (B5) against the untuned (B1)", on,
+                             off.double())
+                vs_off = "within the sums bar of"
+            turns_on, turns_off = [], []
+            for _ in range(3):
+                turns_off.append(time_ms(mean_call, reps))
+                with flox_tpu_torch.set_options(autotune=True):
+                    turns_on.append(time_ms(mean_call, reps))
+            out["month"] = {"winner": winner, "gbps": cands, "launches": on_l,
+                            "on_ms": statistics.median(turns_on),
+                            "off_ms": statistics.median(turns_off), "first_ms": first_ms}
+            print(f"[autotune] month nanmean, tuned: launches {on_l}, {how} its pinned twin, "
+                  f"{vs_off} the untuned call; at full width tuner on {turns_on!r} ms, off "
+                  f"{turns_off!r} ms (CUDA events, median of {reps}, 3 turns); the first "
+                  f"tuned call with its sweep {first_ms!r} ms of wall time")
+            del off, on, first, twin
+            check(autotune.save() == path, "autotune: the store was not saved")
+            # 6. (started now) a second process on the same store file
+            here = os.path.dirname(os.path.abspath(__file__))
+            code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke as c; "
+                    f"c.autotune_child({seed}, {tuple(data.shape)!r}, {DEVICE!r}, {path!r}, "
+                    f"{child_out!r})")
+            child = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, cwd=here)
+
+            # 2. the trio and the climatology set: the fused family
+            for name, funcs in (("trio", ("nanmean", "nanmin", "nanmax")),
+                                ("climatology", ("count", "nanmean", "nanstd", "nanmin",
+                                                 "nanmax"))):
+                def many(f=funcs):
+                    return flox_tpu_torch.groupby_aggregate_many(data, month, funcs=f)[0]
+
+                off, off_l = _launched(ck, many, totals)
+                on, on_l = _launched(ck, many, totals, tuned=True)
+                twin, twin_l = _launched(ck, many, totals, segment_sum_impl=winner)
+                with flox_tpu_torch.set_options(autotune=True):
+                    fam = autotune.decide("fused", "fused", ("fused", "sequential"),
+                                          dtype="float32", ngroups=NGROUPS, nelems=k * n,
+                                          platform=plat)
+                how = _held(name, on, twin, on_l, twin_l)
+                if winner == "kernel":
+                    check(on_l == off_l and on_l["segment_multistat"] >= 1,
+                          f"tuned {name}: launches {on_l}, untuned {off_l}")
+                out[f"fused_{name}"] = {"winner": fam, "launches": on_l, "untuned": off_l}
+                print(f"[autotune] aggregate_many({name}): fused family decision {fam!r}; "
+                      f"launches untuned {off_l}, tuned {on_l}; the tuned results {how} their "
+                      "pinned twin's")
+                del off, on, twin
+            torch.cuda.empty_cache()
+
+            # 3. the quantile family on the cut
+            cut = data[:SORT_ROWS]
+
+            def quant():
+                return flox_tpu_torch.groupby_reduce(
+                    cut, month, func="nanquantile", finalize_kwargs={"q": [0.1, 0.5, 0.9]})[0]
+
+            sweeps0 = autotune.decision_record()["sweeps"]
+            off, off_l = _launched(ck, quant, totals)
+            _launched(ck, quant, totals, tuned=True)  # its sweep
+            check(autotune.decision_record()["sweeps"] == sweeps0 + 1,
+                  "nanquantile: not one quantile sweep")
+            on, on_l = _launched(ck, quant, totals, tuned=True)
+            qc = _swept(autotune, "quantile", "float32", NGROUPS, cut.numel(), plat)
+            with flox_tpu_torch.set_options(autotune=True):
+                qwin = autotune.decide("quantile", "sort", ("sort", "select"), dtype="float32",
+                                       ngroups=NGROUPS, nelems=cut.numel(), platform=plat)
+            check(set(qc) == {"sort", "select"}, f"quantile sweep candidates {sorted(qc)}")
+            twin, twin_l = _launched(ck, quant, totals, quantile_impl=qwin,
+                                     segment_sum_impl=winner)
+            how = _held("nanquantile", on, twin, on_l, twin_l, kernels=qwin == "select")
+            err = (on.double() - off.double()).abs()
+            scale = off.double().abs().amax(dim=-1, keepdim=True)
+            check(bool((err <= 1e-6 * (off.double().abs() + scale)).all()),
+                  f"tuned nanquantile ({qwin}) off the untuned one by {err.max().item()}")
+            out["quantile"] = {"winner": qwin, "gbps": qc, "launches": on_l}
+            print(f"[autotune] quantile sweep GB/s {qc}; decision {qwin!r}; launches untuned "
+                  f"{off_l}, tuned {on_l}; {how} its pinned twin; max |diff| to the untuned "
+                  f"call {err.max().item()!r}")
+            del off, on, twin, err, scale
+
+            # 4. the highcard family: day universes on the cut
+            labels = DAY0 + np.arange(n) // 24
+            for universe, min_groups in ((NUNIVERSE, 1 << 15), (1 << 14, 1 << 13)):
+                def days(engine=None, u=universe, g=min_groups):
+                    with flox_tpu_torch.set_options(sort_engine_min_groups=g):
+                        return flox_tpu_torch.groupby_reduce(
+                            cut, labels - (DAY0 if u < NUNIVERSE else 0), func="nanmean",
+                            expected_groups=np.arange(u), engine=engine)[0]
+
+                swept0 = {k_ for k_ in autotune._AUTOTUNE_CACHE if k_.startswith("highcard|")}
+                off, off_l = _launched(ck, days, totals)
+                t0 = time.perf_counter()
+                _launched(ck, days, totals, tuned=True)  # its sweeps
+                hc_ms = (time.perf_counter() - t0) * 1e3
+                on, on_l = _launched(ck, days, totals, tuned=True)
+                hc = {k_.split("|", 1)[1]: v for k_, v in autotune._AUTOTUNE_CACHE.items()
+                      if k_.startswith("highcard|") and k_ not in swept0}
+                with flox_tpu_torch.set_options(autotune=True):
+                    hwin = autotune.decide("highcard", "none", ("dense", "sort"),
+                                           dtype="float32", ngroups=universe,
+                                           nelems=cut.numel(), platform=plat)
+                if universe == NUNIVERSE:
+                    check(not hc, f"highcard over {universe} days: swept {sorted(hc)}")
+                    hwin, hgb = "sort", {}
+                else:
+                    check(len(hc) == 1, f"highcard over {universe} days: {len(hc)} swept keys")
+                    hgb = {c: v["gbps"] for c, v in next(iter(hc.values()))["candidates"].items()}
+                twin, twin_l = _launched(ck, lambda: days("torch" if hwin == "dense" else "sort"),
+                                         totals)
+                how = _held(f"highcard ({universe} days)", on, twin, on_l, twin_l)
+                check(on_l["segment_sum_radixbin"] >= 1, f"highcard: launches {on_l}")
+                if same(on, off):
+                    vs_off = "bit for bit"
+                else:  # the other engine: the same sums over another group layout
+                    fin = torch.isfinite(off)
+                    check(torch.equal(fin, torch.isfinite(on)),
+                          f"highcard ({universe} days): NaN pattern differs from untuned")
+                    _check_close(f"tuned highcard ({universe} days)", on[fin],
+                                 off[fin].double())
+                    vs_off = "within the sums bar of"
+                t_off = _once_ms(days)[1]
+                with flox_tpu_torch.set_options(autotune=True):
+                    t_on = _once_ms(days)[1]
+                out[f"highcard_{universe}"] = {"winner": hwin, "gbps": hgb, "launches": on_l,
+                                               "on_ms": t_on, "off_ms": t_off}
+                print(f"[autotune] highcard over {universe} days: "
+                      + (f"sweep ({next(iter(hc))}) GB/s {hgb}; decision {hwin!r}"
+                         if hc else "dense accumulators would leave the kernels, so the "
+                         "sort engine is the one candidate and nothing is swept")
+                      + f"; launches untuned {off_l}, tuned {on_l}; {how} its pinned twin, "
+                      f"{vs_off} the untuned call; one call untuned {t_off!r} ms, tuned "
+                      f"{t_on!r} ms (the first tuned, "
+                      f"with its sweeps, {hc_ms!r} ms of wall time)")
+                del off, on, twin
+
+            # 5. the month nanmean streamed twice from a host copy of the cut
+            host = cut.cpu().numpy()
+
+            def stream(batch_bytes=None):
+                return flox_tpu_torch.streaming_groupby_reduce(host, month, func="nanmean",
+                                                               batch_bytes=batch_bytes)[0]
+
+            def picks():
+                with flox_tpu_torch.set_options(autotune=True):
+                    return (autotune.pick_stream_prefetch(2, nelems=host.size, platform=plat),
+                            autotune.pick_stream_batch_bytes(streaming._DEFAULT_BATCH_BYTES,
+                                                             nelems=host.size, platform=plat))
+
+            # the untuned pass feeds observe_stream: the tuned passes pick from it
+            _, base_l = _launched(ck, stream, totals, segment_sum_impl=winner)
+            before = picks()
+            first, first_l = _launched(ck, stream, totals, tuned=True)
+            depth, budget = picks()
+            second, second_l = _launched(ck, stream, totals, tuned=True)
+            check(before == (depth, budget), f"stream picks moved: {before}, {(depth, budget)}")
+            # the twin: the tuned slab budget and the chosen kernel, pinned
+            twin, twin_l = _launched(ck, lambda: stream(budget), totals,
+                                     segment_sum_impl=winner)
+            how = _held("stream, first pass", first, twin, first_l, twin_l)
+            _held("stream, second pass", second, twin, second_l, twin_l)
+            out["stream"] = {"prefetch": depth, "batch_bytes": budget, "launches": second_l}
+            print(f"[autotune] streamed month nanmean ({host.shape[0]} rows) twice: picks "
+                  f"prefetch {depth}, slab budget {budget} bytes (defaults 2, "
+                  f"{streaming._DEFAULT_BATCH_BYTES}); launches untuned {base_l}, tuned "
+                  f"{first_l} then {second_l}; both passes {how} the untuned stream with "
+                  "that budget and kernel pinned")
+            del host, first, second, twin
+
+            # 6. the second process
+            stdout, stderr = child.communicate(timeout=240)
+            check(child.returncode == 0, f"second process exited {child.returncode}: "
+                                         f"{stderr[-2000:]}")
+            got = json.loads(stdout.strip().splitlines()[-1])
+            check(got["sweeps"] == 0 and got["cache_hits"] > 0 and got["winner"] == winner,
+                  f"second process: {got}, decision here {winner!r}")
+            theirs = torch.from_numpy(np.load(child_out)).to(DEVICE)
+            mine, mine_l = _launched(ck, mean_call, totals, tuned=True)
+            how = _held("month nanmean, second process", theirs, mine, mine_l, mine_l)
+            out["restart"] = got
+            print(f"[autotune] second process on the store file: {got['sweeps']} sweeps, "
+                  f"{got['cache_hits']} cache hits, decision {got['winner']!r}, its month "
+                  f"nanmean {how} this process's")
+            print(f"[autotune] store: {json.dumps(autotune.decision_record()['winners'])}")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.communicate()
+        cache.clear_all()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+SLO_CANARY_INTERVAL = 0.5  # seconds between the replicas' canary cycles
+SLO_MIN_PROBES = 3  # canary probes each replica must have made
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, path: str, timeout: float = 10.0) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _counter(text: str, name: str) -> float:
+    """The unlabeled-or-single-replica value of a counter in a scrape."""
+    from flox_tpu_torch import fleet
+
+    return sum(v for (m, _), v in fleet.parse_metrics_text(text)["counters"].items()
+               if m == name)
+
+
+def phase_slo_fleet(data, month, aot_dir: str) -> dict:
+    """The SLO plane and fleet federation on the card: two
+    ``python -m flox_tpu_torch.serve --device cuda`` replicas with a metrics
+    port and ``--canary-interval``, started with ``--warmup`` from the
+    manifest :func:`phase_serve` left in ``aot_dir``, answer its JSON lines
+    once their ``/readyz`` says 200; each must make SLO_MIN_PROBES canary
+    probes with no
+    failure and healthy correctness and availability objectives; a
+    ``python -m flox_tpu_torch.fleet federate`` process over both answers
+    ``/readyz`` 200, its ``/metrics`` counters are the sum of the replicas'
+    and its ``/alerts`` is empty, and ``fleet top --once --plain`` renders
+    both. Then, in this process, a ``Dispatcher(device="cuda")`` under
+    ``faults.slo_inject`` with corrupted canary answers: the correctness
+    page goes pending then firing on the synthetic clock, writes a flight
+    dump and shows in ``/alerts``."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import flox_tpu_torch
+    from flox_tpu_torch import exposition, faults, fleet, slo, telemetry
+    from flox_tpu_torch.serve import Dispatcher
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    host = data[:SERVE_LINE_ROWS, :8760].cpu().numpy()
+    lines = _serve_lines(host, month, np.arange(data.shape[1]) // 24)
+    ports = [_free_port() for _ in range(3)]
+    names = ("ra", "rb")
+    procs, out = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slo_")
+    try:
+        for name, port in zip(names, ports):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "flox_tpu_torch.serve", "--device", DEVICE,
+                 "--metrics-port", str(port), "--canary-interval", str(SLO_CANARY_INTERVAL),
+                 "--replica-id", name, "--aot-dir", aot_dir, "--warmup"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=here))
+        def wait_for(metric: str, want: list, what: str) -> None:
+            deadline = time.monotonic() + 120
+            got = [0.0] * len(names)
+            while any(g < w for g, w in zip(got, want)) and time.monotonic() < deadline:
+                time.sleep(0.5)
+                for i, port in enumerate(ports[:2]):
+                    try:
+                        status, text = _http(port, "/metrics", timeout=2)
+                    except OSError:
+                        continue
+                    if status == 200:
+                        got[i] = _counter(text, metric)
+            check(all(g >= w for g, w in zip(got, want)), f"{what}: {got}, wanted {want}")
+
+        # user traffic waits for readiness, as behind a load balancer: /readyz
+        # flips after the warmup replay, so no user request pays a cold
+        # start (a replica started without --warmup pays the CUDA context
+        # and the libraries' load on its first request, past the latency
+        # objective's 250 ms)
+        deadline = time.monotonic() + 120
+        ready = [None] * len(names)
+        while time.monotonic() < deadline and ready != [200] * len(names):
+            time.sleep(0.25)
+            for i, port in enumerate(ports[:2]):
+                try:
+                    ready[i] = _http(port, "/readyz", timeout=2)[0]
+                except OSError:
+                    ready[i] = None
+        check(ready == [200] * len(names), f"replicas' /readyz: {ready}")
+        for i, proc in enumerate(procs):
+            # replica i answers i + 1 of the lines, then drains
+            for line in lines[: i + 1]:
+                proc.stdin.write(json.dumps(line) + "\n")
+            proc.stdin.write('{"op": "drain"}\n')
+            proc.stdin.flush()
+        wait_for("flox_tpu_serve_requests_total", [1.0, 2.0], "user requests")
+        wait_for("flox_tpu_canary_probes_total", [SLO_MIN_PROBES] * 2, "canary probes")
+        targets = ",".join(f"{name}=http://127.0.0.1:{port}" for name, port in zip(names, ports))
+        fed = subprocess.Popen(
+            [sys.executable, "-m", "flox_tpu_torch.fleet", "federate", "--replicas", targets,
+             "--port", str(ports[2]), "--interval", "0.5"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+        procs.append(fed)
+        top = subprocess.Popen(
+            [sys.executable, "-m", "flox_tpu_torch.fleet", "top", "--once", "--plain",
+             "--replicas", targets], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=here)
+        procs.append(top)
+        for name, port in zip(names, ports):
+            status, body = _http(port, "/slo")
+            check(status == 200, f"replica {name} /slo: {status}")
+            objs = {o["kind"]: o for o in json.loads(body)["objectives"]}
+            text = _http(port, "/metrics")[1]
+            fails = _counter(text, "flox_tpu_canary_failures_total")
+            check(fails == 0 and objs["correctness"]["healthy"]
+                  and objs["availability"]["healthy"] and objs["correctness"]["bad"] == 0,
+                  f"replica {name}: canary failures {fails}, objectives {objs}")
+            out[name] = {"probes": _counter(text, "flox_tpu_canary_probes_total"),
+                         "requests": _counter(text, "flox_tpu_serve_requests_total")}
+            print(f"[slo] replica {name}: {out[name]['probes']:.0f} canary probes, 0 failures; "
+                  f"correctness good {objs['correctness']['good']:.0f}, availability good "
+                  f"{objs['availability']['good']:.0f}; both objectives healthy")
+        deadline = time.monotonic() + 60
+        status = None
+        while time.monotonic() < deadline and status != 200:
+            time.sleep(0.5)
+            try:
+                status, _ = _http(ports[2], "/readyz", timeout=2)
+            except OSError:
+                status = None
+        check(status == 200, f"federator /readyz: {status}")
+        time.sleep(1.0)  # one more scrape round after the last user request
+        merged = _http(ports[2], "/metrics")[1]
+        total = [float(ln.split()[-1]) for ln in merged.splitlines()
+                 if ln.startswith("flox_tpu_serve_requests_total ")]
+        want = sum(_counter(_http(p, "/metrics")[1], "flox_tpu_serve_requests_total")
+                   for p in ports[:2])
+        check(total == [want] and want == 3.0,
+              f"federated serve.requests {total}, the replicas' sum {want}")
+        status, body = _http(ports[2], "/alerts")
+        check(status == 200 and json.loads(body)["alerts"] == [], f"federator /alerts: {body}")
+        top_out, top_err = top.communicate(timeout=120)
+        check(top.returncode == 0 and all(f"\n{name} " in "\n" + top_out for name in names),
+              f"fleet top: {top.returncode} {top_err[-1000:]}\n{top_out}")
+        federator = fleet.Federator([(n_, f"http://127.0.0.1:{p}")
+                                     for n_, p in zip(names, ports)], interval=60)
+        rounds = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            federator.scrape_once()
+            rounds.append((time.perf_counter() - t0) * 1e3)
+        out["scrape_ms"] = statistics.median(rounds)
+        print(f"[fleet] federator over {len(names)} replicas: /readyz 200, serve.requests "
+              f"{want:.0f} = the replicas' sum, no alerts; fleet top renders both; one scrape "
+              f"round {out['scrape_ms']!r} ms (median of 5, in process)")
+        for proc in procs[:2]:
+            proc.stdin.write('{"op": "shutdown"}\n')
+            proc.stdin.flush()
+        for name, proc in zip(names, procs[:2]):
+            _, err = proc.communicate(timeout=60)
+            check(proc.returncode == 0, f"replica {name} exited {proc.returncode}: {err[-1000:]}")
+
+        # in process: a corrupted canary pages on the synthetic clock
+        dump = os.path.join(tmp, "flight.jsonl")
+
+        async def cycle(d, i):
+            return await slo.canary_cycle(d, i)
+
+        async def run_cycles(plan):
+            d = Dispatcher(device=DEVICE)
+            try:
+                states = []
+                slo.evaluate()
+                for i in (1, 2):
+                    verdicts = await cycle(d, i)
+                    check(verdicts["reduce"] is False, f"corrupted canary passed: {verdicts}")
+                    plan.advance(60)
+                    states.append([a["state"] for a in slo.evaluate()["alerts"]
+                                   if (a["objective"], a["window"]) == ("correctness",
+                                                                        "fast")])
+                return states
+            finally:
+                await d.close()
+
+        with flox_tpu_torch.set_options(telemetry=True, flight_recorder_path=dump):
+            telemetry.reset()
+            port = exposition.start_metrics_server(port=0)
+            try:
+                with faults.slo_inject(clock0=1000.0, corrupt_canary={"*": -1}) as plan:
+                    states = asyncio.run(asyncio.wait_for(run_cycles(plan), 120))
+                    status, body = _http(port, "/alerts")
+            finally:
+                exposition.stop_metrics_server()
+        check(states == [["pending"], ["firing"]], f"correctness alert states {states}")
+        rows = {(a["objective"], a["window"]): a for a in json.loads(body)["alerts"]}
+        check(status == 200 and rows.get(("correctness", "fast"), {}).get("state") == "firing",
+              f"in-process /alerts: {body}")
+        with open(dump) as f:
+            header = json.loads(f.readline())
+        check(header["attrs"]["reason"] == "alert:correctness:fast"
+              and "correctness/fast[page]" in header["attrs"]["alerts"]["firing"],
+              f"flight dump header: {header['attrs']}")
+        print("[slo] in process, a Dispatcher on the card with corrupted canary answers: the "
+              "correctness page pending then firing on the synthetic clock, a flight dump "
+              "written, the alert in /alerts")
+        telemetry.reset()
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -2929,7 +3506,7 @@ class _ServeProcess:
                 if line.startswith("{")]
 
 
-def phase_serve(data, month, totals: dict, host: np.ndarray) -> dict:
+def phase_serve(data, month, totals: dict, host: np.ndarray, aot_dir: str) -> dict:
     """The serving plane at full width: the host copy put twice into the
     resident dataset registry (month and day labels), the registry-referenced
     calls through an in-process ``Dispatcher`` bit for bit their eager calls
@@ -2938,15 +3515,12 @@ def phase_serve(data, month, totals: dict, host: np.ndarray) -> dict:
     and one launch, a simulated device loss restaging the dataset with
     ``/readyz`` flipping back, one scrape of ``/metrics``, and two
     ``python -m flox_tpu_torch.serve`` processes sharing a warmup directory,
-    the second warming with zero ``nvcc`` builds and answering identically."""
-    import shutil
-    import tempfile
-
+    the second warming with zero ``nvcc`` builds and answering identically.
+    The manifest in ``aot_dir`` stays for :func:`phase_slo_fleet`."""
     day = np.arange(data.shape[1]) // 24
     out: dict = {}
     # two serve-loop processes share one warmup directory: the first starts
     # now and reaches the card while the puts run
-    aot_dir = tempfile.mkdtemp(prefix="flox_aot_")
     lines = _serve_lines(host, month, day)
     procs = [_ServeProcess(lines, aot_dir, warmup=False)]
     try:
@@ -2955,7 +3529,6 @@ def phase_serve(data, month, totals: dict, host: np.ndarray) -> dict:
         for proc in procs:
             if proc.proc.poll() is None:
                 proc.proc.kill()
-        shutil.rmtree(aot_dir, ignore_errors=True)
     return out
 
 
@@ -3687,15 +4260,24 @@ def main() -> int:
     mark("main path")
     stream = phase_streaming(data, month, codes, launches)
     mark("streaming")
-    phase_serve(data, month, launches, stream["host"])
-    mark("serve")
-    phase_store(data, month, launches, stream["host"], stream["singles"]["trio"])
-    mark("store")
-    phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2), stream)
-    del stream
-    mark("mesh, mesh streaming and two ranks")
-    phase_telemetry(data, month, launches, args.reps)
-    mark("telemetry")
+    # the serve phase's warmup manifest starts the SLO phase's replicas warm
+    aot_dir = tempfile.mkdtemp(prefix="flox_aot_")
+    try:
+        phase_serve(data, month, launches, stream["host"], aot_dir)
+        mark("serve")
+        phase_store(data, month, launches, stream["host"], stream["singles"]["trio"])
+        mark("store")
+        phase_mesh_all(data, month, launches, args.seed, max(3, args.reps // 2), stream)
+        del stream
+        mark("mesh, mesh streaming and two ranks")
+        phase_telemetry(data, month, launches, args.reps)
+        mark("telemetry")
+        phase_autotune(data, month, launches, max(3, args.reps // 2), args.seed)
+        mark("autotune")
+        phase_slo_fleet(data, month, aot_dir)
+        mark("slo and fleet")
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
     # half the reps of the earlier slices: the serve and store phases take
     # their room inside the script's time limit
     entries = phase_times(data, month, codes, max(4, args.reps // 2), launches, args.seed)

@@ -7,8 +7,10 @@ with ``pipeline``, ``resilience``, ``faults`` and ``profiling``), the
 observability base (``telemetry``, ``costmodel``, ``metric_names``,
 ``exposition``), the durable incremental aggregation store (``store``) and
 the serving plane (``serve``: dispatcher, resident dataset registry, stores,
-breakers, warmup manifest and ``python -m flox_tpu_torch.serve``), with the
-host caches in ``cache``.
+breakers, warmup manifest and ``python -m flox_tpu_torch.serve``), the
+measurement-fed autotuner (``autotune``), the SLO plane (``slo``: objectives,
+burn-rate alerts, the canary prober) and fleet federation (``fleet``), with
+the host caches in ``cache``.
 
 It runs on one NVIDIA GPU (Hopper, sm_90a) by default, with hand-written
 CUDA kernels for the hot segment reductions and scans (``cuda_kernels``), and
@@ -22,7 +24,8 @@ flox_tpu, and imports without pandas.
 tensor([1.5000, 4.0000], dtype=torch.float64)
 """
 
-from . import cache, cohorts, faults, kernels, profiling, resilience, serve, telemetry, xrlite
+from . import (autotune, cache, cohorts, faults, fleet, kernels, profiling, resilience, serve, slo,
+               telemetry, xrlite)
 from .aggregations import Aggregation, Scan, is_supported_aggregation
 from .core import groupby_reduce
 from .device import codes_device, groupby_reduce_device
@@ -50,6 +53,7 @@ __all__ = [
     "ReindexArrayType",
     "ReindexStrategy",
     "Scan",
+    "autotune",
     "cache",
     "codes_device",
     "cohorts",

@@ -8,15 +8,17 @@ clears between rounds must not carry stale counts across them). On-disk
 state (durable stores, the warmup manifest file, built kernel libraries) is
 untouched.
 
-The reference's panels without a counterpart here:
+The autotune store (``autotune``: its entry count; cleared back to the
+unloaded state, so the next consult reloads the configured file) and the
+SLO plane (``slo``: ``slo.slo_stats``; cleared by ``slo.clear``) are among
+them.
 
-* its compiled-program caches and their counters (``_jitted_bundle`` and
-  ``bundle_lru``, the mesh ``_PROGRAM_CACHE``, ``_SCAN_CACHE``, the
-  streaming ``_STEP_CACHE``, ``_FUSED_PROGRAM_CACHE``, their LRU evictions,
-  the donation probe and the Pallas probe memos): the port compiles no
-  programs, so there is nothing to cache (ROADMAP A9.6 closes the list);
-* the autotune store (``_AUTOTUNE_CACHE``, ROADMAP A9.3) and the SLO plane
-  (``slo.clear``, ``slo_stats``; ROADMAP A9.5), which are not ported yet.
+The reference's compiled-program caches and their counters have no
+counterpart here (``_jitted_bundle`` and ``bundle_lru``, ``mesh_programs``,
+``scan_programs``, ``stream_steps``, ``fused_programs``, the ``evictions``
+of those LRUs, the donation probe and the Pallas probe memos): the port
+traces and compiles no programs, its kernels are built once per library by
+``_build`` (on disk, outside these tables), so there is nothing to cache.
 """
 
 from __future__ import annotations
@@ -109,6 +111,7 @@ class LRUCache:
 def stats() -> dict:
     """Entry counts of every host-side table of the port, and the serving
     plane's panels. A snapshot: it polls no device and touches no disk."""
+    from .autotune import _AUTOTUNE_CACHE
     from .cohorts import _COHORTS_CACHE
     from .costmodel import _CARD_REGISTRY
     from .factorize import _FACTORIZE_CACHE
@@ -120,6 +123,7 @@ def stats() -> dict:
     from .serve.dispatcher import _BATCH_REGISTRY, _COALESCE_CACHE, _PENDING_REGISTRY
     from .serve.registry import registry_stats
     from .serve.stores import stores_stats
+    from .slo import slo_stats
     from .telemetry import (
         FLIGHT_RECORDER,
         cost_by_dataset,
@@ -142,6 +146,7 @@ def stats() -> dict:
         "factorize": len(_FACTORIZE_CACHE),
         "present_tables": len(_PRESENT_CACHE),
         "stream_snapshots": len(_SNAPSHOTS),
+        "autotune": len(_AUTOTUNE_CACHE),
         # the serving plane: admitted requests, open coalescing leaves and
         # micro-batches, and the warmup manifest's specs
         "serve_pending": len(_PENDING_REGISTRY),
@@ -151,6 +156,7 @@ def stats() -> dict:
         "registry": registry_stats(),
         "stores": stores_stats(),
         "serve_breakers": breaker_stats(),
+        "slo": slo_stats(),
     }
 
 
@@ -159,6 +165,8 @@ def clear_all() -> None:
     registry. Safe while a dispatcher is live: open batches hold their own
     leaves and registry entries, so a clear only keeps new requests from
     joining them."""
+    from . import slo
+    from .autotune import _AUTOTUNE_CACHE, _AUTOTUNE_STATE
     from .cohorts import _COHORTS_CACHE
     from .costmodel import _CARD_LABELS, _CARD_REGISTRY
     from .factorize import clear_caches
@@ -202,4 +210,10 @@ def clear_all() -> None:
     _TENANT_LABELS.clear()
     _CAPTURE_STATE.clear()
     _PREFETCH_INFLIGHT[0] = 0
+    # the tuner returns to the unloaded state: the next consult reloads the
+    # configured file (or runs the heuristics when none is set)
+    _AUTOTUNE_CACHE.clear()
+    _AUTOTUNE_STATE.clear()
     METRICS.reset()
+    # alert state must not outlive the counters it judged
+    slo.clear()

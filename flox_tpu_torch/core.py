@@ -14,9 +14,11 @@ so those come back as numpy arrays. Two engines reduce: "torch"
 holds dense (..., size) accumulators over the label universe, "sort"
 (the present-groups engine) compacts the codes to the groups present,
 reduces over a small capacity and scatters the dense result on the host, and
-"numpy" (the host engine, only when named) reduces on the host and copies the
+"numpy" (the host engine, when named, or with the autotuner on for host data
+reduced on the CPU, ``_tuned_engine``) reduces on the host and copies the
 result to the device once. ``_route_highcard`` picks between the first two
-under the dense-intermediate ceiling.
+under the dense-intermediate ceiling (with the autotuner on, past
+``sort_engine_min_groups``, by the ``highcard`` family's decision).
 
 Labels may also arrive prefactorized (``factorize.Prefactorized``: codes
 staged on the device, no factorization), the data may be a sparse tensor
@@ -162,7 +164,8 @@ def _normalize_reduce_axes(arr, bys: list[np.ndarray], axis):
 def _choose_engine(engine) -> str:
     """The engine of a call: ``engine`` itself, or the ``default_engine``
     option when it is None. Unlike the reference, no size heuristic sends
-    small host arrays to the numpy engine: it runs only when named."""
+    small host arrays to the numpy engine (only the autotuner's measured
+    ``engine`` family may, on the CPU: :func:`_tuned_engine`)."""
     if engine is None:
         return OPTIONS["default_engine"]
     if engine in ("torch", "sort", "numpy"):
@@ -174,6 +177,33 @@ def _choose_engine(engine) -> str:
         )
     raise ValueError(
         f"Unknown engine {engine!r}; the port has engine='torch', 'sort' and 'numpy'.")
+
+
+def _tuned_engine(engine: str, array, device) -> str:
+    """The autotuner's ``engine`` family: with the tuner on, a host (numpy)
+    array reduced on the CPU by a defaulted ``"torch"`` engine takes the
+    observed winner of ``"torch"`` and ``"numpy"``, as the reference's
+    host arrays take that of ``"jax"`` and ``"numpy"``. On a CUDA device the
+    family is not consulted: no decision moves a call off the card."""
+    if not (OPTIONS["autotune"] and engine == "torch" and OPTIONS["default_engine"] == "torch"
+            and isinstance(array, np.ndarray)):
+        return engine
+    if (torch.device(device).type if device is not None else "cuda") != "cpu":
+        return engine
+    from . import autotune
+
+    autotune.prime_engine(array.dtype, array.size)
+    return autotune.decide("engine", engine, ("numpy", "torch"),
+                           dtype=autotune.dtype_name(array.dtype), nelems=array.size,
+                           platform="cpu")
+
+
+def _prime(func_name: str, arr_flat: torch.Tensor, size: int) -> None:
+    """The autotuner's sweeps for a coming reduction (a no-op with it off)."""
+    if OPTIONS["autotune"]:
+        from . import autotune
+
+        autotune.prime_reduce(func_name, arr_flat.dtype, size, arr_flat.numel(), arr_flat.device)
 
 
 def _work_device(engine: str, dev: torch.device) -> torch.device:
@@ -351,7 +381,30 @@ def _route_highcard(engine: str, codes_flat: np.ndarray | None, arr_flat: torch.
         return "sort"
     if engine == "sort":
         return "sort"
-    return "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "torch"
+    heuristic = "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "dense"
+    if OPTIONS["autotune"] and len(_highcard_candidates(heuristic, agg, arr_flat.dtype, size,
+                                                        arr_flat.device.type)) > 1:
+        from . import autotune
+
+        nelems = arr_flat.numel()
+        autotune.prime_highcard(arr_flat.dtype, size, len(present), nelems, arr_flat.device)
+        heuristic = autotune.decide("highcard", heuristic, ("dense", "sort"),
+                                    dtype=autotune.dtype_name(arr_flat.dtype), ngroups=size,
+                                    nelems=nelems, platform=arr_flat.device.type)
+    return "sort" if heuristic == "sort" else "torch"
+
+
+def _highcard_candidates(heuristic: str, agg: Aggregation, dtype: Any, size: int,
+                         device_type: str) -> tuple[str, ...]:
+    """The ``highcard`` family's candidates: both engines, except on a CUDA
+    device where dense accumulators over ``size`` groups would leave the
+    hand-written kernels (past ``kernels.dense_kernel_cap``): a call the
+    heuristic sends to the sort engine then stays there. A move from dense
+    to sort never leaves a kernel, the compact domain being no larger."""
+    if (device_type == "cuda" and heuristic == "sort"
+            and size > kernels.dense_kernel_cap(agg.name, dtype)):
+        return ("sort",)
+    return ("dense", "sort")
 
 
 def _note_highcard(size: int, ncap: int, n_present: int) -> None:
@@ -563,6 +616,8 @@ def _groupby_reduce_impl(array, *by, func, expected_groups, sort, isbin, axis, f
     # dense engine may re-route to the sort engine (_route_highcard)
     engine_explicit = engine is not None
     engine = _choose_engine(engine)
+    if not engine_explicit and method is None and mesh is None:
+        engine = _tuned_engine(engine, array, device)
 
     mesh, dev, work = _resolve_devices(array, engine, method, mesh, device)
     on_mesh = mesh is not None
@@ -662,11 +717,14 @@ def _groupby_reduce_impl(array, *by, func, expected_groups, sort, isbin, axis, f
         present = kernels.present_groups(codes_host, size)
         ncap = kernels.present_cap(len(present), size)
         _note_highcard(size, ncap, len(present))
+        _prime(func_name, arr_flat, ncap)
         ccodes = torch.as_tensor(kernels.compact_codes(codes_host, present), device=dev)
         result_c = _reduce_blockwise(arr_flat, ccodes, agg, size=ncap, engine="torch",
                                      datetime_dtype=datetime_dtype, prog_family="sort")
         result = _redevice_scattered(kernels.scatter_present_dense(result_c, present, size), dev)
     else:
+        if engine == "torch":
+            _prime(func_name, arr_flat, size)
         codes_flat = torch.as_tensor(codes_host, device=work)
         result = _reduce_blockwise(arr_flat, codes_flat, agg, size=size, engine=engine,
                                    datetime_dtype=datetime_dtype)
@@ -845,11 +903,14 @@ def _prefactorized_reduce(array, pf: "fct.Prefactorized", *, func, expected_grou
         engine = _route_highcard(engine, None, arr_flat, lead_shape, pf.size, agg,
                                  explicit=engine_explicit, present=pf.present)
     if engine == "sort":
+        _prime(func_name, arr_flat, pf.ncap)
         result_c = _reduce_blockwise(arr_flat, _staged(pf.ccodes_dev, pf.ccodes, work), agg,
                                      size=pf.ncap, engine="torch")
         result = _redevice_scattered(
             kernels.scatter_present_dense(result_c, pf.present, pf.size), dev)
     else:
+        if engine == "torch":
+            _prime(func_name, arr_flat, pf.size)
         result = _reduce_blockwise(arr_flat, _staged(pf.codes_dev, pf.codes, work), agg,
                                    size=pf.size, engine=engine)
         result = result.to(dev)

@@ -30,9 +30,10 @@ bound column of the kernels' table in PERF.md.
 * **Capture stamping** (:func:`dispatch_marks`, :func:`stamp_capture`): a
   ``profiling.start_capture`` directory is stamped with the programs
   dispatched inside its window.
+* **Autotune prior** (:func:`analytic_prior`): the cold-start decision of an
+  autotune family with no measured band, from the card's peak row.
 
 Everything is gated on :func:`enabled`: ``costmodel`` and ``telemetry``.
-The reference's ``analytic_prior`` waits for the autotuner, its only reader.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "PEAK_TABLE",
+    "analytic_prior",
     "capture",
     "card_for",
     "cards",
@@ -468,6 +470,75 @@ def drift_report(rows: dict | None = None, threshold: float | None = None) -> di
         "rows": out_rows,
         "flagged": flagged,
     }
+
+
+# ---------------------------------------------------------------------------
+# autotune prior: the roofline model as the cold-start decision
+# ---------------------------------------------------------------------------
+
+
+def _itemsize(dtype: Any) -> int:
+    import numpy as np
+    import torch
+
+    name = str(dtype).removeprefix("torch.") if dtype is not None else "float64"
+    tdt = getattr(torch, name, None)
+    if isinstance(tdt, torch.dtype):
+        return tdt.itemsize
+    try:
+        return np.dtype(name).itemsize
+    except TypeError:
+        return 8
+
+
+def analytic_prior(family: str, fallback: str, candidates: tuple, *, dtype: Any = None,
+                   ngroups: int = 0, nelems: int = 0, platform: str = "cpu") -> str | None:
+    """The roofline's verdict for an autotune family with no measured band,
+    or None (the heuristic stands).
+
+    Only on a card with a :data:`PEAK_TABLE` row: the CPU and unknown cards
+    are ``"unavailable"``, as their cost cards are. Each candidate is
+    modelled as passes over the bytes the kernel wrappers declare, the data
+    read once and the accumulators written once, at the card's memory rate:
+
+    * ``fused``: one read for the whole statistic set against one per
+      statistic, so fused wins at every size;
+    * ``highcard``: dense reads the data once and writes three
+      ``ngroups``-wide accumulators; sort reads it three times (the host
+      unique pass and the compact relabel) and writes accumulators over at
+      most ``nelems`` present groups.
+
+    Counted on ``costmodel.prior_consults`` and ``costmodel.prior_decisions``.
+    """
+    if not enabled():
+        return None
+    telemetry.count("costmodel.prior_consults")
+    if platform != "cuda":
+        return None
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    peaks = peaks_for(device_name("cuda"))
+    if peaks is None:
+        return None
+    itemsize = _itemsize(dtype)
+    rate = peaks["bw_gbps"] * 1e9 / 1e3  # bytes per ms
+    data_bytes = max(0, int(nelems)) * itemsize
+    cands = set(candidates)
+    n_acc = 3
+    choice: str | None = None
+    if family == "fused" and {"fused", "sequential"} <= cands:
+        choice = "fused"
+    elif family == "highcard" and {"dense", "sort"} <= cands:
+        present_cap = min(max(0, int(nelems)), max(1, int(ngroups)))
+        dense_ms = (data_bytes + n_acc * max(1, ngroups) * itemsize) / rate
+        sort_ms = (3 * data_bytes + n_acc * present_cap * itemsize) / rate
+        choice = "sort" if sort_ms < dense_ms else "dense"
+    if choice is None or choice not in cands:
+        return None
+    telemetry.count("costmodel.prior_decisions")
+    return choice
 
 
 # ---------------------------------------------------------------------------

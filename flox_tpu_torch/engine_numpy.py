@@ -10,8 +10,9 @@ points then put the result on the call's device in one copy.
 
 The port does not adopt the reference's size heuristic (its
 ``_choose_engine`` sends small host arrays here): the port's entry points run
-on the card unless the caller asks otherwise, so this engine runs only when
-named.
+on the card unless the caller asks otherwise, so this engine runs when named,
+or, with the autotuner on, when it won the ``engine`` family's sweep for host
+data reduced on the CPU (``core._tuned_engine``).
 
 Arrays are (..., N) with ``group_idx`` (N,), code -1 = missing; returns
 (..., size) like the torch engine.

@@ -21,10 +21,10 @@ alone (the port of ``flox_tpu/exposition.py``).
   with the ledger), ``/debug/datasets`` (the resident dataset registry),
   ``/debug/stores`` (the durable stores) and ``/debug/profile?seconds=N``
   (an on-demand capture; 409 while one runs, 501 where there is no
-  profiler). ``/slo`` and ``/alerts`` read the SLO plane, which is not
-  ported yet: they answer 501 naming ROADMAP A9.5. Starting the server
-  seeds the saturation and resident-state gauges and starts the opt-in
-  saturation sampler (``OPTIONS["metrics_sample_interval"]``).
+  profiler). ``/slo`` and ``/alerts`` run one SLO evaluation each
+  (:mod:`.slo`; 500 for an invalid spec). Starting the server seeds the
+  saturation and resident-state gauges and the SLO gauges and starts the
+  opt-in saturation sampler (``OPTIONS["metrics_sample_interval"]``).
 
 ``python -m flox_tpu_torch.serve`` starts it when ``OPTIONS["metrics_port"]``
 (env ``FLOX_TPU_METRICS_PORT``) or ``--metrics-port`` is nonzero.
@@ -91,12 +91,6 @@ def _top_rows(table: dict, top: int) -> dict:
 #: registry it exposes is process-wide too) and the readiness flag
 _SERVER_STATE: dict[str, Any] = {"server": None, "ready": False, "reason": "warming"}
 _STATE_LOCK = threading.Lock()
-
-
-def _not_ported(path: str) -> tuple[bytes, int]:
-    body = {"ok": False, "error": f"{path} reads the SLO plane (slo.py), which is not ported "
-            "yet: ROADMAP A9.5"}
-    return (json.dumps(body) + "\n").encode(), 501
 
 
 def set_ready(flag: bool = True, reason: str | None = None) -> None:
@@ -402,15 +396,37 @@ class _Handler(BaseHTTPRequestHandler):
 
     @staticmethod
     def _slo() -> tuple[bytes, int]:
-        """The SLO plane's evaluation: 501 until ROADMAP A9.5 ports
-        ``slo.py``."""
-        return _not_ported("/slo")
+        """One SLO evaluation as JSON: per-objective burn rates against every
+        window rule, budget remaining, and the alert rows. Evaluating on
+        scrape keeps the endpoint and the alert state machine in step; an
+        invalid configured spec is a 500."""
+        from . import slo, telemetry
+
+        try:
+            payload = slo.evaluate()
+        except ValueError as exc:
+            return (json.dumps({"error": str(exc)}) + "\n").encode(), 500
+        payload["replica"] = telemetry.replica_instance()
+        payload["host"] = telemetry.host_name()
+        return (json.dumps(payload, default=str) + "\n").encode(), 200
 
     @staticmethod
     def _alerts() -> tuple[bytes, int]:
-        """The SLO plane's alert rows: 501 until ROADMAP A9.5 ports
-        ``slo.py``."""
-        return _not_ported("/alerts")
+        """The alert rows as JSON, evaluated fresh as ``/slo`` is."""
+        from . import slo, telemetry
+
+        try:
+            payload = slo.evaluate()
+        except ValueError as exc:
+            return (json.dumps({"error": str(exc)}) + "\n").encode(), 500
+        body = {
+            "alerts": payload["alerts"],
+            "healthy": payload["healthy"],
+            "evaluated_at": payload["evaluated_at"],
+            "replica": telemetry.replica_instance(),
+            "host": telemetry.host_name(),
+        }
+        return (json.dumps(body, default=str) + "\n").encode(), 200
 
     @staticmethod
     def _profile(query: str) -> tuple[bytes, int]:
@@ -499,10 +515,13 @@ def start_metrics_server(port: int | None = None, host: str = "127.0.0.1") -> in
     # at endpoint start so utilization math never reads an absent gauge
     telemetry.seed_hbm_limit()
     telemetry.start_saturation_sampler()
-    # the resident-state gauges (registry occupancy, store staleness) seed
-    # with the endpoint too: an idle replica must show them from the first
-    # scrape
+    # the resident-state gauges (registry occupancy, store staleness) and
+    # one SLO evaluation seed with the endpoint too: an idle replica must
+    # show them, and /slo its budgets, from the first scrape
     telemetry.sample_resident_state()
+    from . import slo
+
+    slo.seed_gauges()
     return server.port
 
 

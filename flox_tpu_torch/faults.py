@@ -1,5 +1,5 @@
 """Deterministic fault injection for the streaming executor (the port of
-``flox_tpu/faults.py``, its stream hooks).
+``flox_tpu/faults.py``).
 
 Resilience claims are only as good as the faults they were tested against,
 and real faults (a flaky object store, device memory exhausted, a preempted
@@ -28,17 +28,23 @@ inject them where the resilience layer must handle them:
   funnel consults before each durable write (:func:`store_poke`): a kill, a
   torn write or a flipped bit at chosen write ordinals (the recovery matrix).
 
+* :func:`slo_inject` installs an SLO plan: a synthetic clock
+  (:func:`slo_now`), synthetic SLI events (:func:`slo_injected`) and
+  corrupted canary answers (:func:`slo_canary_corrupt`), so the burn-rate
+  windows and the alert state machine of :mod:`.slo` run without sleeps;
+* :func:`stress_schedule` runs a body under an adversarial thread schedule
+  (a ~1 µs switch interval) and, for the modules it watches, checks every
+  acquire of their module-level locks against the observed lock order.
+
 Everything is index-deterministic: the same plan against the same stream
 fires at the same slabs in the same order, prefetch on or off; a serve or
 store plan fires at the same dispatch or write numbers.
-
-Left out until their modules are ported (ROADMAP A9.5): the SLO plan and the
-schedule-stress harness.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator
@@ -47,6 +53,7 @@ import numpy as np
 
 __all__ = [
     "FlakyLoader",
+    "LockOrderViolation",
     "SimulatedCompileError",
     "SimulatedDeviceLoss",
     "SimulatedOOM",
@@ -62,9 +69,15 @@ __all__ = [
     "serve_active",
     "serve_inject",
     "serve_poke",
+    "slo_active",
+    "slo_canary_corrupt",
+    "slo_inject",
+    "slo_injected",
+    "slo_now",
     "store_active",
     "store_inject",
     "store_poke",
+    "stress_schedule",
 ]
 
 
@@ -510,3 +523,348 @@ def store_inject(
         yield plan
     finally:
         _STORE_PLAN = prev
+
+
+@dataclass
+class _SLOPlan:
+    """One installed SLO-plane injection plan: a controllable clock plus
+    synthetic SLI events, so the multi-window burn-rate math and the alert
+    state machine (``flox_tpu_torch.slo``) are testable without wall-clock
+    sleeps. Consulted by ``slo._now`` (clock), ``slo._collect``
+    (synthetic events) and the canary's bit-exact compare
+    (``corrupt_canary`` — the injected wrong answer CI proves is caught)."""
+
+    #: the plan's synthetic "now" (seconds); ``advance`` moves it forward.
+    #: None leaves the real clock in charge (events-only plans)
+    clock: float | None = None
+    #: objective name -> [good, bad] cumulative synthetic SLI events,
+    #: added on top of the real collectors by ``slo._collect``
+    events: dict = field(default_factory=dict)
+    #: canary op name (or "*") -> how many of its next comparisons to
+    #: corrupt (-1 = every one)
+    corrupt_canary: dict = field(default_factory=dict)
+    #: ("burst"|"advance"|"corrupt", ...) per consulted event, in order
+    log: list = field(default_factory=list)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def advance(self, seconds: float) -> float:
+        """Move the synthetic clock forward; returns the new now."""
+        with self._lock:
+            if self.clock is None:
+                raise ValueError("slo_inject plan has no clock (pass clock0=)")
+            self.clock += float(seconds)
+            self.log.append(("advance", float(seconds), self.clock))
+            return self.clock
+
+    def burst(self, objective: str, *, good: int = 0, bad: int = 0) -> None:
+        """Add synthetic SLI events to ``objective``'s cumulative totals
+        (they appear in every evaluation until the plan is uninstalled —
+        uninstalling makes counters drop, which the window math clamps
+        to zero burn, i.e. the incident ends)."""
+        with self._lock:
+            slot = self.events.setdefault(str(objective), [0, 0])
+            slot[0] += int(good)
+            slot[1] += int(bad)
+            self.log.append(("burst", str(objective), int(good), int(bad)))
+
+
+_SLO_PLAN: _SLOPlan | None = None
+
+
+def slo_active() -> bool:
+    return _SLO_PLAN is not None
+
+
+def slo_now() -> float | None:
+    """The installed plan's synthetic clock, or None when the real clock
+    is in charge (no plan, or a plan without ``clock0``)."""
+    plan = _SLO_PLAN
+    if plan is None:
+        return None
+    with plan._lock:
+        return plan.clock
+
+
+def slo_injected(objective: str) -> tuple[int, int]:
+    """Cumulative synthetic (good, bad) events for ``objective`` from the
+    installed plan; (0, 0) with no plan."""
+    plan = _SLO_PLAN
+    if plan is None:
+        return (0, 0)
+    with plan._lock:
+        slot = plan.events.get(str(objective))
+        return (int(slot[0]), int(slot[1])) if slot else (0, 0)
+
+
+def slo_canary_corrupt(op: str) -> bool:
+    """Canary-corruption hook: True tells the prober's compare to perturb
+    the received result (simulating silent wrong-answer corruption).
+    Budgeted per op name ("*" matches any); -1 corrupts every compare."""
+    plan = _SLO_PLAN
+    if plan is None:
+        return False
+    with plan._lock:
+        key = str(op) if str(op) in plan.corrupt_canary else "*"
+        times = plan.corrupt_canary.get(key, 0)
+        if times == 0:
+            return False
+        if times > 0:
+            plan.corrupt_canary[key] = times - 1
+        plan.log.append(("corrupt", str(op)))
+        return True
+
+
+@contextlib.contextmanager
+def slo_inject(
+    *,
+    clock0: float | None = None,
+    corrupt_canary: dict | tuple | list | None = None,
+) -> Iterator[_SLOPlan]:
+    """Install a deterministic SLO-plane injection plan for the scope.
+
+    ``clock0`` seeds the synthetic clock ``slo.evaluate`` reads (advance
+    it with ``plan.advance(seconds)`` to walk burn-rate windows without
+    sleeping); ``corrupt_canary`` maps canary op names to how many of
+    their next bit-exact compares to corrupt (a bare tuple/list corrupts
+    each named op once; -1 = every compare). Synthetic SLI events are
+    added with ``plan.burst(objective, good=..., bad=...)``. Yields the
+    plan; its ``log`` records every consulted event in order.
+    """
+    global _SLO_PLAN
+    plan = _SLOPlan(clock=float(clock0) if clock0 is not None else None)
+    if corrupt_canary:
+        if isinstance(corrupt_canary, dict):
+            plan.corrupt_canary = {str(k): int(v) for k, v in corrupt_canary.items()}
+        else:
+            plan.corrupt_canary = {str(op): 1 for op in corrupt_canary}
+    prev = _SLO_PLAN
+    _SLO_PLAN = plan
+    try:
+        yield plan
+    finally:
+        _SLO_PLAN = prev
+
+
+# ---------------------------------------------------------------------------
+# schedule-stress race harness
+# ---------------------------------------------------------------------------
+
+
+class LockOrderViolation(AssertionError):
+    """An acquire completed a cycle in the observed lock acquisition order
+    (or re-entered a non-reentrant lock on its own thread) — the static
+    shape a static lock-order check flags, caught live at the acquire that
+    closed it."""
+
+
+_LOCK_TYPE = type(threading.Lock())
+_RLOCK_TYPE = type(threading.RLock())
+
+
+def _caller_site() -> str:
+    """``path:line`` of the nearest frame outside this module — the acquire
+    site a violation message points at."""
+    frame = sys._getframe(2)
+    while frame is not None and frame.f_globals.get("__name__") == __name__:
+        frame = frame.f_back
+    if frame is None:  # pragma: no cover - only when called at module top
+        return "<unknown>"
+    return f"{frame.f_code.co_filename}:{frame.f_lineno}"
+
+
+class _LockOrderWatcher:
+    """Cumulative acquisition-order graph fed by every proxied acquire.
+
+    Each thread keeps a stack of proxied locks it holds; acquiring ``L``
+    while holding ``H`` records the edge ``H -> L``. An acquire whose new
+    edges would make the graph cyclic raises :class:`LockOrderViolation`
+    *before* blocking on the underlying lock — the test fails with both
+    witness sites instead of deadlocking the suite. Seeding with floxlint's
+    ``--lock-graph`` JSON makes the static edges count as already-observed,
+    so one runtime acquire against the static order is enough to fail."""
+
+    def __init__(self, seed_edges: dict[tuple[str, str], str] | None = None):
+        self._mu = threading.Lock()
+        #: (held, acquired) -> first witness site ("path:line")
+        self.edges: dict[tuple[str, str], str] = dict(seed_edges or {})
+        self._tls = threading.local()
+
+    # -- per-thread held stack ----------------------------------------------
+
+    def _held(self) -> list[str]:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = []
+            self._tls.stack = stack
+        return stack
+
+    # -- graph --------------------------------------------------------------
+
+    def _path(self, src: str, dst: str) -> list[str] | None:
+        """One ``src -> … -> dst`` node path over current edges, or None."""
+        parent: dict[str, str | None] = {src: None}
+        frontier = [src]
+        adj: dict[str, list[str]] = {}
+        for a, b in self.edges:
+            adj.setdefault(a, []).append(b)
+        while frontier:
+            cur = frontier.pop()
+            if cur == dst:
+                out = [cur]
+                while parent[out[-1]] is not None:
+                    out.append(parent[out[-1]])
+                return out[::-1]
+            for nxt in adj.get(cur, ()):
+                if nxt not in parent:
+                    parent[nxt] = cur
+                    frontier.append(nxt)
+        return None
+
+    def before_acquire(self, name: str, reentrant: bool, site: str) -> None:
+        held = self._held()
+        if name in held:
+            if reentrant:
+                return
+            raise LockOrderViolation(
+                f"non-reentrant lock {name} re-acquired at {site} by the "
+                "thread already holding it — guaranteed self-deadlock"
+            )
+        with self._mu:
+            for h in held:
+                if (h, name) in self.edges:
+                    continue
+                cycle = self._path(name, h)
+                if cycle is not None:
+                    ring = " -> ".join(cycle + [name])
+                    first = self.edges.get(
+                        (cycle[0], cycle[1]), "<seed>"
+                    ) if len(cycle) > 1 else "<seed>"
+                    raise LockOrderViolation(
+                        f"lock-order inversion: acquiring {name} at {site} "
+                        f"while holding {h}, but the established order is "
+                        f"{ring} (first observed at {first}) — pick one "
+                        "global order"
+                    )
+                self.edges[(h, name)] = site
+
+    def after_acquire(self, name: str) -> None:
+        self._held().append(name)
+
+    def after_release(self, name: str) -> None:
+        held = self._held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i] == name:
+                del held[i]
+                return
+
+
+class _OrderedLockProxy:
+    """Drop-in wrapper for a module-level ``Lock``/``RLock`` that feeds the
+    watcher on every acquire/release. Delegates to the wrapped lock, so
+    code holding the raw lock across the wrap/unwrap boundary stays
+    correct — the proxy and the original contend on the same object."""
+
+    def __init__(
+        self,
+        inner: Any,
+        name: str,
+        watcher: _LockOrderWatcher,
+        reentrant: bool,
+    ) -> None:
+        self._inner = inner
+        self._name = name
+        self._watcher = watcher
+        self._reentrant = reentrant
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        self._watcher.before_acquire(self._name, self._reentrant, _caller_site())
+        ok = self._inner.acquire(blocking, timeout)
+        if ok:
+            self._watcher.after_acquire(self._name)
+        return ok
+
+    def release(self) -> None:
+        self._inner.release()
+        self._watcher.after_release(self._name)
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+    def __enter__(self) -> "_OrderedLockProxy":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        self.release()
+        return False
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"<_OrderedLockProxy {self._name} of {self._inner!r}>"
+
+
+def _seed_edges_from(order_graph: Any) -> dict[tuple[str, str], str]:
+    """Accept floxlint's ``--lock-graph`` JSON (a dict, or a path to one)
+    and return its edge table keyed the way the watcher keys it."""
+    data = order_graph
+    if isinstance(order_graph, (str, bytes)) or hasattr(order_graph, "read_text"):
+        import json
+
+        with open(order_graph) as fh:
+            data = json.load(fh)
+    out: dict[tuple[str, str], str] = {}
+    for edge in data.get("edges", []):
+        out[(str(edge["from"]), str(edge["to"]))] = str(edge.get("site", "<static>"))
+    return out
+
+
+@contextlib.contextmanager
+def stress_schedule(
+    switch_interval: float = 1e-6,
+    watch: tuple[str, ...] = (),
+    order_graph: Any = None,
+) -> Iterator[_LockOrderWatcher | None]:
+    """Run the body under an adversarial thread schedule.
+
+    Drops ``sys.setswitchinterval`` to ``switch_interval`` (default ~1 µs:
+    a potential preemption every few bytecodes, so the race windows the
+    default 5 ms interval hides get hit within one test run) and restores
+    it on exit. When ``watch`` names modules (``"flox_tpu_torch.telemetry"``,
+    …), their module-level ``Lock``/``RLock`` attributes are wrapped in
+    :class:`_OrderedLockProxy` for the duration: every acquire feeds a
+    cumulative acquisition-order graph and an acquire that would complete
+    a cycle — or re-enter a plain ``Lock`` on its own thread — raises
+    :class:`LockOrderViolation` *before* blocking, so the suite fails
+    with both witness sites instead of deadlocking. ``order_graph``
+    optionally seeds the graph with floxlint's ``--lock-graph`` JSON
+    (dict or path), making one runtime acquire against the static order
+    sufficient to fail. Yields the watcher (None when nothing is
+    watched); instance-attribute locks (``self._lock``) are out of scope.
+    """
+    import importlib
+
+    watcher: _LockOrderWatcher | None = None
+    if watch or order_graph is not None:
+        seed = _seed_edges_from(order_graph) if order_graph is not None else None
+        watcher = _LockOrderWatcher(seed)
+    wrapped: list[tuple[Any, str, Any]] = []
+    if watcher is not None:
+        for mod_name in watch:
+            mod = importlib.import_module(mod_name)
+            for attr, value in list(vars(mod).items()):
+                if isinstance(value, (_LOCK_TYPE, _RLOCK_TYPE)):
+                    proxy = _OrderedLockProxy(
+                        value,
+                        f"{mod_name}.{attr}",
+                        watcher,
+                        isinstance(value, _RLOCK_TYPE),
+                    )
+                    setattr(mod, attr, proxy)
+                    wrapped.append((mod, attr, value))
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(float(switch_interval))
+    try:
+        yield watcher
+    finally:
+        sys.setswitchinterval(prev)
+        for mod, attr, value in wrapped:
+            setattr(mod, attr, value)

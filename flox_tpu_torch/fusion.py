@@ -47,6 +47,7 @@ from .core import (
     _normalize_reduce_axes,
     _resolve_devices,
     _staged,
+    _tuned_engine,
     dense_intermediate_bytes,
 )
 from .options import OPTIONS
@@ -167,7 +168,10 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
             finalize_kwargs=finalize_kwargs, method=method, mesh=mesh, axis_name=axis_name,
             device=device,
         )
+    engine_explicit = engine is not None
     engine = _choose_engine(engine)
+    if not engine_explicit and method is None and mesh is None:
+        engine = _tuned_engine(engine, array, device)
     mesh, dev, work = _resolve_devices(array, engine, method, mesh, device)
 
     bys = [utils.asarray_host(b) for b in by]
@@ -195,6 +199,12 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
     arr_flat = arr.reshape(lead_shape + (span,))
     out_shape = lead_shape + keep_by_shape + grp_shape
+    if _fused_loses(engine, arr_flat, size, mesh):
+        return _sequential(array, by, funcs, fill_value=fill_value, dtype=dtype,
+                           finalize_kwargs=finalize_kwargs, min_count=min_count,
+                           expected_groups=expected_groups, sort=sort, isbin=isbin, axis=axis,
+                           engine=engine, method=method, mesh=mesh, axis_name=axis_name,
+                           device=device)
     if mesh is not None:
         out = _mesh_fused(fused, arr_flat, np.asarray(codes).reshape(-1), size, out_shape,
                           method, mesh, axis_name)
@@ -202,6 +212,43 @@ def _aggregate_many_impl(array, *by, funcs: tuple, expected_groups, sort, isbin,
     codes_flat = torch.as_tensor(np.asarray(codes).reshape(-1), device=work)
     out = _run_fused(fused, codes_flat, arr_flat, size, out_shape, engine, dev)
     return (out,) + _group_values(found_groups)
+
+
+def _fused_loses(engine: str, arr_flat: torch.Tensor, size: int, mesh=None) -> bool:
+    """The autotuner's ``fused`` family (tuner on, dense engine, no mesh):
+    whether sequential ``groupby_reduce`` calls won for this band. A mesh
+    call is never asked: its ranks hold stores of their own, and a split
+    between the fused and the sequential programs would hang their
+    collectives. Nothing in the port records a ``fused`` observation (the
+    reference's come from its bench), so only a loaded store file reaches
+    the sequential branch."""
+    if not (OPTIONS["autotune"] and engine == "torch" and mesh is None):
+        return False
+    from . import autotune
+
+    choice = autotune.decide("fused", "fused", ("fused", "sequential"),
+                             dtype=autotune.dtype_name(arr_flat.dtype), ngroups=size,
+                             nelems=arr_flat.numel(), platform=arr_flat.device.type)
+    return choice == "sequential"
+
+
+def _sequential(array, by: tuple, funcs: tuple, *, fill_value, dtype, finalize_kwargs,
+                min_count, **common) -> tuple:
+    """One ``groupby_reduce`` per statistic: the losing branch of the
+    ``fused`` family, and what the fused pass is measured against."""
+    from .core import groupby_reduce
+
+    def pick(v, f):
+        return v.get(f) if isinstance(v, dict) else v
+
+    results, groups = {}, ()
+    for f in funcs:
+        r, *groups = groupby_reduce(array, *by, func=f, fill_value=pick(fill_value, f),
+                                    dtype=pick(dtype, f),
+                                    finalize_kwargs=pick(finalize_kwargs, f),
+                                    min_count=min_count, **common)
+        results[f] = r
+    return (results, *groups)
 
 
 def _fusable_tensor(array, funcs: tuple, device: torch.device) -> torch.Tensor:
@@ -262,6 +309,10 @@ def _aggregate_many_prefactorized(array, pf: "fct.Prefactorized", *, funcs: tupl
     fused = plan_fused(funcs, dtype, arr.dtype, fill_value, min_count_, finalize_kwargs)
     lead_shape = tuple(arr.shape[: arr.ndim - bndim])
     arr_flat = arr.reshape(lead_shape + (pf.n,))
+    if _fused_loses(engine, arr_flat, pf.size, mesh):
+        return _sequential(array, (pf,), funcs, fill_value=fill_value, dtype=dtype,
+                           finalize_kwargs=finalize_kwargs, min_count=min_count, engine=engine,
+                           method=method, mesh=mesh, axis_name=axis_name, device=device)
     if mesh is not None:
         staged = pf.codes_dev is not None and pf.codes_dev.device == dev and method != "cohorts"
         out = _mesh_fused(fused, arr_flat, pf.codes_dev if staged else pf.codes, pf.size,

@@ -114,7 +114,8 @@ def _segment_sum_impl(data: torch.Tensor, size: int) -> str:
     The reference's TPU dispatch: "auto" takes the segment-sum kernel within
     its group cap, else the radix-binning kernel within its own, else
     scatter; "kernel" and "radixbin" take their kernel within its cap, else
-    scatter.
+    scatter. With the autotuner on, "auto" takes the observed winner among
+    :func:`_tuned_sum_candidates`.
     """
     policy = OPTIONS["segment_sum_impl"]
     if policy == "scatter" or not data.is_floating_point():
@@ -126,9 +127,54 @@ def _segment_sum_impl(data: torch.Tensor, size: int) -> str:
         return "kernel" if kernel_ok else "scatter"
     if policy == "radixbin":
         return "radixbin" if radixbin_ok else "scatter"
-    if kernel_ok:
-        return "kernel"
-    return "radixbin" if radixbin_ok else "scatter"
+    heuristic = "kernel" if kernel_ok else "radixbin" if radixbin_ok else "scatter"
+    if OPTIONS["autotune"]:
+        from . import autotune
+
+        eligible = _tuned_sum_candidates(data.device.type, kernel_ok, radixbin_ok)
+        return autotune.decide("segment_sum", heuristic, eligible,
+                               dtype=autotune.dtype_name(data.dtype), ngroups=size,
+                               nelems=data.numel(), platform=data.device.type)
+    return heuristic
+
+
+def _tuned_sum_candidates(device_type: str, kernel_ok: bool, radixbin_ok: bool) -> list[str]:
+    """The ``segment_sum`` family's candidates on ``device_type``: on a CUDA
+    device the hand-written kernels whose guards pass, and ``index_add_``
+    only where none does, so that no decision moves a call off the kernels;
+    on the CPU ``index_add_`` alone (the kernels' plain versions are not the
+    kernels)."""
+    if device_type == "cuda":
+        names = [name for name, ok in (("kernel", kernel_ok), ("radixbin", radixbin_ok)) if ok]
+        if names:
+            return names
+    return ["scatter"]
+
+
+#: reductions whose device legs are segment sums of the data (a count is a
+#: sum of an int32 mask, which no kernel takes)
+_SUM_KERNEL_FUNCS = frozenset({"sum", "nansum", "mean", "nanmean", "var", "nanvar", "std",
+                               "nanstd"})
+_MINMAX_KERNEL_FUNCS = frozenset({"min", "nanmin", "max", "nanmax"})
+
+
+def dense_kernel_cap(func: str, dtype: Any) -> int:
+    """The most groups over which ``func`` reduces ``dtype`` data on a
+    hand-written kernel under the "auto" policies; 0 where the port does not
+    know of one (the ``highcard`` family's guard, ``core._highcard_candidates``)."""
+    try:
+        dtype = utils.torch_dtype(dtype)
+    except TypeError:
+        return 0  # datetimes, strings: reduced as int64 views or on the host
+    if func in _SUM_KERNEL_FUNCS and dtype in _KERNEL_SUM_DTYPES:
+        caps = {"kernel": OPTIONS["pallas_num_groups_max"],
+                "radixbin": OPTIONS["radixbin_num_groups_max"], "scatter": 0}
+        return caps.get(OPTIONS["segment_sum_impl"], max(caps.values()))
+    if func in _MINMAX_KERNEL_FUNCS and dtype in _KERNEL_MINMAX_DTYPES:
+        if OPTIONS["segment_minmax_impl"] == "scatter":
+            return 0
+        return OPTIONS["pallas_minmax_num_groups_max"]
+    return 0
 
 
 def _segment_minmax_impl(data: torch.Tensor, size: int) -> str:
@@ -908,10 +954,19 @@ def _interp(method: str, pos, lo_in, v_lo, v_hi):
     return v_lo + frac * (v_hi - v_lo)
 
 
-def _quantile_impl_choice() -> str:
-    """"sort" or "select" for grouped order statistics; "auto" is the sort."""
+def _quantile_impl_choice(data: torch.Tensor | None = None, size: int = 0) -> str:
+    """"sort" or "select" for grouped order statistics; "auto" is the sort,
+    or with the autotuner on the observed winner for ``data``'s band."""
     policy = OPTIONS["quantile_impl"]
-    return "sort" if policy == "auto" else policy
+    if policy != "auto":
+        return policy
+    if OPTIONS["autotune"] and data is not None:
+        from . import autotune
+
+        return autotune.decide("quantile", "sort", ("sort", "select"),
+                               dtype=autotune.dtype_name(data.dtype), ngroups=size,
+                               nelems=data.numel(), platform=data.device.type)
+    return "sort"
 
 
 def _quantile_block(codes, data, qs, *, size: int, skipna: bool, method: str, fill_value,
@@ -994,7 +1049,7 @@ def _quantile_impl(group_idx, array, *, size, fill_value, dtype, q, skipna, meth
     qs = np.atleast_1d(np.asarray(q, dtype=np.float64))
     _quantile_alpha_beta(method)  # an unknown method raises before any work
     # on a mesh only the counting bisection distributes
-    select = comm is not None or _quantile_impl_choice() == "select"
+    select = comm is not None or _quantile_impl_choice(data, size) == "select"
     k, n = data.shape
     n_total = n
     if comm is not None:  # the whole axis: every rank cuts the same row blocks

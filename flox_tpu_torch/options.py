@@ -11,8 +11,9 @@ The observability knobs (``telemetry*``, ``flight_recorder_*``,
 ``profile_*``, ``metrics_sample_interval``, ``replica_id``, ``costmodel*``)
 take their defaults from the reference's ``FLOX_TPU_*`` environment names; a
 malformed or out-of-range value falls back to the default. So do the durable
-store's (``store_*``), the serving plane's (``serve_*``, ``registry_*``) and
-the metrics endpoint's (``metrics_port``).
+store's (``store_*``), the serving plane's (``serve_*``, ``registry_*``),
+the metrics endpoint's (``metrics_port``), the autotuner's (``autotune*``),
+the SLO plane's (``slo_*``) and the fleet federator's (``fleet_*``).
 
 ``OPTIONS`` reads through a contextvar overlay: :class:`scoped` installs
 option values visible only to the current context (an asyncio task, or a
@@ -262,6 +263,29 @@ OPTIONS: dict[str, Any] = {
     # port of the /metrics, /healthz and /readyz endpoint (``exposition``);
     # 0 leaves it off
     "metrics_port": _env_int("FLOX_TPU_METRICS_PORT", 0, 0, 65535),
+    # autotuner (``autotune``): when on, every "auto" choice (segment-sum
+    # lowering, quantile sort or select, the highcard and fused families,
+    # the engine of host data reduced on the CPU, streaming slab size and
+    # prefetch depth) takes the winner the measurement store observed for
+    # the nearest band, sweeping the candidates once per band on first use.
+    # Off (the default) records observations and changes no dispatch
+    "autotune": bool(_env_int("FLOX_TPU_AUTOTUNE", 0, 0, 1)),
+    # the store's JSON file, loaded at first consult and saved at exit; None
+    # keeps the store in this process
+    "autotune_cache_path": os.environ.get("FLOX_TPU_AUTOTUNE_CACHE_PATH") or None,
+    # fleet federation (``fleet``): seconds between the federator's scrape
+    # rounds, the port it serves the merged view on (0: an ephemeral port),
+    # and the default replica set ("name=http://host:port,..." or bare URLs)
+    "fleet_scrape_interval": _env_float("FLOX_TPU_FLEET_SCRAPE_INTERVAL", 2.0, 0.05, 3600.0),
+    "fleet_port": _env_int("FLOX_TPU_FLEET_PORT", 0, 0, 65535),
+    "fleet_replicas": os.environ.get("FLOX_TPU_FLEET_REPLICAS") or None,
+    # SLO plane (``slo``): the objective spec (JSON, or TOML for *.toml);
+    # None takes the built-in objectives. An unreadable or invalid spec
+    # raises at the surface that evaluates it
+    "slo_path": os.environ.get("FLOX_TPU_SLO_PATH") or None,
+    # seconds between canary cycles of ``python -m flox_tpu_torch.serve``;
+    # 0 keeps the prober off
+    "slo_canary_interval": _env_float("FLOX_TPU_SLO_CANARY_INTERVAL", 0.0, 0.0, 3600.0),
 }
 
 OPTIONS = _ScopedOptions(OPTIONS)
@@ -333,6 +357,14 @@ _VALIDATORS = {
     "registry_shard_threshold_bytes": lambda x: _is_int(x) and x >= 0,
     "serve_aot_dir": lambda x: x is None or (isinstance(x, (str, os.PathLike)) and bool(str(x))),
     "metrics_port": lambda x: _is_int(x) and 0 <= x <= 65535,
+    "autotune": lambda x: isinstance(x, bool),
+    "autotune_cache_path": lambda x: x is None or (
+        isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "fleet_scrape_interval": lambda x: _is_finite_num(x) and 0.05 <= x <= 3600,
+    "fleet_port": lambda x: _is_int(x) and 0 <= x <= 65535,
+    "fleet_replicas": lambda x: x is None or (isinstance(x, str) and bool(x)),
+    "slo_path": lambda x: x is None or (isinstance(x, (str, os.PathLike)) and bool(str(x))),
+    "slo_canary_interval": lambda x: _is_finite_num(x) and 0 <= x <= 3600,
 }
 
 
@@ -340,7 +372,10 @@ def trace_fingerprint() -> tuple:
     """The options that choose a call's kernels and lowering: a key of
     anything that holds work per lowering (the serving dispatcher's program
     keys) must include it, or a changed option would share a dispatch made
-    under another."""
+    under another. The autotuner's decision fingerprint is part of it: a
+    record that flips a winner changes it while the tuner is on."""
+    from .autotune import decision_fingerprint
+
     return (
         OPTIONS["segment_sum_impl"],
         OPTIONS["pallas_num_groups_max"],
@@ -352,6 +387,7 @@ def trace_fingerprint() -> tuple:
         OPTIONS["pallas_scan_num_groups_max"],
         OPTIONS["quantile_impl"],
         OPTIONS["stream_donate"],
+        decision_fingerprint(),
     )
 
 
@@ -464,15 +500,8 @@ def from_reference(opts: dict) -> dict:
     Keys the port has are carried over; the reference's ``"pallas"``
     implementation maps to the port's ``"kernel"`` and its ``"jax"`` engine to
     ``"torch"``. Keys the port lacks are ignored. An implementation the port
-    has not got, or the reference's measured dispatch (``autotune=True``),
-    raises ``NotImplementedError`` naming the ROADMAP item.
+    has not got raises ``NotImplementedError``.
     """
-    if opts.get("autotune"):
-        raise NotImplementedError(
-            "autotune=True (measured dispatch, including the fused-vs-sequential "
-            "choice of groupby_aggregate_many) has no counterpart in the port yet; "
-            "ROADMAP item: A9.3"
-        )
     out: dict[str, Any] = {}
     for key in OPTIONS:
         if key not in opts:

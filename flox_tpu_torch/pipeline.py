@@ -36,8 +36,9 @@ stream's trace id, so their records join the caller's trace.
 
 The reference's ``maybe_donate``/``donation_supported`` and the static-shape
 padding of the tail slab have no counterpart: nothing is traced, and the
-carry is updated in place. Its autotune observations of a pass come with
-the autotuner.
+carry is updated in place. Each pass feeds the autotune store
+(``autotune.observe_stream``), and with the tuner on a depth left at its
+default takes the observed-best depth for the stream's size band.
 """
 
 from __future__ import annotations
@@ -351,11 +352,19 @@ def stream_slabs(stager: SlabStager, *, reverse: bool = False, prefetch: int | N
     last k batches). Each pass emits one ``profiling.StreamReport``.
     """
     from .costmodel import capture, ensure_card
-    from .options import OPTIONS
+    from .options import OPTIONS, explicitly_set
     from .profiling import StreamReport, record_stream
 
-    depth = OPTIONS["stream_prefetch"] if prefetch is None else prefetch
     n, batch_len = stager.n, stager.batch_len
+    lead_elems = int(np.prod(stager.lead)) if stager.lead else 1
+    platform = stager.device.type
+    depth = OPTIONS["stream_prefetch"] if prefetch is None else prefetch
+    if prefetch is None and OPTIONS["autotune"] and not explicitly_set("stream_prefetch"):
+        # the observed-best depth for the band while the depth rides its
+        # default: the depth changes when staging happens, never the bytes
+        from .autotune import pick_stream_prefetch
+
+        depth = pick_stream_prefetch(depth, nelems=n * lead_elems, platform=platform)
     nbatches = math.ceil(n / batch_len) if n else 0
     order_full = range(nbatches - 1, -1, -1) if reverse else range(nbatches)
     order = order_full[skip:] if skip else order_full
@@ -401,6 +410,10 @@ def stream_slabs(stager: SlabStager, *, reverse: bool = False, prefetch: int | N
         t_end = perf_counter()
         report.wall_ms = (t_end - t_begin) * 1e3
         record_stream(report)
+        # the autotune store's stream observations (in every mode)
+        from .autotune import observe_stream
+
+        observe_stream(report, nbytes=report.nbytes, nelems=n * lead_elems, platform=platform)
         if telemetry.enabled():
             telemetry.sample_hbm(program=prog)
             ensure_card(prog, cap, stager.device)

@@ -38,8 +38,9 @@ restage, readiness flipped around the cycle), a dispatch watchdog
 Per-request SLO metrics (``serve.queue_ms`` / ``serve.device_ms`` /
 ``serve.request_ms`` histograms, ``serve.*`` counters) flow through the
 telemetry registry; serving state is visible in ``cache.stats()`` and reset
-by ``cache.clear_all()``. The reference's SLO canary and fleet federation
-are not ported yet (ROADMAP A9.5).
+by ``cache.clear_all()``. The SLO plane's canary (``slo.canary_loop``,
+``--canary-interval``) probes a dispatcher with known-answer requests, and
+``fleet`` federates the ``/metrics`` of many serve loops.
 """
 
 from __future__ import annotations

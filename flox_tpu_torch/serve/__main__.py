@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import sys
 import threading
@@ -261,11 +262,6 @@ async def _amain(args: argparse.Namespace) -> int:
     from ..options import OPTIONS, set_options
 
     device = utils.resolve_device(args.device)
-    if args.canary_interval:
-        raise NotImplementedError(
-            "--canary-interval runs the SLO canary prober (slo.py), which is not ported "
-            "yet: ROADMAP A9.5"
-        )
     if args.aot_dir:
         set_options(serve_aot_dir=args.aot_dir)
     if args.replica_id:
@@ -298,6 +294,18 @@ async def _amain(args: argparse.Namespace) -> int:
         batch_window=args.batch_window,
         device=device,
     )
+    # the SLO canary prober: known-answer requests on a period, billed to the
+    # reserved tenant, feeding the correctness SLO; off at 0 (the default)
+    canary_interval = (
+        args.canary_interval if args.canary_interval is not None
+        else OPTIONS["slo_canary_interval"]
+    )
+    canary_task: asyncio.Task | None = None
+    if canary_interval:
+        from .. import slo
+
+        canary_task = asyncio.ensure_future(slo.canary_loop(dispatcher, float(canary_interval)))
+        _emit({"op": "canary", "interval": float(canary_interval)})
     drain_event = asyncio.Event()
     drain_state: dict[str, str] = {}
 
@@ -527,6 +535,11 @@ async def _amain(args: argparse.Namespace) -> int:
                 task.add_done_callback(pending.discard)
     finally:
         drainer.cancel()
+        if canary_task is not None:
+            # cancelled before the drain, so no probe races closed admission
+            canary_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await canary_task
         if drain_state:
             await _drain_and_exit(dispatcher, pending, drain_state["source"])
         else:
@@ -564,8 +577,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--batch-window", type=float, default=None)
     parser.add_argument(
         "--canary-interval", type=float, default=None,
-        help="seconds between SLO canary-prober cycles; the prober belongs to "
-        "the SLO plane, not ported yet (ROADMAP A9.5): above 0 this raises",
+        help="seconds between SLO canary-prober cycles (known-answer requests "
+        "billed to the reserved __canary__ tenant, feeding the correctness SLO; "
+        "overrides FLOX_TPU_SLO_CANARY_INTERVAL; 0 keeps the prober off)",
     )
     parser.add_argument(
         "--metrics-port", type=int, default=None,

@@ -34,8 +34,15 @@ Telemetry sees the reference's spans (``streaming_groupby_*`` over
 each pass is a cost-ledger row with its device time and cost card
 (``pipeline.stream_slabs``). The reference's jit machinery has no
 counterpart (``_step_cached``, the step cache, buffer donation, the padding
-of the tail slab to a static shape); its autotuned slab size and routing
-come with the autotuner.
+of the tail slab to a static shape). With the autotuner on, a stream that
+names no ``batch_len``, no ``batch_bytes`` and no checkpoint path takes the
+observed-best slab budget for its size band, and the dense-or-sort routing
+consults the ``highcard`` family. The ranks of a mesh stream are separate
+processes with stores of their own: they agree on both (the smallest budget;
+the sort carry if any rank picks it) before the first slab, since a slab's
+shards and the collectives of a pass must be the same on every rank. The
+prefetch depth each rank picks for itself only changes when its staging
+happens.
 """
 
 from __future__ import annotations
@@ -333,7 +340,7 @@ def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, e
     # -- the sort (present-groups) engine: compact once for the whole stream
     present_table = None
     size_full = size
-    if _route_stream_highcard(engine, codes, size, probe, lead_shape, agg) == "sort":
+    if _route_stream_highcard(engine, codes, size, probe, lead_shape, agg, dev, comm) == "sort":
         present_table = kernels.present_groups(codes, size)
         if len(present_table) < size:
             codes = np.ascontiguousarray(kernels.compact_codes(codes, present_table),
@@ -342,7 +349,8 @@ def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, e
         else:
             present_table = None  # the universe is fully present
     if batch_len is None:
-        batch_bytes = _DEFAULT_BATCH_BYTES if batch_bytes is None else batch_bytes
+        if batch_bytes is None:
+            batch_bytes = _tuned_batch_bytes(n, lead_shape, dev, comm)
         batch_len = max(1, min(n, batch_bytes // max(row_bytes, 1)))
     batch_len = _mesh_batch_len(batch_len, comm)
     out_shape = lead_shape + tuple(keep_by_shape) + tuple(grp_shape)
@@ -530,14 +538,36 @@ def _agg_identity(agg: Aggregation) -> str:
                  ident(agg.finalize_kwargs), agg.min_count))
 
 
-def _route_stream_highcard(engine, codes, size: int, probe, lead_shape, agg) -> str:
+def _tuned_batch_bytes(n: int, lead_shape: tuple, dev, comm=None) -> int:
+    """The slab byte budget of a stream that names none: the default, or
+    with the autotuner on the observed-best budget for the stream's size
+    band, unless a checkpoint path is set (the slab length is part of a
+    checkpoint's identity, which a resuming process must reproduce). The
+    ranks of a mesh stream pick from their own stores and take the smallest
+    pick, so that every rank cuts the same slabs."""
+    if not OPTIONS["autotune"] or OPTIONS["stream_checkpoint_path"]:
+        return _DEFAULT_BATCH_BYTES
+    from .autotune import pick_stream_batch_bytes
+
+    lead_elems = int(np.prod(lead_shape, dtype=np.int64)) if lead_shape else 1
+    pick = pick_stream_batch_bytes(_DEFAULT_BATCH_BYTES, nelems=int(n) * lead_elems,
+                                   platform=torch.device(dev).type)
+    if comm is not None:
+        pick = int(comm.pmin(torch.tensor([pick], dtype=torch.int64, device=dev)).item())
+    return pick
+
+
+def _route_stream_highcard(engine, codes, size: int, probe, lead_shape, agg, dev,
+                           comm=None) -> str:
     """Dense ("torch") or present-groups ("sort") carry: the streaming form
     of ``core._route_highcard``. ``engine=None``: the sort engine above the
     dense-intermediate ceiling when its compact domain fits, or past
-    ``sort_engine_min_groups`` when at most 1/8 of the universe is present;
-    ``default_engine="sort"`` always. Explicit engines are never second
-    guessed; "numpy" has no streaming form."""
-    from .core import _HIGHCARD_DENSITY_DEN, _choose_engine, dense_intermediate_bytes
+    ``sort_engine_min_groups`` when at most 1/8 of the universe is present
+    (with the autotuner on and no checkpoint path, the ``highcard``
+    family's decision); ``default_engine="sort"`` always. Explicit engines
+    are never second guessed; "numpy" has no streaming form."""
+    from .core import (_HIGHCARD_DENSITY_DEN, _choose_engine, _highcard_candidates,
+                       dense_intermediate_bytes)
 
     if engine is not None:
         engine = _choose_engine(engine)
@@ -561,7 +591,22 @@ def _route_stream_highcard(engine, codes, size: int, probe, lead_shape, agg) -> 
             return "torch"  # the mesh blocked form, or the ceiling error, decides
         telemetry.count("highcard.ceiling_routes")
         return "sort"
-    return "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "torch"
+    heuristic = "sort" if ncap * _HIGHCARD_DENSITY_DEN <= size else "dense"
+    if (OPTIONS["autotune"] and not OPTIONS["stream_checkpoint_path"]
+            and len(_highcard_candidates(heuristic, agg, probe.dtype, size,
+                                         torch.device(dev).type)) > 1):
+        from . import autotune
+
+        nelems = int(codes.shape[-1]) * lead_elems
+        autotune.prime_highcard(probe.dtype, size, len(present), nelems, dev)
+        heuristic = autotune.decide("highcard", heuristic, ("dense", "sort"),
+                                    dtype=autotune.dtype_name(probe.dtype), ngroups=size,
+                                    nelems=nelems, platform=torch.device(dev).type)
+        if comm is not None:
+            # one route for every rank: each decided from its own store
+            flag = torch.tensor([int(heuristic == "sort")], dtype=torch.int32, device=dev)
+            heuristic = "sort" if int(comm.pmax(flag).item()) else "dense"
+    return "sort" if heuristic == "sort" else "torch"
 
 
 def _highcard_oom_hint(agg: Aggregation, size: int, present_table) -> str | None:

@@ -40,10 +40,10 @@ The reference's ``jax.monitoring`` compile listener (the ``jax.compiles``,
 ``jax.traces`` and ``jax.compile_ms`` counters, ``card_compile_accounting``)
 has no counterpart: the port compiles no programs. The flight dump and the
 saturation sampler carry the serving plane's state (breakers, queue depth,
-open batches, the dataset registry and the stores); the SLO section stays
-empty until that plane is ported (ROADMAP A9.5). ``python -m
-flox_tpu_torch.telemetry serve-metrics`` is a standalone ``/metrics``
-endpoint (``exposition``).
+open batches, the dataset registry and the stores) and the SLO plane's alert
+state. ``python -m flox_tpu_torch.telemetry slo`` tabulates a ``/slo``
+payload (exit 2 while an alert fires), and ``serve-metrics`` is a
+standalone ``/metrics`` endpoint (``exposition``).
 
 Knobs: ``telemetry`` (``FLOX_TPU_TELEMETRY``), ``telemetry_level``
 (``FLOX_TPU_TELEMETRY_LEVEL``), ``telemetry_export_path``
@@ -862,9 +862,13 @@ def _breaker_snapshot() -> dict:
 
 
 def _alert_snapshot() -> dict:
-    """The SLO plane's alert state for the flight-dump header: empty until
-    the SLO plane is ported."""
-    return {}
+    """The SLO plane's alert state for the flight-dump header."""
+    try:
+        from . import slo
+
+        return slo.alert_snapshot()
+    except Exception:  # noqa: BLE001 — forensics are best-effort
+        return {}
 
 
 def flight_dump(path: Any = None, reason: str = "") -> str | None:
@@ -1540,7 +1544,7 @@ def drain() -> list[dict]:
 def reset() -> None:
     """Clear the record buffer, the metrics registry (exemplar slots
     included), the flight-recorder ring, the parked tail buffers, the cost
-    ledger and the cost cards."""
+    ledger, the cost cards and the SLO plane."""
     with _RECORDS_LOCK:
         _RECORDS.clear()
         _TAIL_REGISTRY.clear()
@@ -1555,6 +1559,11 @@ def reset() -> None:
 
     _CARD_REGISTRY.clear()
     _CARD_LABELS.clear()
+    # the SLO plane judges the counters being dropped: its alert state and
+    # window snapshots must not outlive them
+    from . import slo
+
+    slo.clear()
 
 
 def _counters_record() -> dict:
@@ -2082,6 +2091,59 @@ def _drift_lines(report: dict) -> list[str]:
     return lines
 
 
+def _load_slo(path: str | None) -> tuple[dict, str | None]:
+    """(``/slo`` payload, replica stamp) — from a scrape file, or a fresh
+    live evaluation when no file is given."""
+    if path is None:
+        from . import slo
+
+        return slo.evaluate(), None
+    with open(path) as f:
+        payload = json.load(f)
+    if not isinstance(payload, dict) or "objectives" not in payload:
+        raise ValueError(f"{path}: expected a /slo JSON payload with 'objectives'")
+    return payload, payload.get("replica")
+
+
+def _slo_lines(payload: dict, source: str = "live process") -> list[str]:
+    """The ``slo`` CLI table: one row per (objective, window rule) with
+    burn rates against thresholds, then the alert rows — the operator's
+    terminal answer to "are we in or out of budget, and is it paging"."""
+    lines = [
+        f"slo report — {source}"
+        + ("" if payload.get("healthy", True) else "  ** ALERT FIRING **"),
+        "",
+        f"{'objective':<22} {'kind':<13} {'target':>8} {'budget':>8} "
+        f"{'window':<8} {'sev':<7} {'burn s':>9} {'burn l':>9} {'thresh':>7}  state",
+        "-" * 110,
+    ]
+    for obj in payload.get("objectives", []):
+        for i, win in enumerate(obj.get("windows", [])):
+            lead = obj["name"] if i == 0 else ""
+            kind = obj.get("kind", "?") if i == 0 else ""
+            target = f"{obj.get('target', 0):.4g}" if i == 0 else ""
+            budget = f"{obj.get('budget_remaining', 0):.3f}" if i == 0 else ""
+            lines.append(
+                f"{lead[:22]:<22} {kind:<13} {target:>8} {budget:>8} "
+                f"{str(win.get('window', '?'))[:8]:<8} {str(win.get('severity', '?')):<7} "
+                f"{float(win.get('burn_short', 0)):>9.2f} "
+                f"{float(win.get('burn_long', 0)):>9.2f} "
+                f"{float(win.get('burn_threshold', 0)):>7.1f}  "
+                f"{'BREACH' if win.get('breach') else 'ok'}"
+            )
+    alerts = payload.get("alerts") or []
+    lines += ["", f"alerts ({len(alerts)}):"]
+    if not alerts:
+        lines.append("  (none — state machine clean)")
+    for a in alerts:
+        lines.append(
+            f"  {a.get('state', '?'):<9} {a.get('severity', '?'):<7} "
+            f"{a.get('objective', '?')}/{a.get('window', '?')}  "
+            f"burn {float(a.get('burn_short', 0)):.2f}/{float(a.get('burn_long', 0)):.2f}"
+        )
+    return lines
+
+
 def _fmt_bytes(value: Any) -> str:
     value = float(value or 0.0)
     if value <= 0:
@@ -2146,6 +2208,15 @@ def main(argv: list[str] | None = None) -> int:
         help="drift ratio that flags a program (default: "
         "OPTIONS['costmodel_drift_threshold'])",
     )
+    slo_cmd = sub.add_parser(
+        "slo",
+        help="SLO burn-rate and alert-state table: reads a /slo JSON scrape, "
+        "or evaluates the live in-process objectives when no file is given",
+    )
+    slo_cmd.add_argument(
+        "file", nargs="?", default=None,
+        help="a /slo JSON scrape (default: evaluate the live objectives)",
+    )
     srv = sub.add_parser(
         "serve-metrics",
         help="standalone /metrics + /healthz + /readyz HTTP endpoint (Prometheus text "
@@ -2179,6 +2250,19 @@ def main(argv: list[str] | None = None) -> int:
         finally:
             exposition.stop_metrics_server()
         return 0
+    if args.command == "slo":
+        try:
+            payload, replica = _load_slo(args.file)
+            source = args.file or "live process"
+            if replica:
+                source = f"{source} (replica {replica})"
+        except OSError as exc:
+            parser.error(f"cannot read {args.file}: {exc}")
+        except (ValueError, KeyError, TypeError, AttributeError) as exc:
+            parser.error(f"{args.file} is not a readable /slo export: {exc}")
+        print("\n".join(_slo_lines(payload, source=source)))
+        # exit 2 while an alert fires: a deploy gate is one call
+        return 0 if payload.get("healthy", True) else 2
     if args.command == "costs":
         if args.top is not None and args.top < 1:
             parser.error("--top must be >= 1")

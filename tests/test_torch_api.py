@@ -4,10 +4,8 @@ import flox_tpu
 import flox_tpu_torch
 
 #: names of ``flox_tpu.__all__`` the port has not ported yet, each with the
-#: ROADMAP item that brings it
-ALLOWED_GAPS = {
-    "autotune": "A9.3 (autotune)",
-}
+#: ROADMAP item that brings it (none are left)
+ALLOWED_GAPS: dict[str, str] = {}
 
 
 def test_every_reference_name_is_exported():
@@ -22,8 +20,8 @@ def test_exported_names_resolve():
                  "streaming_groupby_reduce", "streaming_groupby_aggregate_many",
                  "streaming_groupby_scan"):
         assert callable(getattr(flox_tpu_torch, name)), name
-    for module in ("cache", "cohorts", "faults", "profiling", "resilience", "kernels", "serve",
-                   "telemetry"):
+    for module in ("autotune", "cache", "cohorts", "faults", "fleet", "profiling", "resilience",
+                   "kernels", "serve", "slo", "telemetry"):
         assert getattr(flox_tpu_torch, module).__name__ == f"flox_tpu_torch.{module}"
     from flox_tpu_torch import cache, exposition, serve, store
 

@@ -5,8 +5,8 @@ The same registry contents render byte for byte the reference's Prometheus
 text (counters, gauges, cumulative histograms, labeled series, exemplars);
 the endpoint serves ``/metrics``, ``/healthz``, ``/readyz`` (503 while
 warming, around a simulated device loss and during a drain), the
-``/debug/*`` tables, and answers ``/slo`` and ``/alerts`` with 501 naming
-ROADMAP A9.5 until the SLO plane is ported. Dispatchers run on the CPU.
+``/debug/*`` tables, and answers ``/slo`` and ``/alerts`` with the
+reference's payloads. Dispatchers run on the CPU.
 Every HTTP call carries its own timeout.
 """
 
@@ -166,11 +166,27 @@ class TestMetricsServer:
 
     @pytest.mark.parametrize("path", ["/slo", "/alerts"])
     def test_slo_endpoints_name_the_roadmap_item(self, path):
+        # the SLO plane is ported: both endpoints answer the reference's
+        # payloads (same keys, same objectives, no alerts on a quiet replica)
+        from flox_tpu import cache as ref_cache
+
         port = exposition.start_metrics_server(port=0)
         status, ctype, body = _get(port, path)
-        assert status == 501 and "application/json" in ctype
-        payload = json.loads(body)
-        assert payload["ok"] is False and "A9.5" in payload["error"]
+        assert status == 200 and "application/json" in ctype
+        got = json.loads(body)
+        ref_cache.clear_all()
+        ref_port = ref_exposition.start_metrics_server(port=0)
+        try:
+            ref_status, _, ref_body = _get(ref_port, path)
+        finally:
+            ref_exposition.stop_metrics_server()
+        want = json.loads(ref_body)
+        assert ref_status == 200
+        assert got.keys() == want.keys()
+        assert got["alerts"] == want["alerts"] == []
+        assert got["healthy"] is want["healthy"] is True
+        if path == "/slo":
+            assert got["objectives"] == want["objectives"]
 
     def test_debug_costs_and_programs(self):
         with flox_tpu_torch.set_options(telemetry=True, costmodel=True):

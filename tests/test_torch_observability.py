@@ -155,12 +155,11 @@ class TestFlightRecorder:
         header = parsed[0]
         assert header["name"] == "flight-recorder"
         assert header["attrs"]["reason"].startswith("fatal:ValueError")
-        # the serve plane's breaker panel, empty in a process that served
-        # nothing (the reference's shape); alerts stay empty until the SLO
-        # plane is ported
+        # the serve plane's breaker panel and the SLO plane's alert state,
+        # empty in a process that served nothing (the reference's shapes)
         assert header["attrs"]["breakers"] == {"total": 0, "open": 0, "half_open": 0,
                                                "tripped": {}}
-        assert header["attrs"]["alerts"] == {}
+        assert header["attrs"]["alerts"] == {"firing": [], "pending": [], "resolved": []}
         names = {r.get("name") for r in parsed}
         assert {"groupby_reduce", "fatal"} <= names
         assert parsed[-1]["type"] == "counters"

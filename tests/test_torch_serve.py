@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -832,11 +833,35 @@ class TestProtocol:
             assert got[rid]["result"] == want[rid]["result"], rid
 
     def test_canary_interval_names_the_slo_item(self, tmp_path):
-        proc = subprocess.run(
+        # the SLO plane is ported: the loop runs canary cycles on the period,
+        # and their probes are counted in the stats panel
+        proc = subprocess.Popen(
             [sys.executable, "-m", "flox_tpu_torch.serve", "--device", "cpu",
-             "--canary-interval", "1"],
-            input="", cwd=REPO, capture_output=True, text=True, timeout=120)
-        assert proc.returncode != 0 and "A9.5" in proc.stderr
+             "--canary-interval", "0.2"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            cwd=REPO, text=True)
+        try:
+            first = json.loads(proc.stdout.readline())
+            assert first == {"op": "canary", "interval": 0.2}
+            deadline = time.monotonic() + 60
+            probes = 0
+            while probes < 6 and time.monotonic() < deadline:
+                time.sleep(0.3)
+                proc.stdin.write('{"op": "stats"}\n')
+                proc.stdin.flush()
+                stats = json.loads(proc.stdout.readline())
+                probes = stats["cache"]["slo"]["canary"]["probes"]
+            assert probes >= 6, stats["cache"]["slo"]
+            assert stats["cache"]["slo"]["canary"]["failures"] == 0
+            proc.stdin.write('{"op": "shutdown"}\n')
+            proc.stdin.flush()
+            out, err = proc.communicate(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        assert proc.returncode == 0, err
+        assert json.loads(out.splitlines()[-1])["op"] == "shutdown"
 
     def test_default_device_refuses_without_cuda(self):
         if torch.cuda.is_available():

@@ -690,6 +690,56 @@ def run_port_case(cid: str, meshes: dict):
     return _to_host(out) if isinstance(out, tuple) else (_to_host(out),)
 
 
+def _tuned_ranks_case(rank: int, mesh) -> tuple:
+    """The autotuner on a mesh whose ranks' stores disagree (rank 0's slab
+    budget 2^16 bytes and the dense carry, rank 1's 2^18 bytes and the sort
+    carry; the fused pass losing on rank 0 only): a streamed nansum over a
+    3000-label universe, 200 labels present, and an in-memory aggregate_many.
+    Returns the tuned results, the untuned calls at the agreed choices (the
+    smaller budget, the sort carry, the fused pass) and the two picks."""
+    import flox_tpu_torch
+    from flox_tpu_torch import autotune, cache, streaming
+
+    rng = np.random.default_rng(11)
+    n, rows, size = 4000, 64, 3000
+    vals = rng.normal(size=(rows, n)).astype(np.float32)
+    vals[:, ::17] = np.nan
+    labels = (np.arange(n) % 200) * 15
+    universe = np.arange(size)
+    nelems = rows * n
+    with flox_tpu_torch.set_options(autotune=False, autotune_cache_path=None,
+                                    sort_engine_min_groups=1024):
+        cache.clear_all()
+        mine, other = ("2^16", "2^18") if rank == 0 else ("2^18", "2^16")
+        autotune.record("stream_slab", mine, 99.0, nelems=nelems, platform="cpu")
+        autotune.record("stream_slab", other, 1.0, nelems=nelems, platform="cpu")
+        win, lose = ("dense", "sort") if rank == 0 else ("sort", "dense")
+        hkey = dict(dtype="float32", ngroups=size, nelems=nelems, platform="cpu")
+        autotune.record("highcard", win, 99.0, **hkey)
+        autotune.record("highcard", lose, 1.0, **hkey)
+        fwin, flose = ("sequential", "fused") if rank == 0 else ("fused", "sequential")
+        fkey = dict(dtype="float32", ngroups=12, nelems=nelems, platform="cpu")
+        autotune.record("fused", fwin, 99.0, **fkey)
+        autotune.record("fused", flose, 1.0, **fkey)
+        months = (np.arange(n) // 334) % 12
+        kw = dict(func="nansum", expected_groups=universe, mesh=mesh)
+        with flox_tpu_torch.set_options(autotune=True):
+            picks = (autotune.pick_stream_batch_bytes(streaming._DEFAULT_BATCH_BYTES,
+                                                      nelems=nelems, platform="cpu"),
+                     autotune.decide("highcard", "none", ("dense", "sort"), **hkey))
+            tuned = flox_tpu_torch.streaming_groupby_reduce(vals, labels, **kw)[0]
+            many = flox_tpu_torch.groupby_aggregate_many(vals, months, funcs=("nanmean", "nanmax"),
+                                                         mesh=mesh)[0]
+        untuned = flox_tpu_torch.streaming_groupby_reduce(vals, labels, batch_bytes=1 << 16,
+                                                          engine="sort", **kw)[0]
+        many_off = flox_tpu_torch.groupby_aggregate_many(vals, months,
+                                                         funcs=("nanmean", "nanmax"), mesh=mesh)[0]
+        cache.clear_all()
+    return (_to_host(tuned), _to_host(untuned),
+            *[_to_host(many[f]) for f in many], *[_to_host(many_off[f]) for f in many_off],
+            np.asarray([picks[0], picks[1] == "sort"], dtype=np.int64))
+
+
 class _Capture(logging.Handler):
     def __init__(self):
         super().__init__(logging.DEBUG)
@@ -720,6 +770,12 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str, case_ids: list,
     results = {}
     for cid in case_ids:
         capture.lines.clear()
+        if cid == "tuned-ranks":
+            try:
+                results[cid] = ("ok", _tuned_ranks_case(rank, meshes["1d"]), [])
+            except Exception as err:  # noqa: BLE001 - reported to the test
+                results[cid] = ("err", type(err).__name__, str(err))
+            continue
         if cid == "hang":  # a rank that never reaches the collective
             if rank == hang_rank:
                 time.sleep(3600)
