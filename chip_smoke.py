@@ -58,7 +58,16 @@ Phases; any failure exits nonzero:
    ``groupby_reduce`` and ``groupby_aggregate_many``, a sparse tensor at 1 %
    density (nansum, nanmean, nanmax, count), the sort engine's result packed
    with ``reindex=SPARSE_COO``, the host numpy engine on 2048 rows, and
-   ``memory_stats``; then streaming from host memory (:func:`phase_streaming`):
+   ``memory_stats``; then the one-hot GEMM segment sum (:func:`phase_matmul`):
+   the month nanmean under ``segment_sum_impl="matmul"`` with NaN and +-inf
+   set into four rows (no kernel launch, within the float64 bar, NaN/+-inf
+   exact, bit for bit on a rerun and under
+   ``set_float32_matmul_precision("high")``) timed beside B1, a float64 copy's
+   month nanmean under "auto" (the GEMM, bit for bit on a rerun, within
+   ``rtol=1e-10, atol=1e-12`` of ``index_add_``) timed beside ``index_add_``,
+   each with its peak memory and the computed yardsticks, bfloat16 groups of
+   1024 values with exact counts, and a fused uint64 stream held to its
+   single-func streams; then streaming from host memory (:func:`phase_streaming`):
    the array copied once to a host numpy array and streamed back through
    ``streaming_groupby_reduce`` nanmean by month at the default 256 MiB
    slabs (pinned buffers, a side copy stream, prefetch 2), bit for bit the
@@ -1591,6 +1600,219 @@ def _family_times(ck, calls: dict, reps: int) -> None:
         torch.cuda.empty_cache()
         print(f"[times] end-to-end {name}: {e2e_ms!r} ms, {nbytes / (e2e_ms * 1e-3) / 1e9!r} "
               f"GB/s of input, launches a call {per_call}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: the one-hot GEMM segment sum (segment_sum_impl="matmul")
+# ---------------------------------------------------------------------------
+
+MATMUL_BF16_SHAPE = (64, 4096)  # bfloat16 check: 4 groups of 1024 values each
+
+
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _gemm_counter(pk) -> tuple[list, object]:
+    """Count calls of the port's GEMM core; returns (calls, restore)."""
+    calls, real = [], pk._seg_matmul_raw
+
+    def counting(*args):
+        calls.append(tuple(args[0].shape))
+        return real(*args)
+
+    pk._seg_matmul_raw = counting
+    return calls, lambda: setattr(pk, "_seg_matmul_raw", real)
+
+
+def _row_nanmean(x: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor:
+    """float64 nanmean of one row (N,) per group: NaN skipped, +-inf kept."""
+    x = x.double()
+    keep = ~torch.isnan(x)
+    idx = codes.long()
+    s = torch.zeros(size, dtype=torch.float64, device=x.device).index_add_(
+        0, idx, torch.where(keep, x, 0))
+    c = torch.zeros(size, dtype=torch.float64, device=x.device).index_add_(0, idx, keep.double())
+    return s / c
+
+
+def _nonfinite_agree(name: str, out: torch.Tensor, ref: torch.Tensor) -> None:
+    check(torch.equal(torch.isnan(out), torch.isnan(ref))
+          and torch.equal(torch.isposinf(out), torch.isposinf(ref))
+          and torch.equal(torch.isneginf(out), torch.isneginf(ref)),
+          f"{name}: NaN/inf pattern differs from the float64 oracle")
+
+
+def _peak_call(fn):
+    """``fn()`` once, with its peak device memory above what was held."""
+    torch.cuda.synchronize()
+    _PEAK_SEEN[0] = max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - held, held
+
+
+def phase_matmul(data, month, codes, totals: dict, reps: int) -> dict:
+    """The one-hot GEMM segment sum at full width (``kernels._seg_matmul_raw``):
+    the float32 month nanmean under ``segment_sum_impl="matmul"`` (no B1
+    launch; NaN and +-inf exact; within the main path's bar of a float64
+    oracle; bit for bit on a rerun and under
+    ``set_float32_matmul_precision("high")``) beside B1's time for the call;
+    a float64 copy's month nanmean under "auto" (the GEMM; bit for bit on a
+    rerun; within the reference's bar of ``index_add_``) beside
+    ``index_add_``'s time; bfloat16 groups of more than 256 values; a fused
+    uint64 stream against its single-func streams. Returns the figures."""
+    import flox_tpu_torch
+    from flox_tpu_torch import cuda_kernels as ck
+    from flox_tpu_torch import kernels as pk
+    from flox_tpu_torch import streaming as pst
+
+    k, n = data.shape
+    card = _card()
+    print(f"[matmul] card: {card}")
+    figures: dict = {"card": card}
+    calls, restore = _gemm_counter(pk)
+    try:
+        def nanmean(x, impl=None):
+            with flox_tpu_torch.set_options(**({} if impl is None else
+                                               {"segment_sum_impl": impl})):
+                return flox_tpu_torch.groupby_reduce(x, month, func="nanmean")[0]
+
+        # -- float32 under "matmul", with NaN and +-inf set into four rows
+        ref = _f64_reference(data, codes, NGROUPS, "nanmean")
+        cols = (5, 17, 29, 41)  # four columns of month 0
+        spots = [(0, cols[0], float("nan")), (1, cols[1], float("inf")),
+                 (2, cols[2], float("-inf")), (3, cols[0], float("inf")),
+                 (3, cols[3], float("-inf"))]
+        saved = [data[r, c].item() for r, c, _ in spots]
+        try:
+            for r, c, v in spots:
+                data[r, c] = v
+            for r in range(4):
+                ref[r] = _row_nanmean(data[r], codes, NGROUPS)
+            calls.clear()
+            out = _drive(ck, "nanmean (matmul)", lambda: nanmean(data, "matmul"), {}, totals)
+            check(len(calls) == 1, f"nanmean (matmul): {len(calls)} GEMM calls")
+            check(tuple(out.shape) == (k, NGROUPS) and out.dtype == torch.float32,
+                  f"nanmean (matmul): {tuple(out.shape)} {out.dtype}")
+            _nonfinite_agree("nanmean (matmul)", out[:4], ref[:4])
+            check(bool(torch.isnan(out[3, 0])) and bool(torch.isposinf(out[1, 0]))
+                  and bool(torch.isneginf(out[2, 0])), "nanmean (matmul): +-inf rules")
+            fin = torch.isfinite(ref)
+            _check_close("nanmean (matmul), finite", out[fin], ref[fin])
+            again = nanmean(data, "matmul")
+            check(same(out, again), "nanmean (matmul): a rerun differs")
+            prev = torch.get_float32_matmul_precision()
+            try:
+                torch.set_float32_matmul_precision("high")
+                tf32 = nanmean(data, "matmul")
+            finally:
+                torch.set_float32_matmul_precision(prev)
+            check(same(out, tf32), "nanmean (matmul): bits differ under matmul precision 'high'")
+            print("[matmul] float32 nanmean: NaN/+-inf exact, bit for bit on a rerun and under "
+                  "set_float32_matmul_precision('high')")
+            del again, tf32, out
+        finally:
+            for (r, c, _), v in zip(spots, saved):
+                data[r, c] = v
+        del ref
+        torch.cuda.empty_cache()
+        figures["f32_gemm_ms"] = time_ms(lambda: nanmean(data, "matmul"), reps)
+        figures["f32_b1_ms"] = time_ms(lambda: nanmean(data), reps)
+        _, figures["f32_gemm_peak"], held = _peak_call(lambda: nanmean(data, "matmul"))
+        _, figures["f32_b1_peak"], _ = _peak_call(lambda: nanmean(data))
+        print(f"[matmul] float32 month nanmean: GEMM {figures['f32_gemm_ms']!r} ms, peak "
+              f"{figures['f32_gemm_peak'] / 1e9:.3f} GB; B1 {figures['f32_b1_ms']!r} ms, peak "
+              f"{figures['f32_b1_peak'] / 1e9:.3f} GB above the {held / 1e9:.2f} GB held "
+              f"({card})")
+
+        # -- float64 under "auto": the GEMM, against index_add_
+        x64 = data.double()
+        check(pk._segment_sum_impl(x64, NGROUPS) == "matmul",
+              "float64 month nanmean does not route to the GEMM")
+        calls.clear()
+        out = _drive(ck, "nanmean (float64, auto)", lambda: nanmean(x64), {}, totals)
+        check(len(calls) == 1, f"nanmean (float64, auto): {len(calls)} GEMM calls")
+        scat = nanmean(x64, "scatter")
+        err = (out - scat).abs()
+        check(bool((err <= 1e-12 + 1e-10 * scat.abs()).all()),
+              f"float64 GEMM against index_add_: max err {err.max().item()!r}")
+        check(same(out, nanmean(x64)), "float64 nanmean (GEMM): a rerun differs")
+        print(f"[matmul] float64 nanmean: GEMM, bit for bit on a rerun, max |err| against "
+              f"index_add_ {err.max().item()!r} (bar 1e-12 + 1e-10 |ref|)")
+        del out, scat, err
+        torch.cuda.empty_cache()
+        figures["f64_gemm_ms"] = time_ms(lambda: nanmean(x64), reps)
+        figures["f64_scatter_ms"] = time_ms(lambda: nanmean(x64, "scatter"), reps)
+        _, figures["f64_gemm_peak"], held = _peak_call(lambda: nanmean(x64))
+        _, figures["f64_scatter_peak"], _ = _peak_call(lambda: nanmean(x64, "scatter"))
+        print(f"[matmul] float64 month nanmean: GEMM {figures['f64_gemm_ms']!r} ms, peak "
+              f"{figures['f64_gemm_peak'] / 1e9:.3f} GB; index_add_ "
+              f"{figures['f64_scatter_ms']!r} ms, peak {figures['f64_scatter_peak'] / 1e9:.3f} "
+              f"GB above the {held / 1e9:.2f} GB held ({card})")
+        del x64
+        torch.cuda.empty_cache()
+    finally:
+        restore()
+
+    # -- bfloat16: a group of more than 256 values counts exactly
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(16)
+    rows, cols_ = MATMUL_BF16_SHAPE
+    xb = torch.randn((rows, cols_), generator=gen, device=DEVICE).to(torch.bfloat16)
+    xb[torch.rand((rows, cols_), generator=gen, device=DEVICE) < 0.1] = float("nan")
+    cb = (torch.arange(cols_, device=DEVICE) % 4).to(torch.int32)
+    sums, nan_c, pos_c, neg_c = pk._seg_matmul_raw(xb, cb, 4)
+    isnan = torch.isnan(xb)
+    want_nan = torch.zeros((rows, 4), device=DEVICE).index_add_(1, cb.long(), isnan.float())
+    check(torch.equal(nan_c, want_nan) and not pos_c.any() and not neg_c.any(),
+          "bfloat16 GEMM: marker counts differ")
+    finite = torch.where(isnan, 0, xb).double()
+    want = torch.zeros((rows, 4), dtype=torch.float64, device=DEVICE).index_add_(
+        1, cb.long(), finite)
+    scale = torch.zeros_like(want).index_add_(1, cb.long(), finite.abs())
+    err = (sums.double() - want).abs()
+    check(sums.dtype == torch.float32 and bool((err <= cols_ // 4 * U32 * scale).all()),
+          f"bfloat16 GEMM sums: max err {err.max().item()!r}")
+    with flox_tpu_torch.set_options(segment_sum_impl="matmul"):
+        mb = flox_tpu_torch.groupby_reduce(xb, (np.arange(cols_) % 4), func="nanmean")[0]
+    check(mb.dtype == torch.bfloat16 and torch.equal(
+        mb, (sums / ((cols_ // 4) - nan_c)).to(torch.bfloat16)), "bfloat16 nanmean (GEMM)")
+    print(f"[matmul] bfloat16 {MATMUL_BF16_SHAPE}, 4 groups of {cols_ // 4}: counts exact, "
+          f"sums max |err| {err.max().item()!r} against float64")
+
+    # -- a fused uint64 stream with extrema legs equals its single-func streams
+    rng = np.random.default_rng(16)
+    xu = (rng.integers(0, 2048, (3, 200)) * 512).astype(np.uint64)
+    xu[:, ::7] += np.uint64(2**60 + 1)
+    labels = np.arange(200) % 5
+    funcs = ("sum", "max", "min", "mean")
+    fused = pst.streaming_groupby_aggregate_many(xu, labels, funcs=funcs, batch_len=64)[0]
+    for f in funcs:
+        one = pst.streaming_groupby_reduce(xu, labels, func=f, batch_len=64)[0]
+        check(fused[f].device == one.device and fused[f].dtype == one.dtype
+              and np.array_equal(fused[f].cpu().numpy(), one.cpu().numpy()),
+              f"fused uint64 stream {f} differs from its single-func stream")
+    print(f"[matmul] fused uint64 stream {funcs}: each leg bit for bit its single-func stream")
+
+    gb = 1e9
+    f32_bytes, f64_bytes = k * n * 4, k * n * 8
+    kb32 = max(8, 2**28 // (4 * n * 4) // 8 * 8)
+    flop = 2.0 * k * n * NGROUPS * 4
+    print(f"[matmul] yardsticks (computed, not measured): float32 one read "
+          f"{f32_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; the reference's design (data read once, "
+          f"four (K, N) masks written and read in blocks of {kb32} rows) "
+          f"{(f32_bytes * 9) / gb:.1f} GB, {f32_bytes * 9 / HBM_BYTES_PER_S * 1e3:.1f} ms; four "
+          f"GEMMs {flop:.3g} flop, {flop / F32_FLOPS * 1e3:.2f} ms at 67 TFLOP/s; float64 one "
+          f"read {f64_bytes / gb:.1f} GB, {f64_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms, the "
+          f"design {f64_bytes * 9 / HBM_BYTES_PER_S * 1e3:.1f} ms, four GEMMs "
+          f"{flop / F32_FLOPS * 1e3:.2f} ms at 67 TFLOP/s FP64 tensor")
+    return figures
 
 
 # ---------------------------------------------------------------------------
@@ -4258,6 +4480,8 @@ def main() -> int:
     mark("kernels")
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
     mark("main path")
+    phase_matmul(data, month, codes, launches, max(3, args.reps // 2))
+    mark("matmul")
     stream = phase_streaming(data, month, codes, launches)
     mark("streaming")
     # the serve phase's warmup manifest starts the SLO phase's replicas warm

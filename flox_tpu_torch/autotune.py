@@ -5,8 +5,9 @@ this store when the tuner is on:
 
 * the segment-sum lowering (``kernels._segment_sum_impl``): on a CUDA
   tensor the segment-sum kernel or the radix-binning kernel, whichever
-  guards pass (``index_add_`` only where neither does); on the CPU
-  ``index_add_`` alone;
+  guards pass, and only where neither does ``index_add_`` and the one-hot
+  GEMM (where ``kernels._use_matmul_path`` passes); on the CPU ``index_add_``
+  and the GEMM where its guard passes;
 * grouped order statistics (``kernels._quantile_impl_choice``): sort or the
   radix select;
 * dense or present-groups accumulators past ``sort_engine_min_groups``
@@ -31,9 +32,10 @@ The store holds observed GB/s per candidate under the reference's key,
 either package loads in the other. The platform is the device of the data
 (``"cuda"`` or ``"cpu"``); candidate names read from a file are mapped as
 ``options.from_reference`` maps options (``"pallas"`` -> ``"kernel"``,
-``"jax"`` -> ``"torch"``), and a candidate the port lacks (``"matmul"``) is
-never eligible. Observations fold into an EWMA; a flip of a winner bumps the
-store version, which :func:`decision_fingerprint` carries into
+``"jax"`` -> ``"torch"``); a ``"matmul"`` record is eligible wherever the
+call's candidates hold the GEMM, as above. Observations fold into an EWMA;
+a flip of a winner bumps the store version, which
+:func:`decision_fingerprint` carries into
 ``options.trace_fingerprint()`` (the serving dispatcher's program keys).
 
 Sources: one micro-sweep per banded key at first use (:func:`prime_reduce`,
@@ -621,10 +623,11 @@ def _sweep_segment_sum(dtype: str, ngroups: int, nelems: int, device: Any) -> No
     codes = (torch.arange(n, dtype=torch.int32, device=data.device) % size).to(torch.int32)
 
     passes = {}
-    for impl in ("kernel", "radixbin"):
+    for impl in ("kernel", "radixbin", "matmul"):
         with scoped(segment_sum_impl=impl):
             passes[impl] = _segment_sum_impl(data, size) == impl
-    candidates = _tuned_sum_candidates(data.device.type, passes["kernel"], passes["radixbin"])
+    candidates = _tuned_sum_candidates(data.device.type, passes["kernel"], passes["radixbin"],
+                                       passes["matmul"])
 
     def runner(impl: str) -> Callable[[], Any] | None:
         with scoped(segment_sum_impl=impl):

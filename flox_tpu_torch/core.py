@@ -1056,7 +1056,7 @@ def _astype_final(result: torch.Tensor, agg: Aggregation, datetime_dtype=None):
             # the reference's float -> uint64 conversion saturates at the top,
             # where torch's wraps 2**64 to 0
             top = torch.tensor(np.iinfo(np.uint64).max, dtype=final, device=result.device)
-            return torch.where(result >= 2.0**64, top, result.to(final))
+            return kernels._where_u64(result >= 2.0**64, top, result.to(final))
         result = result.to(final)
     return result
 

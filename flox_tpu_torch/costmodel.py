@@ -506,7 +506,11 @@ def analytic_prior(family: str, fallback: str, candidates: tuple, *, dtype: Any 
     * ``highcard``: dense reads the data once and writes three
       ``ngroups``-wide accumulators; sort reads it three times (the host
       unique pass and the compact relabel) and writes accumulators over at
-      most ``nelems`` present groups.
+      most ``nelems`` present groups;
+    * ``segment_sum`` (the reference's model): the one-hot GEMM's
+      ``2 * nelems * ngroups`` operations at the card's float32 rate against
+      ``index_add_``'s one read at a twentieth of the memory rate (atomic
+      updates do not stream).
 
     Counted on ``costmodel.prior_consults`` and ``costmodel.prior_decisions``.
     """
@@ -535,6 +539,10 @@ def analytic_prior(family: str, fallback: str, candidates: tuple, *, dtype: Any 
         dense_ms = (data_bytes + n_acc * max(1, ngroups) * itemsize) / rate
         sort_ms = (3 * data_bytes + n_acc * present_cap * itemsize) / rate
         choice = "sort" if sort_ms < dense_ms else "dense"
+    elif family == "segment_sum" and {"matmul", "scatter"} <= cands:
+        matmul_ms = 2.0 * max(0, int(nelems)) * max(1, int(ngroups)) / (peaks["gflops"] * 1e6)
+        scatter_ms = data_bytes / (0.05 * rate)
+        choice = "matmul" if matmul_ms < scatter_ms else "scatter"
     if choice is None or choice not in cands:
         return None
     telemetry.count("costmodel.prior_decisions")

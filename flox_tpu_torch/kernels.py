@@ -21,8 +21,11 @@ the place of "pallas": float32/bfloat16 sums over at most
 float32/bfloat16/int32 min/max over at most ``pallas_minmax_num_groups_max``
 groups to the segment-min/max kernel, and everything else (float64, integer
 sums, more groups) to ``index_add_`` / ``scatter_reduce``, as the reference
-sends it to XLA's scatter. Several statistics of one float array (sums,
-counts, min and max) share one kernel pass (``_fused_stats``), and
+sends it to XLA's scatter; on a CUDA device a float sum that no kernel takes
+goes to the one-hot GEMM (``_seg_matmul_raw``) where the reference's
+``_use_matmul_path`` guard passes (at most ``matmul_num_groups_max`` groups,
+a kept axis of at least a quarter of them). Several statistics of one float
+array (sums, counts, min and max) share one kernel pass (``_fused_stats``), and
 float32/bfloat16 grouped cumsums over at most ``pallas_scan_num_groups_max``
 groups (the missing-label group included) go to the segmented-cumsum kernel
 (``_scan_impl_choice``); other scans run a sort plus a log-depth segmented
@@ -108,18 +111,38 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     return dt
 
 
-def _segment_sum_impl(data: torch.Tensor, size: int) -> str:
-    """"kernel", "radixbin" or "scatter" for a segment-sum of ``data`` (K, N).
+def _segment_sum_impl(data: torch.Tensor, size: int, device_type: str | None = None) -> str:
+    """"kernel", "radixbin", "matmul" or "scatter" for a segment-sum of
+    ``data`` (K, N) on a device of ``device_type`` (default: the data's).
 
-    The reference's TPU dispatch: "auto" takes the segment-sum kernel within
-    its group cap, else the radix-binning kernel within its own, else
-    scatter; "kernel" and "radixbin" take their kernel within its cap, else
-    scatter. With the autotuner on, "auto" takes the observed winner among
-    :func:`_tuned_sum_candidates`.
+    The reference's TPU dispatch, with "on TPU" read as "on CUDA":
+
+    ========  ==============================  ===============================
+    policy    CUDA                            CPU
+    ========  ==============================  ===============================
+    matmul    the GEMM where                  the same
+              :func:`_use_matmul_path`
+              passes, else ``index_add_``
+    kernel,   that kernel within its cap,     the same (the kernels' plain
+    radixbin  else ``index_add_``             versions)
+    auto      the segment-sum kernel within   as on CUDA, never the GEMM (the
+              its cap, else the radix-        reference's "auto" takes it on
+              binning kernel within its own,  TPU only)
+              else the GEMM where its guard
+              passes, else ``index_add_``
+    ========  ==============================  ===============================
+
+    With the autotuner on, "auto" takes the observed winner (or the cost
+    model's prior) among :func:`_tuned_sum_candidates`. Non-float data and
+    "scatter" always take ``index_add_``. On a CUDA device the GEMM runs or
+    raises: nothing falls back from it.
     """
     policy = OPTIONS["segment_sum_impl"]
     if policy == "scatter" or not data.is_floating_point():
         return "scatter"
+    matmul_ok = _use_matmul_path("sum", data, size)
+    if policy == "matmul":
+        return "matmul" if matmul_ok else "scatter"
     guards = data.dtype in _KERNEL_SUM_DTYPES and data.shape[-1] >= 8
     kernel_ok = guards and size <= OPTIONS["pallas_num_groups_max"]
     radixbin_ok = guards and size <= OPTIONS["radixbin_num_groups_max"]
@@ -127,28 +150,97 @@ def _segment_sum_impl(data: torch.Tensor, size: int) -> str:
         return "kernel" if kernel_ok else "scatter"
     if policy == "radixbin":
         return "radixbin" if radixbin_ok else "scatter"
-    heuristic = "kernel" if kernel_ok else "radixbin" if radixbin_ok else "scatter"
+    device_type = device_type or data.device.type
+    heuristic = ("kernel" if kernel_ok else "radixbin" if radixbin_ok
+                 else "matmul" if matmul_ok and device_type == "cuda" else "scatter")
     if OPTIONS["autotune"]:
         from . import autotune
 
-        eligible = _tuned_sum_candidates(data.device.type, kernel_ok, radixbin_ok)
+        eligible = _tuned_sum_candidates(device_type, kernel_ok, radixbin_ok, matmul_ok)
         return autotune.decide("segment_sum", heuristic, eligible,
                                dtype=autotune.dtype_name(data.dtype), ngroups=size,
-                               nelems=data.numel(), platform=data.device.type)
+                               nelems=data.numel(), platform=device_type)
     return heuristic
 
 
-def _tuned_sum_candidates(device_type: str, kernel_ok: bool, radixbin_ok: bool) -> list[str]:
+def _tuned_sum_candidates(device_type: str, kernel_ok: bool, radixbin_ok: bool,
+                          matmul_ok: bool = False) -> list[str]:
     """The ``segment_sum`` family's candidates on ``device_type``: on a CUDA
-    device the hand-written kernels whose guards pass, and ``index_add_``
-    only where none does, so that no decision moves a call off the kernels;
-    on the CPU ``index_add_`` alone (the kernels' plain versions are not the
-    kernels)."""
+    device the hand-written kernels whose guards pass, so that no decision
+    moves a call off the kernels; where none does, and on the CPU,
+    ``index_add_`` and the one-hot GEMM where its guard passes (the kernels'
+    plain versions are not the kernels)."""
     if device_type == "cuda":
         names = [name for name, ok in (("kernel", kernel_ok), ("radixbin", radixbin_ok)) if ok]
         if names:
             return names
-    return ["scatter"]
+    return ["scatter", "matmul"] if matmul_ok else ["scatter"]
+
+
+def _use_matmul_path(op: str, data: torch.Tensor, size: int) -> bool:
+    """The reference's guard of the one-hot GEMM for ``data`` (K, N): float
+    sums over at most ``matmul_num_groups_max`` groups, a kept axis K of at
+    least a quarter of the group count (the one-hot's traffic relative to the
+    data is size/K), a one-hot (N, size) under 2 GiB, and the smallest block's
+    four (min(K, 8), N) masks under 2 GiB. ``data`` may be a meta tensor: only
+    its shape and dtype are read."""
+    if op != "sum" or not data.is_floating_point():
+        return False
+    if size > OPTIONS["matmul_num_groups_max"]:
+        return False
+    n = data.shape[-1]
+    k = math.prod(data.shape[:-1])
+    itemsize = data.element_size()
+    if size > 4 * k or n * size * itemsize > 2**31:
+        return False
+    return 4 * min(k, 8) * n * itemsize < 2**31
+
+
+def _seg_matmul_raw(data: torch.Tensor, codes: torch.Tensor, size: int):
+    """The one-hot GEMM (the reference's ``_seg_matmul_raw``): raw zero-filled
+    sums and NaN/+inf/-inf counts of ``data`` (K, N) by safe ``codes`` (N,),
+    each (K, size) in the accumulation dtype; callers re-apply IEEE rules.
+
+    ``sums[k, g] = sum_n data[k, n] * onehot[n, g]``. The sentinel code
+    ``size`` has an all-zero one-hot row, so missing labels drop out.
+    Non-finite values are zero-filled before the product (``0 * inf`` would
+    poison every other group) and counted by their own product, one GEMM over
+    the three stacked 0/1 masks. K runs in blocks sized by
+    ``matmul_block_bytes`` (four (block, N) masks of the data's itemsize, as
+    in the reference), the ragged tail unpadded.
+
+    Numerics: bfloat16 and float16 are cast to float32 first (a bf16 product
+    cannot count past 256; the cast is exact), the masks' products are exact
+    in any float32 mode, and float64 is a float64 GEMM. float32 sums run as a
+    float64 GEMM rounded once to float32: cuBLAS's float32 GEMM turns to TF32
+    under the process-wide ``set_float32_matmul_precision("high")`` /
+    ``allow_tf32``, which no call can override for itself, and a float64
+    product of float32 operands is exact, so the sums are full float32 (or
+    better) whatever that setting.
+    """
+    k, n = data.shape
+    acc = _acc_dtype(data.dtype)
+    wide = torch.float64 if data.dtype == torch.float32 else acc
+    groups = torch.arange(size, dtype=codes.dtype, device=data.device)
+    onehot = codes[:, None] == groups[None, :]  # (N, size)
+    onehot_acc = onehot.to(acc)
+    onehot_wide = onehot_acc if wide == acc else onehot.to(wide)
+    out = torch.empty((4, k, size), dtype=acc, device=data.device)
+    kb = max(8, OPTIONS["matmul_block_bytes"] // (4 * max(n, 1) * data.element_size()) // 8 * 8)
+    for start in range(0, k, kb):
+        block = data[start:start + kb].to(acc)
+        marks = torch.stack((torch.isnan(block), torch.isposinf(block),
+                             torch.isneginf(block))).to(acc)
+        zeroed = torch.nan_to_num(block, nan=0.0, posinf=0.0, neginf=0.0)
+        out[0, start:start + kb] = torch.matmul(zeroed.to(wide), onehot_wide)
+        out[1:, start:start + kb] = torch.matmul(marks, onehot_acc)
+    return out[0], out[1], out[2], out[3]
+
+
+def _seg_matmul_sum(data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor:
+    """(K, size) segment sums of ``data`` (K, N) on the one-hot GEMM, IEEE
+    rules re-applied (the reference's ``_seg_matmul_sum``)."""
+    return utils.reapply_nonfinite(*_seg_matmul_raw(data, codes, size))
 
 
 #: reductions whose device legs are segment sums of the data (a count is a
@@ -168,7 +260,7 @@ def dense_kernel_cap(func: str, dtype: Any) -> int:
         return 0  # datetimes, strings: reduced as int64 views or on the host
     if func in _SUM_KERNEL_FUNCS and dtype in _KERNEL_SUM_DTYPES:
         caps = {"kernel": OPTIONS["pallas_num_groups_max"],
-                "radixbin": OPTIONS["radixbin_num_groups_max"], "scatter": 0}
+                "radixbin": OPTIONS["radixbin_num_groups_max"], "scatter": 0, "matmul": 0}
         return caps.get(OPTIONS["segment_sum_impl"], max(caps.values()))
     if func in _MINMAX_KERNEL_FUNCS and dtype in _KERNEL_MINMAX_DTYPES:
         if OPTIONS["segment_minmax_impl"] == "scatter":
@@ -203,6 +295,10 @@ def _seg(op: str, data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.T
             return cuda_kernels.segment_sum(data, codes, size).T
         if impl == "radixbin":
             return cuda_kernels.segment_sum_radixbin(data, codes, size).T
+        if impl == "matmul":
+            # the GEMM zero-fills non-finite values and counts them itself, so
+            # NaN-masked and raw data take the same path
+            return _seg_matmul_sum(data, codes, size)
     return _seg_scatter(op, data, codes, size)
 
 
@@ -248,7 +344,12 @@ def _fill_empty(out: torch.Tensor, present: torch.Tensor, fill_value) -> torch.T
     if fill_value is None:
         return out
     out = _promote_for_nan_fill(out, fill_value)
-    fill = torch.as_tensor(fill_value).to(device=out.device, dtype=out.dtype)
+    if out.is_floating_point():
+        # straight to the float dtype: the fill may be an integer identity past
+        # int64 (uint64's max, of a min leg reduced through float64)
+        fill = torch.as_tensor(fill_value, dtype=out.dtype, device=out.device)
+    else:
+        fill = torch.as_tensor(fill_value).to(device=out.device, dtype=out.dtype)
     return torch.where(present, out, fill)
 
 
@@ -401,7 +502,9 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
     re-injected where ``nan_c > 0``. Past the segment-sum kernel's cap, sum
     and count legs come from one radix-binning pass (the reference runs those
     legs one by one there; the sums are the same kernel's and the counts
-    exact below 2^24, so the numbers are the same). Returns ``{name: (K,
+    exact below 2^24, so the numbers are the same). On the one-hot GEMM the
+    sum and count legs come from one :func:`_seg_matmul_raw` pass, and a min
+    or max leg returns None, as in the reference. Returns ``{name: (K,
     size)}``, or None when the policy resolves to scatter or a guard fails
     (callers then run the per-leg reductions).
     """
@@ -425,6 +528,8 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
         sums, nan_c, pos_c, neg_c, mins, maxs = (
             t.T for t in cuda_kernels.segment_multistat(data, codes, size)
         )
+    elif impl == "matmul":
+        sums, nan_c, pos_c, neg_c = _seg_matmul_raw(data, codes, size)
     else:
         raw = (cuda_kernels.segment_sum_raw if impl == "kernel"
                else cuda_kernels.segment_sum_radixbin_raw)
@@ -1484,6 +1589,12 @@ def _u64_key(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int64) ^ _NAT_INT
 
 
+def _where_u64(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` of uint64 tensors, through their int64 views: CUDA has
+    no uint64 ``where``."""
+    return torch.where(cond, a.view(torch.int64), b.view(torch.int64)).view(torch.uint64)
+
+
 def unsigned_route(dtype: torch.dtype, func: str) -> tuple[torch.dtype, bool]:
     """``(work dtype, keyed)`` of unsigned ``dtype`` data under ``func``:
     widened exactly, or (uint64 only) float64 or the int64 key."""
@@ -1517,8 +1628,8 @@ def _unsigned_kernel(fn, func: str, group_idx, array, kwargs):
         present = _counts(_safe_codes(group_idx, kwargs["size"]), kwargs["size"]) > 0
         if utils.is_nan_fill(fill) or isinstance(fill, float):
             out = out.to(torch.float64)
-        out = torch.where(present, out, torch.as_tensor(fill).to(device=out.device,
-                                                                   dtype=out.dtype))
+        fill = torch.as_tensor(fill).to(device=out.device, dtype=out.dtype)
+        out = (_where_u64 if out.dtype == torch.uint64 else torch.where)(present, out, fill)
     return out
 
 

@@ -115,12 +115,19 @@ OPTIONS: dict[str, Any] = {
     # label-universe size from which a call left to the dense engine weighs
     # the sort engine (density heuristic, ``core._route_highcard``)
     "sort_engine_min_groups": 1 << 16,
-    # segment-sum implementation, for f32/bf16 data with N >= 8:
+    # group-count ceiling of the one-hot GEMM segment sum (float data)
+    "matmul_num_groups_max": 384,
+    # segment-sum implementation of float data (the kernels take f32/bf16
+    # data with N >= 8; other data and every other case take ``index_add_``):
     #   "auto"     - the segment-sum kernel up to ``pallas_num_groups_max``
     #                groups, the radix-binning kernel up to
-    #                ``radixbin_num_groups_max``, else ``index_add_``
+    #                ``radixbin_num_groups_max``, then on a CUDA device the
+    #                one-hot GEMM where its guard passes
+    #                (``kernels._use_matmul_path``), else ``index_add_``
     #   "kernel"   - the segment-sum kernel up to its cap, else ``index_add_``
     #   "radixbin" - the radix-binning kernel up to its cap, else ``index_add_``
+    #   "matmul"   - the one-hot GEMM where its guard passes, else
+    #                ``index_add_``, on any device
     #   "scatter"  - ``index_add_``, an explicit request that is honoured
     "segment_sum_impl": "auto",
     # accumulation discipline of the segment-sum kernel:
@@ -134,6 +141,9 @@ OPTIONS: dict[str, Any] = {
     # group-count ceiling of the radix-binning kernel: it splits the group
     # axis into 512-wide blocks, so the bound is output bytes, not memory
     "radixbin_num_groups_max": 1 << 14,
+    # bytes of the one-hot GEMM's four (block, N) masks: its K axis runs in
+    # blocks of this size, so that its temporaries stay bounded
+    "matmul_block_bytes": 2**28,
     # device-byte ceiling of the dense (..., size) intermediates of one call:
     # above it a call left to the dense engine goes to the sort engine, and an
     # explicit dense request raises naming engine="sort"
@@ -304,10 +314,12 @@ def _is_finite_num(x) -> bool:
 _VALIDATORS = {
     "default_engine": lambda x: x in ("torch", "sort", "numpy"),
     "sort_engine_min_groups": lambda x: _is_int(x) and x >= 1,
-    "segment_sum_impl": lambda x: x in (*_IMPLS, "radixbin"),
+    "matmul_num_groups_max": lambda x: isinstance(x, int) and x >= 0,
+    "segment_sum_impl": lambda x: x in (*_IMPLS, "radixbin", "matmul"),
     "pallas_accum": lambda x: x in VALID_ACCUMS,
     "pallas_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
     "radixbin_num_groups_max": lambda x: isinstance(x, int) and x >= 0,
+    "matmul_block_bytes": lambda x: isinstance(x, int) and x >= 2**20,
     "dense_intermediate_bytes_max": lambda x: isinstance(x, int) and x >= 2**20,
     "segment_minmax_impl": lambda x: x in _IMPLS,
     "pallas_minmax_num_groups_max": lambda x: isinstance(x, int) and 0 <= x <= 512,
@@ -378,9 +390,11 @@ def trace_fingerprint() -> tuple:
 
     return (
         OPTIONS["segment_sum_impl"],
+        OPTIONS["matmul_num_groups_max"],
         OPTIONS["pallas_num_groups_max"],
         OPTIONS["radixbin_num_groups_max"],
         OPTIONS["pallas_accum"],
+        OPTIONS["matmul_block_bytes"],
         OPTIONS["segment_minmax_impl"],
         OPTIONS["pallas_minmax_num_groups_max"],
         OPTIONS["scan_impl"],
@@ -484,12 +498,6 @@ class set_options:
         _EXPLICIT_OPTIONS.difference_update(self._newly_explicit)
 
 
-#: reference implementation names with no counterpart in the port, and the
-#: ROADMAP item that will bring one
-_UNPORTED_IMPLS = {
-    "matmul": "none (the one-hot GEMM is not queued; use 'auto' or 'kernel')",
-}
-
 #: the reference's engine names in the port
 _ENGINES = {"jax": "torch", "sort": "sort", "numpy": "numpy"}
 
@@ -499,8 +507,7 @@ def from_reference(opts: dict) -> dict:
 
     Keys the port has are carried over; the reference's ``"pallas"``
     implementation maps to the port's ``"kernel"`` and its ``"jax"`` engine to
-    ``"torch"``. Keys the port lacks are ignored. An implementation the port
-    has not got raises ``NotImplementedError``.
+    ``"torch"``. Keys the port lacks are ignored.
     """
     out: dict[str, Any] = {}
     for key in OPTIONS:
@@ -509,14 +516,8 @@ def from_reference(opts: dict) -> dict:
         value = opts[key]
         if key == "default_engine":
             value = _ENGINES.get(value, value)
-        elif key.endswith("_impl"):
-            if value == "pallas":
-                value = "kernel"
-            elif value in _UNPORTED_IMPLS:
-                raise NotImplementedError(
-                    f"{key}={value!r} has no counterpart in the port yet; "
-                    f"ROADMAP item: {_UNPORTED_IMPLS[value]}"
-                )
+        elif key.endswith("_impl") and value == "pallas":
+            value = "kernel"
         if not _VALIDATORS[key](value):
             raise ValueError(f"option {key!r}: the port cannot take {value!r}")
         out[key] = value

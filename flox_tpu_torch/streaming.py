@@ -316,11 +316,10 @@ def _streaming_groupby_reduce_impl(array, by, *, func, batch_len, batch_bytes, e
             # key of 0): the agg as it would be for int64 data
             agg.fill_value = _initialize_aggregation(
                 func, None, torch.int64, None, min_count_, finalize_kwargs).fill_value
-        elif probe.dtype == np.dtype("u8") and fused_funcs is not None and any(
-                a.preserves_dtype for a in agg.aggs):
-            raise NotImplementedError(
-                "fused streaming of uint64 extrema is not supported (a float64 leg cannot "
-                "hold them exactly); stream them one func at a time")
+        # a fused uint64 set reduces through float64 (``unsigned_route`` of
+        # "fused"): its min/max legs round as the single-func calls do, and
+        # rounding is monotone, so the extrema of rounded values are the
+        # rounded extrema
 
     stream_orderstat = False
     if agg.blockwise_only:

@@ -104,7 +104,7 @@ class TestStore:
         kw = _seed_segment_sum()
         with flox_tpu_torch.set_options(autotune=True):
             assert autotune.decide("segment_sum", "scatter", ["scatter"], **kw) == "scatter"
-            # a candidate the port lacks never wins
+            # a candidate the call does not offer never wins
             autotune.record("segment_sum", "matmul", 999.0, **kw)
             assert autotune.decide("segment_sum", "scatter", ["scatter", "kernel"],
                                    **kw) == "kernel"
@@ -335,7 +335,9 @@ class TestPersistence:
         with flox_tpu_torch.set_options(autotune=True):
             assert autotune.decide("segment_sum", "scatter", ("scatter", "kernel"),
                                    **kw) == "kernel"
-            # matmul has no counterpart: never eligible
+            # matmul is eligible where the call offers the GEMM, and only there
+            assert autotune.decide("segment_sum", "scatter", ("scatter", "matmul"),
+                                   **kw) == "matmul"
             assert autotune.decide("segment_sum", "scatter", ("scatter",), **kw) == "scatter"
             assert autotune.decide("engine", "numpy", ("numpy", "torch"), dtype="float64",
                                    nelems=512, platform="cpu") == "torch"
@@ -593,10 +595,11 @@ class TestDispatchWiring:
             assert s1 >= 1
             flox_tpu_torch.groupby_reduce(vals, codes, func="nanmean", device=CPU)
             assert autotune.decision_record()["sweeps"] == s1
-        # on the CPU only index_add_ is a segment-sum candidate
+        # on the CPU the segment-sum candidates are index_add_ and the one-hot
+        # GEMM (5 groups over 4 rows pass its guard)
         key = autotune.make_key("segment_sum", dtype="float32", ngroups=5,
                                 nelems=vals.numel(), platform="cpu")
-        assert set(autotune._AUTOTUNE_CACHE[key]["candidates"]) == {"scatter"}
+        assert set(autotune._AUTOTUNE_CACHE[key]["candidates"]) == {"scatter", "matmul"}
 
     def test_quantile_sweep_times_sort_and_select(self):
         vals, codes = torch.from_numpy(_vals((4, 3000))), np.repeat(np.arange(5), 600)
@@ -755,24 +758,30 @@ class TestDispatchWiring:
             np.testing.assert_allclose(seq[f].numpy(), fused[f].numpy(), rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(sgroups, groups)
 
-    @pytest.mark.parametrize("device_type, kernel_ok, radixbin_ok, want", [
-        ("cuda", True, True, ["kernel", "radixbin"]),
-        ("cuda", False, True, ["radixbin"]),
-        ("cuda", False, False, ["scatter"]),
-        ("cpu", True, True, ["scatter"]),
+    @pytest.mark.parametrize("device_type, kernel_ok, radixbin_ok, matmul_ok, want", [
+        ("cuda", True, True, False, ["kernel", "radixbin"]),
+        ("cuda", False, True, False, ["radixbin"]),
+        ("cuda", False, False, False, ["scatter"]),
+        ("cpu", True, True, False, ["scatter"]),
+        ("cuda", True, True, True, ["kernel", "radixbin"]),
+        ("cuda", False, True, True, ["radixbin"]),
+        ("cuda", False, False, True, ["scatter", "matmul"]),
+        ("cpu", True, True, True, ["scatter", "matmul"]),
     ])
     def test_segment_sum_candidates_never_leave_the_kernels_on_cuda(
-            self, device_type, kernel_ok, radixbin_ok, want):
-        assert kernels._tuned_sum_candidates(device_type, kernel_ok, radixbin_ok) == want
+            self, device_type, kernel_ok, radixbin_ok, matmul_ok, want):
+        assert kernels._tuned_sum_candidates(device_type, kernel_ok, radixbin_ok,
+                                             matmul_ok) == want
         key = dict(dtype="float32", ngroups=12, nelems=1 << 20, platform=device_type)
         autotune.record("segment_sum", "scatter", 99.0, **key)
+        autotune.record("segment_sum", "matmul", 50.0, **key)
         autotune.record("segment_sum", "radixbin", 5.0, **key)
         autotune.record("segment_sum", "kernel", 1.0, **key)
         fallback = "kernel" if kernel_ok else "radixbin" if radixbin_ok else "scatter"
         with flox_tpu_torch.set_options(autotune=True):
             got = autotune.decide("segment_sum", fallback, want, **key)
-        # the store's fastest eligible candidate: never index_add_ where a
-        # kernel's guards pass on the card
+        # the store's fastest eligible candidate: never index_add_ or the GEMM
+        # where a kernel's guards pass on the card
         assert got == ("radixbin" if "radixbin" in want else want[0])
 
     @pytest.mark.parametrize("heuristic, func, size, device_type, want", [
@@ -946,8 +955,8 @@ class TestOptions:
             assert flox_tpu_torch.OPTIONS["autotune"] is True
         # the reference's keys the port keeps no counterpart of
         assert set(ref_options.OPTIONS) - set(flox_tpu_torch.OPTIONS) == {
-            "matmul_block_bytes", "matmul_num_groups_max", "numpy_engine_max_elems",
-            "rechunk_blockwise_chunk_size_threshold", "rechunk_blockwise_num_chunks_threshold"}
+            "numpy_engine_max_elems", "rechunk_blockwise_chunk_size_threshold",
+            "rechunk_blockwise_num_chunks_threshold"}
 
     def test_report_cli_module(self, tmp_path):
         path = str(tmp_path / "store.json")

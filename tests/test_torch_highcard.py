@@ -400,16 +400,25 @@ def test_dense_radixbin_path(func):
         ({"segment_sum_impl": "radixbin", "radixbin_num_groups_max": 1024}, 2048, "scatter"),
         ({"segment_sum_impl": "scatter"}, 1096, "scatter"),
         ({"pallas_num_groups_max": 8}, 12, "radixbin"),
+        # the reference's own one-hot GEMM guard decides (K = 2 rows: at most
+        # 4 * K = 8 groups)
+        ({"segment_sum_impl": "matmul"}, 8, "matmul"),
+        ({"segment_sum_impl": "matmul"}, 12, "scatter"),
+        ({"segment_sum_impl": "matmul", "matmul_num_groups_max": 4}, 8, "scatter"),
+        ({"pallas_num_groups_max": 0, "radixbin_num_groups_max": 0}, 8, "matmul"),
+        ({"pallas_num_groups_max": 0, "radixbin_num_groups_max": 0}, 12, "scatter"),
+        ({"pallas_num_groups_max": 0, "radixbin_num_groups_max": 0,
+          "matmul_num_groups_max": 4}, 8, "scatter"),
     ],
 )
 def test_segment_sum_routing(monkeypatch, opts, size, impl):
-    """``_segment_sum_impl`` against the reference's TPU dispatch (the
-    reference's "pallas" is the port's "kernel"), and ``_seg`` reaching the
-    wrapper it names."""
+    """``_segment_sum_impl`` on a CUDA device against the reference's TPU
+    dispatch (the reference's "pallas" is the port's "kernel"), the same call
+    on the CPU (where "auto" never takes the GEMM), and ``_seg`` reaching the
+    wrapper the CPU decision names."""
     monkeypatch.setattr(ref_kernels, "_on_tpu", lambda: True)
     monkeypatch.setattr(ref_kernels, "_pallas_runtime_ok", lambda: True)
     monkeypatch.setattr(ref_kernels, "_pallas_radixbin_runtime_ok", lambda: True)
-    monkeypatch.setattr(ref_kernels, "_use_matmul_path", lambda *a, **k: False)
     ref_opts = {**opts}
     if ref_opts.get("segment_sum_impl") == "kernel":
         ref_opts["segment_sum_impl"] = "pallas"
@@ -423,17 +432,21 @@ def test_segment_sum_routing(monkeypatch, opts, size, impl):
         want = ref_kernels._segment_sum_impl(_Probe(), size)
     assert {"pallas": "kernel"}.get(want, want) == impl
     calls = []
-    for name in ("segment_sum", "segment_sum_radixbin"):
-        real = getattr(ck, name)
-        monkeypatch.setattr(ck, name, lambda *a, _r=real, _n=name, **k: (calls.append(_n),
-                                                                          _r(*a, **k))[1])
+    for mod, name in ((ck, "segment_sum"), (ck, "segment_sum_radixbin"),
+                      (pk, "_seg_matmul_sum")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (calls.append(_n),
+                                                                           _r(*a, **k))[1])
     data = torch.ones(2, 64)
     codes = torch.zeros(64, dtype=torch.int32)
+    auto_gemm = impl == "matmul" and opts.get("segment_sum_impl", "auto") == "auto"
+    on_cpu = "scatter" if auto_gemm else impl
     with flox_tpu_torch.set_options(**opts):
-        assert pk._segment_sum_impl(data, size) == impl
+        assert pk._segment_sum_impl(data, size, device_type="cuda") == impl
+        assert pk._segment_sum_impl(data, size) == on_cpu
         out = pk._seg("sum", data, codes, size)
     assert calls == {"kernel": ["segment_sum"], "radixbin": ["segment_sum_radixbin"],
-                     "scatter": []}[impl]
+                     "matmul": ["_seg_matmul_sum"], "scatter": []}[on_cpu]
     assert out[:, 0].tolist() == [64.0, 64.0] and tuple(out.shape) == (2, size)
 
 

@@ -225,6 +225,57 @@ def test_aggregate_many_equals_reference(funcs):
             assert _bits(got[f]) == _bits(one), f     # serves mean: same bits anyway)
 
 
+def _u64_data():
+    """uint64 data past 2**53: multiples of 512 below 2**20, and in each row
+    and group one value 2**60 + an odd offset, which float64 rounds (to a
+    multiple of 256). Every group sum then holds exactly in float64 in any
+    order, and the group max is a rounded value."""
+    rng = np.random.default_rng(16)
+    n, size = 200, 5
+    codes = np.arange(n) % size
+    x = (rng.integers(0, 2048, (3, n)) * 512).astype(np.uint64)
+    for r in range(3):
+        for g in range(size):
+            col = g + size * int(rng.integers(0, n // size))
+            x[r, col] = np.uint64(2**60) + np.uint64(2 * int(rng.integers(0, 2**20)) + 1)
+    return x, codes
+
+
+@pytest.mark.parametrize("funcs", [("sum", "max"), ("sum", "max", "mean")], ids=str)
+def test_fused_uint64_stream_matches_reference(funcs):
+    """A fused uint64 stream with a dtype-preserving leg reduces through
+    float64, as the reference's does: the same values and dtypes."""
+    x, codes = _u64_data()
+    ref, _ = rst.streaming_groupby_aggregate_many(x, codes, funcs=funcs, engine="jax",
+                                                  batch_len=64)
+    got, _ = pst.streaming_groupby_aggregate_many(x, codes, funcs=funcs, batch_len=64,
+                                                  device="cpu")
+    assert list(got) == list(funcs)
+    for f in funcs:
+        _check(got[f], np.asarray(ref[f]), close=False)
+    assert got["max"].dtype == torch.uint64
+    assert (got["max"].numpy() > np.uint64(2**60)).all()  # the big values won
+
+
+@pytest.mark.parametrize("funcs", [("sum", "max"), ("sum", "max", "mean"),
+                                   ("sum", "max", "min"), ("min", "nanmax", "count")], ids=str)
+def test_fused_uint64_stream_equals_single_func_streams(funcs):
+    """Each leg of the fused uint64 stream, a min leg included, is bit for
+    bit the port's single-func stream (the reference raises OverflowError
+    filling a fused min: ROADMAP Queue C, "Reference side")."""
+    x, codes = _u64_data()
+    got, _ = pst.streaming_groupby_aggregate_many(x, codes, funcs=funcs, batch_len=64,
+                                                  device="cpu")
+    for f in funcs:
+        one, _ = _port(x, codes, func=f, batch_len=64)
+        assert got[f].dtype == one.dtype, f
+        assert _bits(got[f]) == _bits(one), f
+    if "min" in funcs:
+        with pytest.raises(OverflowError):
+            rst.streaming_groupby_aggregate_many(x, codes, funcs=funcs, engine="jax",
+                                                 batch_len=64)
+
+
 class TestStreamingPipeline:
     """Prefetch changes when slabs are staged, never what lands on the
     device: every depth gives the same bits."""
