@@ -35,7 +35,8 @@ to its device, and the result comes back replicated on every rank. Without
 Telemetry (:mod:`.telemetry`, off by default) sees the reference's spans:
 ``groupby_reduce`` over ``factorize``, ``dispatch``, ``combine`` and
 ``finalize`` (on a mesh, ``combine`` over the mesh program's
-``program-build``); the kernels of a dispatch are billed to the cost ledger
+``program-build`` and ``program``), and the port's own steps below them
+(:mod:`.telemetry`); the kernels of a dispatch are billed to the cost ledger
 under ``bundle[<funcs>]`` (``sort[<funcs>]`` on the sort engine) with their
 device time and cost card.
 """
@@ -762,8 +763,8 @@ def _mesh_reduce(arr_flat, codes_flat, agg: Aggregation, *, size: int, method, e
         else:
             present = None
     # "combine" is the whole mesh program: the shard-local stage, the
-    # collective combine and the finalize (its program-build span is in
-    # parallel/mapreduce.py)
+    # collective combine and the finalize (its program-build and program
+    # spans are in parallel/mapreduce.py)
     with telemetry.span("combine", method=method, size=size_run):
         result = sharded_groupby_reduce(arr_flat, codes_run, agg, size=size_run, mesh=mesh,
                                         axis_name=axis_name, method=method,
@@ -786,8 +787,10 @@ def _dtensor_reduce(array, bys, *, func, expected_groups, sort, isbin, axis, fil
     _assert_by_is_aligned(tuple(array.shape), bys)
     expected_idx = _convert_expected(_normalize_expected(expected_groups, 1),
                                      _normalize_isbin(isbin, 1), sort)
-    codes, found_groups, grp_shape, _ngroups, size, _props = fct.factorize_cached(
-        tuple(bys), axes=(0,), expected_groups=expected_idx, sort=sort)
+    with telemetry.span("factorize", nby=1) as fsp:
+        codes, found_groups, grp_shape, ngroups, size, _props = fct.factorize_cached(
+            tuple(bys), axes=(0,), expected_groups=expected_idx, sort=sort)
+        fsp.set(ngroups=ngroups, size=size)
     if size == 0:
         raise ValueError("No groups to reduce over (empty expected_groups?)")
     func_name = func if isinstance(func, str) else func.name

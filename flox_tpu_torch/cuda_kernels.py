@@ -45,7 +45,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, telemetry
 from .costmodel import note_launch
 from .options import OPTIONS, VALID_ACCUMS
 
@@ -92,13 +92,25 @@ _STAGE_COLS = 32
 _BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 2, torch.int32: 3}
 
 
+def _call_bytes(data: torch.Tensor, out_bytes: int) -> int:
+    """The bytes one call must move: the (K, N) data and the (N,) int32 codes
+    read once, ``out_bytes`` written."""
+    return data.numel() * data.element_size() + data.shape[-1] * 4 + out_bytes
+
+
 def _declare(name: str, data: torch.Tensor, out_bytes: int, ops_per_elem: int) -> None:
-    """Declare one call's work to the cost cards: the (K, N) data and the
-    (N,) int32 codes read once, ``out_bytes`` written, ``ops_per_elem``
-    operations an element. A call with nothing to read launches nothing."""
+    """Declare one call's work to the cost cards: :func:`_call_bytes` and
+    ``ops_per_elem`` operations an element. A call with nothing to read
+    launches nothing."""
     if data.numel():
-        note_launch(name, data.numel() * data.element_size() + data.shape[-1] * 4 + out_bytes,
-                    ops_per_elem * data.numel())
+        note_launch(name, _call_bytes(data, out_bytes), ops_per_elem * data.numel())
+
+
+def _launch_span(name: str, data: torch.Tensor, outs):
+    """The ``launch`` span around one kernel's ctypes call: the kernel's name
+    and the bytes it must move, as :func:`_declare` reckons them."""
+    nbytes = _call_bytes(data, sum(o.nbytes for o in outs)) if telemetry.enabled() else 0
+    return telemetry.span("launch", kernel=name, nbytes=nbytes)
 
 
 def reset_launches() -> None:
@@ -203,7 +215,9 @@ def segment_sum(data, codes, size: int, accum: str | None = None, *, skipna: boo
     (parity: ``segment_sum_pallas``): a (size, K) float32 tensor."""
     from .utils import reapply_nonfinite
 
-    return reapply_nonfinite(*segment_sum_raw(data, codes, size, accum), skipna=skipna)
+    raw = segment_sum_raw(data, codes, size, accum)
+    with telemetry.span("legs"):
+        return reapply_nonfinite(*raw, skipna=skipna)
 
 
 def _groups_per_block(size: int, k: int, n: int, slots: int) -> int:
@@ -256,11 +270,12 @@ def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
     perm, sorted_codes, offsets = _radixbin_bins(codes, size)
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
     groups = _groups_per_block(size, k, n, sms * _BLOCKS_PER_SM[data.dtype])
-    err = getattr(lib, f"flox_{name}")(
-        data.data_ptr(), _MINMAX_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
-        offsets.data_ptr(), k, n, size, groups, code,
-        *(o.data_ptr() for o in outs), _stream(data.device),
-    )
+    with _launch_span(name, data, outs):
+        err = getattr(lib, f"flox_{name}")(
+            data.data_ptr(), _MINMAX_DTYPES[data.dtype], perm.data_ptr(),
+            sorted_codes.data_ptr(), offsets.data_ptr(), k, n, size, groups, code,
+            *(o.data_ptr() for o in outs), _stream(data.device),
+        )
     _build.check(lib, err, f"{name} launch")
     _count_launch(name)
     return tuple(outs)
@@ -322,7 +337,9 @@ def segment_sum_radixbin(data, codes, size: int, accum: str | None = None, *,
     tensor."""
     from .utils import reapply_nonfinite
 
-    return reapply_nonfinite(*segment_sum_radixbin_raw(data, codes, size, accum), skipna=skipna)
+    raw = segment_sum_radixbin_raw(data, codes, size, accum)
+    with telemetry.span("legs"):
+        return reapply_nonfinite(*raw, skipna=skipna)
 
 
 def _radixbin_bins(codes: torch.Tensor, size: int):
@@ -338,11 +355,12 @@ def _radixbin_bins(codes: torch.Tensor, size: int):
     over the N codes only, with no host sync; for sorted codes ``perm`` is the
     identity.
     """
-    key = torch.where((codes >= 0) & (codes < size), codes, size).to(torch.int32)
-    sorted_codes, perm = torch.sort(key, stable=True)
-    starts = torch.arange(size + 1, dtype=torch.int32, device=codes.device)
-    offsets = torch.searchsorted(sorted_codes, starts, out_int32=True)
-    return perm.to(torch.int32), sorted_codes, offsets
+    with telemetry.span("bins", n=codes.shape[-1], size=size):
+        key = torch.where((codes >= 0) & (codes < size), codes, size).to(torch.int32)
+        sorted_codes, perm = torch.sort(key, stable=True)
+        starts = torch.arange(size + 1, dtype=torch.int32, device=codes.device)
+        offsets = torch.searchsorted(sorted_codes, starts, out_int32=True)
+        return perm.to(torch.int32), sorted_codes, offsets
 
 
 def _segment_sum_radixbin_cuda(data, codes, size: int, accum: str):
@@ -354,11 +372,12 @@ def _segment_sum_radixbin_cuda(data, codes, size: int, accum: str):
         return tuple(outs)
     data = data.contiguous()  # one copy for a non-contiguous input, as above
     perm, sorted_codes, offsets = _radixbin_bins(codes, size)
-    err = lib.flox_segment_radixbin(
-        data.data_ptr(), _SUM_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
-        offsets.data_ptr(), k, n, size, _ACCUM_CODES[accum], *(o.data_ptr() for o in outs),
-        _stream(data.device),
-    )
+    with _launch_span("segment_sum_radixbin", data, outs):
+        err = lib.flox_segment_radixbin(
+            data.data_ptr(), _SUM_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
+            offsets.data_ptr(), k, n, size, _ACCUM_CODES[accum], *(o.data_ptr() for o in outs),
+            _stream(data.device),
+        )
     _build.check(lib, err, "segment_sum_radixbin launch")
     _count_launch("segment_sum_radixbin")
     return tuple(outs)
@@ -489,10 +508,11 @@ def _segment_cumsum_cuda(data, codes, size: int, skipna: bool):
     lib = _lib("segment_cumsum", [_P, _I, _P, _LL, _LL, _I, _I, _P, _P, _P])
     codes = _codes_int32(codes, size)
     state = _cumsum_state(size, k, data.device)
-    err = lib.flox_segment_cumsum(
-        data.data_ptr(), _SUM_DTYPES[data.dtype], codes.data_ptr(), k, n, size, int(skipna),
-        state.data_ptr(), out.data_ptr(), _stream(data.device),
-    )
+    with _launch_span("segment_cumsum", data, [out]):
+        err = lib.flox_segment_cumsum(
+            data.data_ptr(), _SUM_DTYPES[data.dtype], codes.data_ptr(), k, n, size, int(skipna),
+            state.data_ptr(), out.data_ptr(), _stream(data.device),
+        )
     _build.check(lib, err, "segment_cumsum launch")
     _count_launch("segment_cumsum")
     return out

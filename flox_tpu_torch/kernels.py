@@ -53,7 +53,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import cuda_kernels, utils
+from . import cuda_kernels, telemetry, utils
 from .cuda_kernels import minmax_identity
 from .multiarray import MultiArray, PresentGroups
 from .options import OPTIONS
@@ -240,7 +240,9 @@ def _seg_matmul_raw(data: torch.Tensor, codes: torch.Tensor, size: int):
 def _seg_matmul_sum(data: torch.Tensor, codes: torch.Tensor, size: int) -> torch.Tensor:
     """(K, size) segment sums of ``data`` (K, N) on the one-hot GEMM, IEEE
     rules re-applied (the reference's ``_seg_matmul_sum``)."""
-    return utils.reapply_nonfinite(*_seg_matmul_raw(data, codes, size))
+    raw = _seg_matmul_raw(data, codes, size)
+    with telemetry.span("legs"):
+        return utils.reapply_nonfinite(*raw)
 
 
 #: reductions whose device legs are segment sums of the data (a count is a
@@ -404,14 +406,15 @@ def _make_addlike(op: str, identity, skipna: bool):
             data = torch.where(mask, data, identity)
         data = _maybe_cast(data, dtype)
         out = _seg(op, data, codes, size)  # f32-accumulated for bf16/f16
-        if fill_value is not None and fill_value != identity:
-            # numpy semantics: nansum of an all-NaN group is the identity (0),
-            # so "empty" means zero elements in all, not zero non-NaN ones
-            out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
-        if data.is_floating_point() and out.dtype != data.dtype and not kw.get("keep_acc"):
-            # result dtype contract: that of the (request-resolved) input
-            out = out.to(data.dtype)
-        return _unflat(out, lead)
+        with telemetry.span("legs"):
+            if fill_value is not None and fill_value != identity:
+                # numpy semantics: nansum of an all-NaN group is the identity (0),
+                # so "empty" means zero elements in all, not zero non-NaN ones
+                out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
+            if data.is_floating_point() and out.dtype != data.dtype and not kw.get("keep_acc"):
+                # result dtype contract: that of the (request-resolved) input
+                out = out.to(data.dtype)
+            return _unflat(out, lead)
 
     return kernel
 
@@ -439,17 +442,19 @@ def _make_minmax(op: str, skipna: bool):
             has_nan = _seg("max", (~mask).to(torch.int8), codes, size) > 0
             data = torch.where(mask, data, minmax_identity(other, data.dtype))
             out = _seg(op, data, codes, size)
-            out = torch.where(has_nan, float("nan") if out.is_floating_point() else _NAT_INT,
-                              out)
-            out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
-            return _unflat(out, lead)
+            with telemetry.span("legs"):
+                out = torch.where(has_nan, float("nan") if out.is_floating_point() else _NAT_INT,
+                                  out)
+                out = _fill_empty(out, _counts(codes, size) > 0, fill_value)
+                return _unflat(out, lead)
         out = _seg(op, data, codes, size)
-        if fill_value is not None and fill_value != minmax_identity(op, data.dtype):
-            # empty groups hold the identity already: only another fill needs
-            # the (masked) counts
-            present = _counts(codes, size, mask=mask if skipna else None) > 0
-            out = _fill_empty(out, present, fill_value)
-        return _unflat(out, lead)
+        with telemetry.span("legs"):
+            if fill_value is not None and fill_value != minmax_identity(op, data.dtype):
+                # empty groups hold the identity already: only another fill needs
+                # the (masked) counts
+                present = _counts(codes, size, mask=mask if skipna else None) > 0
+                out = _fill_empty(out, present, fill_value)
+            return _unflat(out, lead)
 
     return kernel
 
@@ -534,25 +539,26 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
         raw = (cuda_kernels.segment_sum_raw if impl == "kernel"
                else cuda_kernels.segment_sum_radixbin_raw)
         sums, nan_c, pos_c, neg_c = (t.T for t in raw(data, codes, size))
-    out: dict[str, torch.Tensor] = {}
-    if "sum" in want:
-        out["sum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=False)
-    if "nansum" in want:
-        out["nansum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=True)
-    if "len" in want or "nanlen" in want:
-        rowcount = _counts(codes, size).expand_as(sums)  # codes only
-        if "len" in want:
-            out["len"] = rowcount
-        if "nanlen" in want:
-            out["nanlen"] = rowcount.to(sums.dtype) - nan_c
-    if minmaxish:
-        has_nan = nan_c > 0
-        for name, ext in (("min", mins), ("max", maxs)):
-            if "nan" + name in want:
-                out["nan" + name] = ext
-            if name in want:
-                out[name] = torch.where(has_nan, float("nan"), ext)
-    return out
+    with telemetry.span("legs"):
+        out: dict[str, torch.Tensor] = {}
+        if "sum" in want:
+            out["sum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=False)
+        if "nansum" in want:
+            out["nansum"] = utils.reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=True)
+        if "len" in want or "nanlen" in want:
+            rowcount = _counts(codes, size).expand_as(sums)  # codes only
+            if "len" in want:
+                out["len"] = rowcount
+            if "nanlen" in want:
+                out["nanlen"] = rowcount.to(sums.dtype) - nan_c
+        if minmaxish:
+            has_nan = nan_c > 0
+            for name, ext in (("min", mins), ("max", maxs)):
+                if "nan" + name in want:
+                    out["nan" + name] = ext
+                if name in want:
+                    out[name] = torch.where(has_nan, float("nan"), ext)
+        return out
 
 
 def fused_segment_stats(group_idx, array, *, size: int, want: tuple):
@@ -604,11 +610,12 @@ def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
         present = cnt_i > 0
         cnt = cnt_i.to(total.dtype)
         orig_dtype = sdata.dtype
-    out = total / cnt
-    out = _fill_empty(out, present, fill_value if fill_value is not None else float("nan"))
-    if out.dtype != orig_dtype and orig_dtype.is_floating_point:
-        out = out.to(orig_dtype)  # divide in f32, present as bf16
-    return _unflat(out, lead)
+    with telemetry.span("legs"):
+        out = total / cnt
+        out = _fill_empty(out, present, fill_value if fill_value is not None else float("nan"))
+        if out.dtype != orig_dtype and orig_dtype.is_floating_point:
+            out = out.to(orig_dtype)  # divide in f32, present as bf16
+        return _unflat(out, lead)
 
 
 def mean(group_idx, array, *, axis=-1, size, fill_value=None, dtype=None, **kw):
@@ -659,15 +666,16 @@ def _var_impl(group_idx, array, *, size, fill_value, dtype, ddof, skipna, std):
     zdata, m2, _total, cnt_f, cnt_b, lead = _var_stats(
         group_idx, array, size=size, dtype=dtype, skipna=skipna
     )
-    denom = cnt_f - ddof
-    out = m2 / torch.where(denom > 0, denom, 1)
-    out = torch.where(denom > 0, out, float("nan"))
-    if std:
-        out = torch.sqrt(out)
-    out = _fill_empty(out, cnt_b > 0, fill_value if fill_value is not None else float("nan"))
-    if out.dtype != zdata.dtype and zdata.is_floating_point():
-        out = out.to(zdata.dtype)
-    return _unflat(out, lead)
+    with telemetry.span("legs"):
+        denom = cnt_f - ddof
+        out = m2 / torch.where(denom > 0, denom, 1)
+        out = torch.where(denom > 0, out, float("nan"))
+        if std:
+            out = torch.sqrt(out)
+        out = _fill_empty(out, cnt_b > 0, fill_value if fill_value is not None else float("nan"))
+        if out.dtype != zdata.dtype and zdata.is_floating_point():
+            out = out.to(zdata.dtype)
+        return _unflat(out, lead)
 
 
 def _var_entry(skipna: bool, std: bool):

@@ -28,7 +28,8 @@ plain tensor on its device. Every decision that fixes which collectives run
 is taken from quantities all ranks hold alike: the global codes, ``size`` and
 the global shape. The reference's program cache has no counterpart: nothing
 here is traced or compiled, so every call builds its program (the
-``program-build`` span) and runs it; the run is billed to the cost ledger
+``program-build`` span) and runs it (the ``program`` span, over the
+collectives' ``collective`` spans); the run is billed to the cost ledger
 under ``mesh[<agg>/<method>]`` with the rank's device time and cost card.
 """
 
@@ -133,9 +134,10 @@ def _local_stage(agg: Aggregation, codes_sh, arr_sh, size: int, nat: bool,
         if set(want) <= _SUM_COUNT_LEGS and {"sum", "nansum"} & set(want):
             got = fused_segment_stats(codes_sh, arr_sh, size=size, want=want)
             if got is not None:
-                legs = [got[n].to(torch.int32) if n in ("len", "nanlen") else got[n]
-                        for n in names]
-                return legs, got[counts_name].to(torch.int32)
+                with telemetry.span("legs"):
+                    legs = [got[n].to(torch.int32) if n in ("len", "nanlen") else got[n]
+                            for n in names]
+                    return legs, got[counts_name].to(torch.int32)
     legs = _local_chunk(agg, codes_sh, arr_sh, size, nat)
     if len(names) == 1 and isinstance(names[0], tuple) and names[0][0] == "var_chunk" and (
             dict(names[0][1]).get("skipna", True) == count_skipna):
@@ -258,16 +260,19 @@ def _apply_final_fill(result, counts, agg: Aggregation):
 
 
 def _finalize_combined(agg: Aggregation, combined: list, counts):
-    if isinstance(agg, FusedAggregation):
-        # every statistic reads its own presence leg
-        return agg.finalize_fused(combined)
-    if agg.reduction_type == "argreduce":
-        result = combined[1]
-    elif agg.finalize is not None:
-        result = agg.finalize(*combined, **agg.finalize_kwargs)
-    else:
-        result = combined[0]
-    return _apply_final_fill(result, counts, agg)
+    """The combined intermediates finalized: the elementwise passes after
+    the collectives (a ``legs`` span)."""
+    with telemetry.span("legs"):
+        if isinstance(agg, FusedAggregation):
+            # every statistic reads its own presence leg
+            return agg.finalize_fused(combined)
+        if agg.reduction_type == "argreduce":
+            result = combined[1]
+        elif agg.finalize is not None:
+            result = agg.finalize(*combined, **agg.finalize_kwargs)
+        else:
+            result = combined[0]
+        return _apply_final_fill(result, counts, agg)
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +396,7 @@ def sharded_groupby_reduce(
     with telemetry.span("program-build", agg=agg.name, method=method, ndev=ndev, size=size):
         program = _build_program(agg, size=size, size_pad=size_pad, method=method, comm=comm,
                                  offset=lo, nat=nat, cohort_perm=cohort_perm, blocked=blocked)
+    with telemetry.span("program"):
         with telemetry.device_timer(dev) as timer, costmodel.capture() as cap:
             result = program(arr_sh, codes_sh)
     if telemetry.enabled():

@@ -32,6 +32,8 @@ from typing import Any, Sequence
 
 import torch
 
+from .. import telemetry
+
 __all__ = [
     "Collectives",
     "LocalMesh",
@@ -208,6 +210,17 @@ class Collectives:
 
     # -- the wire ------------------------------------------------------------
 
+    def _span(self, op: str, x: torch.Tensor, wire: torch.dtype, nbytes: int):
+        """The ``collective`` span of one collective, around its wire copy and
+        its calls: the op, the dtypes, ``nbytes`` (the largest buffer of each
+        call, summed over the calls: the bytes an all-reduce reduces, an
+        all-gather's output, a reduce-scatter's input) and the ranks. It adds
+        to the ``mesh.collectives`` and ``mesh.collective_bytes`` counters."""
+        telemetry.count("mesh.collectives")
+        telemetry.count("mesh.collective_bytes", nbytes)
+        return telemetry.span("collective", op=op, dtype=_dtype_name(x.dtype),
+                              wire_dtype=_dtype_name(wire), nbytes=nbytes, ranks=self.size)
+
     def _reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         import torch.distributed as dist
 
@@ -220,10 +233,12 @@ class Collectives:
         # bools and int16 have no reduction on the wire of NCCL or gloo
         wire = torch.uint8 if x.dtype == torch.bool else (
             torch.int32 if x.dtype == torch.int16 else x.dtype)
-        buf = x.to(wire, copy=True).contiguous()
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
-        for g in self._groups:
-            dist.all_reduce(buf, op=rop, group=g)
+        nbytes = x.numel() * wire.itemsize * len(self._groups)
+        with self._span("p" + op, x, wire, nbytes):
+            buf = x.to(wire, copy=True).contiguous()
+            for g in self._groups:
+                dist.all_reduce(buf, op=rop, group=g)
         return buf > 0 if x.dtype == torch.bool else buf.to(x.dtype)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -247,14 +262,20 @@ class Collectives:
             return x.unsqueeze(0)
         if x.is_complex():
             return torch.view_as_complex(self.all_gather(torch.view_as_real(x)))
-        buf = (x.to(torch.uint8) if x.dtype == torch.bool else x).reshape(-1).contiguous()
-        # minor dim first: each pass puts one more dim in front, so the
-        # result is (n_major, ..., n_minor, *x.shape), flattened major first
-        for g, n in zip(reversed(self._groups), reversed(self._sizes)):
-            out = torch.empty(n * buf.numel(), dtype=buf.dtype, device=buf.device)
-            # the same call under its newer name where torch has it
-            getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, buf, group=g)
-            buf = out
+        wire = torch.uint8 if x.dtype == torch.bool else x.dtype
+        nbytes, part = 0, x.numel() * wire.itemsize
+        for n in reversed(self._sizes):
+            part *= n
+            nbytes += part
+        with self._span("all_gather", x, wire, nbytes):
+            buf = x.to(wire).reshape(-1).contiguous()
+            # minor dim first: each pass puts one more dim in front, so the
+            # result is (n_major, ..., n_minor, *x.shape), flattened major first
+            for g, n in zip(reversed(self._groups), reversed(self._sizes)):
+                out = torch.empty(n * buf.numel(), dtype=buf.dtype, device=buf.device)
+                # the same call under its newer name where torch has it
+                getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, buf, group=g)
+                buf = out
         out = buf.reshape((self.size,) + tuple(x.shape))
         return out.to(torch.bool) if x.dtype == torch.bool else out
 
@@ -271,14 +292,24 @@ class Collectives:
         if x.is_complex() or x.dtype in (torch.bool, torch.int16):
             t = x.shape[0] // self.size
             return self.psum(x)[self.index * t: (self.index + 1) * t]
-        buf = x.contiguous()
-        # major dim first: each pass keeps this rank's chunk of the dim it sums
-        for g, n in zip(self._groups, self._sizes):
-            out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]), dtype=buf.dtype,
-                              device=buf.device)
-            getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(out, buf, group=g)
-            buf = out
+        nbytes, part = 0, x.numel() * x.element_size()
+        for n in self._sizes:
+            nbytes += part
+            part //= n
+        reduce_scatter = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+        with self._span("psum_scatter", x, x.dtype, nbytes):
+            buf = x.contiguous()
+            # major dim first: each pass keeps this rank's chunk of the dim it sums
+            for g, n in zip(self._groups, self._sizes):
+                out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                                  device=buf.device)
+                reduce_scatter(out, buf, group=g)
+                buf = out
         return buf
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 # ---------------------------------------------------------------------------

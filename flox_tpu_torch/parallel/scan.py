@@ -66,7 +66,7 @@ def sharded_groupby_scan(
     codes_sh = torch.as_tensor(codes[lo:hi], device=dev)
     lead = tuple(arr_sh.shape[:-1])
     arr2 = arr_sh.reshape(math.prod(lead), hi - lo)  # K, not -1: a shard may be empty
-    with telemetry.annotated(f"flox:mesh-scan[{scan.name}/{method}]", ndev=ndev, size=size):
+    with telemetry.span(f"flox:mesh-scan[{scan.name}/{method}]", ndev=ndev, size=size):
         if method == "blockwise":
             from ..kernels import generic_kernel
 

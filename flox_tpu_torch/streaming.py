@@ -47,7 +47,6 @@ happens.
 
 from __future__ import annotations
 
-import math
 import sys
 from typing import Any, Callable
 
@@ -455,7 +454,6 @@ def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int
     owner-by-owner form (``_build_mesh_step_blocked``), whose per-slab psums
     every rank must run alike, so it has no ladder."""
     from .pipeline import DispatchThrottle, SlabStager, stream_slabs
-    from .profiling import timed
     from .resilience import StreamCheckpointer, StreamCounters, device_restore, dispatch_slab
 
     counters = StreamCounters()
@@ -478,7 +476,6 @@ def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int
         state = device_restore(snap.payload, device)
     done = skip
     throttle = DispatchThrottle()
-    nbatches = math.ceil(n / batch_len)
 
     def apply_step(st, sl):
         if blocked:
@@ -494,13 +491,12 @@ def _run_reduce_stream(agg: Aggregation, loader, codes: np.ndarray, *, size: int
         _assign(st, merged)  # in place, after every allocation of the step
         return st
 
-    with timed(f"stream [{agg.name}] {nbatches} slab(s) x {batch_len}"):
-        for sl in stream_slabs(stager, label=f"reduce[{agg.name}]", skip=skip):
-            state = dispatch_slab(apply_step, state, sl, stager=None if blocked else stager,
-                                  counters=counters, highcard_hint=hint)
-            throttle.tick(device)
-            done += 1
-            ckpt.tick(lambda: state, slabs_done=done)
+    for sl in stream_slabs(stager, label=f"reduce[{agg.name}]", skip=skip):
+        state = dispatch_slab(apply_step, state, sl, stager=None if blocked else stager,
+                              counters=counters, highcard_hint=hint)
+        throttle.tick(device)
+        done += 1
+        ckpt.tick(lambda: state, slabs_done=done)
     ckpt.done()
     return state
 
@@ -858,7 +854,6 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
     runs the same collectives in the same order and holds the same
     bisection state."""
     from .pipeline import DispatchThrottle, SlabStager, stream_slabs
-    from .profiling import timed
     from .resilience import StreamCheckpointer, StreamCounters, device_restore, dispatch_slab
 
     skipna = agg.name.startswith("nan")
@@ -877,7 +872,6 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
     nbits = 8 * torch.empty((), dtype=fdtype).element_size()
     cdtype = torch.float32 if n < 2**24 else torch.int32  # the eager select's rule
     k = int(np.prod(lead_shape, dtype=np.int64)) if lead_shape else 1
-    nbatches = math.ceil(n / batch_len)
 
     counters = StreamCounters()
     # one stager for every pass: the retry policy and the loader's dtype
@@ -914,58 +908,57 @@ def _stream_quantile(agg: Aggregation, loader, codes, *, size: int, n: int, batc
         # each pass is one pipelined sweep (the loader is random-access)
         return stream_slabs(stager, label=f"quantile[{agg.name}] {label}", skip=skip)
 
-    with timed(f"stream-quantile [{agg.name}] {nbits + 1} passes x {nbatches} slab(s)"):
-        bit0, bit_skip, cnt0 = 0, 0, None
-        if phase0 == 0:
-            if snap is not None:
-                nn, hasnan = device_restore(snap.payload, device)
-            else:
-                # exact int32 counts: the rank positions rest on them
-                nn = torch.zeros((k, size), dtype=torch.int32, device=device)
-                hasnan = torch.zeros((k, size), dtype=torch.int8, device=device)
-            done = skip0
-            for sl in slabs("count", skip=skip0):
-                dispatch_slab(count_pass, (nn, hasnan), sl, stager=stager, counters=counters)
-                throttle.tick(device)
-                done += 1
-                ckpt.tick(lambda: (nn, hasnan), slabs_done=done, phase=0)
-            if comm is not None:
-                nn, hasnan = comm.psum(nn), comm.pmax(hasnan)
+    bit0, bit_skip, cnt0 = 0, 0, None
+    if phase0 == 0:
+        if snap is not None:
+            nn, hasnan = device_restore(snap.payload, device)
         else:
-            nn, hasnan, prefix, rank, cnt0 = device_restore(snap.payload, device)
-            bit0, bit_skip = phase0 - 1, skip0
+            # exact int32 counts: the rank positions rest on them
+            nn = torch.zeros((k, size), dtype=torch.int32, device=device)
+            hasnan = torch.zeros((k, size), dtype=torch.int8, device=device)
+        done = skip0
+        for sl in slabs("count", skip=skip0):
+            dispatch_slab(count_pass, (nn, hasnan), sl, stager=stager, counters=counters)
+            throttle.tick(device)
+            done += 1
+            ckpt.tick(lambda: (nn, hasnan), slabs_done=done, phase=0)
+        if comm is not None:
+            nn, hasnan = comm.psum(nn), comm.pmax(hasnan)
+    else:
+        nn, hasnan, prefix, rank, cnt0 = device_restore(snap.payload, device)
+        bit0, bit_skip = phase0 - 1, skip0
 
-        nnf = nn.to(torch.float64)
-        ranks, meta = kernels._quantile_rank_sets(qs, nnf, method, alpha, beta)
-        m = ranks.shape[0]
-        if phase0 == 0:
-            key_dtype = kernels._INT_OF_WIDTH[nbits // 8]
-            prefix = torch.zeros((m, k, size), dtype=key_dtype, device=device)
-            rank = ranks.to(torch.int32)
-        for i in range(bit0, nbits):
-            b = nbits - 1 - i
-            if i == bit0 and cnt0 is not None:
-                cnt, skip_i = cnt0, bit_skip
-            else:
-                cnt, skip_i = torch.zeros((m, k, size), dtype=torch.int32, device=device), 0
+    nnf = nn.to(torch.float64)
+    ranks, meta = kernels._quantile_rank_sets(qs, nnf, method, alpha, beta)
+    m = ranks.shape[0]
+    if phase0 == 0:
+        key_dtype = kernels._INT_OF_WIDTH[nbits // 8]
+        prefix = torch.zeros((m, k, size), dtype=key_dtype, device=device)
+        rank = ranks.to(torch.int32)
+    for i in range(bit0, nbits):
+        b = nbits - 1 - i
+        if i == bit0 and cnt0 is not None:
+            cnt, skip_i = cnt0, bit_skip
+        else:
+            cnt, skip_i = torch.zeros((m, k, size), dtype=torch.int32, device=device), 0
 
-            def bit_pass(c, sl, b=b, prefix=prefix):
-                data = prep(sl)
-                keys = kernels._valid_keys(data, kernels._nan_mask(data))
-                sc = kernels._safe_codes(sl.codes, size)
-                c.add_(kernels._radix_pass_count(keys, sc, size, prefix, b, cdtype))
-                return c
+        def bit_pass(c, sl, b=b, prefix=prefix):
+            data = prep(sl)
+            keys = kernels._valid_keys(data, kernels._nan_mask(data))
+            sc = kernels._safe_codes(sl.codes, size)
+            c.add_(kernels._radix_pass_count(keys, sc, size, prefix, b, cdtype))
+            return c
 
-            done = skip_i
-            for sl in slabs(f"bit {i}", skip=skip_i):
-                cnt = dispatch_slab(bit_pass, cnt, sl, stager=stager, counters=counters)
-                throttle.tick(device)
-                done += 1
-                ckpt.tick(lambda: (nn, hasnan, prefix, rank, cnt), slabs_done=done,
-                          phase=1 + i)
-            if comm is not None:
-                cnt = comm.psum(cnt)
-            prefix, rank = kernels._radix_update(prefix, rank, cnt, b)
+        done = skip_i
+        for sl in slabs(f"bit {i}", skip=skip_i):
+            cnt = dispatch_slab(bit_pass, cnt, sl, stager=stager, counters=counters)
+            throttle.tick(device)
+            done += 1
+            ckpt.tick(lambda: (nn, hasnan, prefix, rank, cnt), slabs_done=done,
+                      phase=1 + i)
+        if comm is not None:
+            cnt = comm.psum(cnt)
+        prefix, rank = kernels._radix_update(prefix, rank, cnt, b)
     ckpt.done()
 
     selected = kernels._key_to_value(prefix, fdtype)
@@ -1128,7 +1121,6 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
     from .aggregations import _initialize_scan
     from .core import _convert_expected, _normalize_expected, _normalize_isbin
     from .pipeline import SlabStager, stream_slabs
-    from .profiling import timed
     from .resilience import StreamCheckpointer, StreamCounters, device_restore, dispatch_slab
     from .scan import _check_datetime_scan
 
@@ -1186,7 +1178,6 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
         batch_bytes = _DEFAULT_BATCH_BYTES if batch_bytes is None else batch_bytes
         batch_len = max(1, min(n, batch_bytes // max(row_bytes, 1)))
     batch_len = _mesh_batch_len(batch_len, comm)
-    nbatches = math.ceil(n / batch_len)
     has_missing = bool((codes < 0).any())
     reverse = scan.name == "bfill"
     if comm is None:
@@ -1230,15 +1221,14 @@ def _streaming_groupby_scan_impl(array, by, *, func, batch_len, batch_bytes, exp
                                      n=n)
         return c2, h2
 
-    with timed(f"stream-scan [{scan.name}] {nbatches} slab(s)"):
-        for sl in stream_slabs(stager, reverse=reverse, label=f"scan[{scan.name}]", skip=skip):
-            # a mesh slab's exchange is collective: a split on one rank would
-            # leave the others waiting, so the mesh scan has no OOM ladder
-            carry, had = dispatch_slab(apply_scan, (carry, had), sl,
-                                       stager=stager if comm is None else None,
-                                       counters=counters, reverse=reverse)
-            done += 1
-            ckpt.tick(lambda: (carry, had), slabs_done=done)
+    for sl in stream_slabs(stager, reverse=reverse, label=f"scan[{scan.name}]", skip=skip):
+        # a mesh slab's exchange is collective: a split on one rank would
+        # leave the others waiting, so the mesh scan has no OOM ladder
+        carry, had = dispatch_slab(apply_scan, (carry, had), sl,
+                                   stager=stager if comm is None else None,
+                                   counters=counters, reverse=reverse)
+        done += 1
+        ckpt.tick(lambda: (carry, had), slabs_done=done)
     ckpt.done()
     if out is not None:
         return None

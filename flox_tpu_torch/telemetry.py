@@ -6,9 +6,17 @@ ledger with device time, and the exporters (the port of
   entry point opens a root span (``groupby_reduce``, ``groupby_scan``,
   ``streaming_groupby_reduce``, ...) whose children are its phases:
   ``factorize`` / ``dispatch`` / ``combine`` / ``finalize`` eagerly,
-  ``program-build`` and ``combine`` on a mesh, one ``stream[...]`` span per
-  streaming pass. Disabled (the default) it is a true no-op: :func:`span`
-  returns one shared singleton, nothing is allocated and no clock is read.
+  ``program-build``, ``program`` and ``combine`` on a mesh, one
+  ``stream[...]`` span per streaming pass. Below them the port's own
+  steps: ``bins`` (the codes binned for a hand-written kernel),
+  ``launch`` (the kernel itself, with the bytes it must move), ``legs``
+  (the elementwise passes after a kernel or a mesh combine returns) and
+  ``collective`` (one collective of the mesh, with its bytes; the
+  ``mesh.collectives`` and ``mesh.collective_bytes`` counters). While a
+  ``torch.profiler`` records, every span is also a ``record_function``
+  range of the profiler's trace. Disabled (the default) it is a true no-op:
+  :func:`span` returns one shared singleton, nothing is allocated, no clock
+  is read and no profiler is touched.
 * **Metrics registry** (:data:`METRICS`): process-wide counters, gauges and
   log-spaced histograms (host-to-device bytes, retries, OOM splits,
   checkpoints, per-phase latency).
@@ -60,6 +68,7 @@ import json
 import math
 import os
 import re
+import sys
 import threading
 import time
 from collections import deque
@@ -74,7 +83,6 @@ __all__ = [
     "SATURATION_GAUGES",
     "MetricsRegistry",
     "anchor_event",
-    "annotated",
     "cost_by_dataset",
     "cost_by_program",
     "cost_by_tenant",
@@ -500,12 +508,23 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+def _profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` is recording in this process (no profiler
+    can be while torch is not imported)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
 class _Span:
     """One live span. Context-manager protocol; ``set`` attaches attributes
     any time before exit. Finished spans append a plain-dict record to the
-    buffer (and stream to the export path, if configured)."""
+    buffer (and stream to the export path, if configured). While a
+    ``torch.profiler`` records, the span also opens a
+    ``torch.profiler.record_function`` range of its name, so the profiler's
+    trace holds it as a host range on its own clock, and each device op sits
+    under the innermost span open at its launch."""
 
-    __slots__ = ("name", "attrs", "span_id", "parent_id", "_t0", "_token", "_tid")
+    __slots__ = ("name", "attrs", "span_id", "parent_id", "_t0", "_token", "_tid", "_range")
 
     def __init__(self, name: str, attrs: dict) -> None:
         self.name = name
@@ -515,16 +534,25 @@ class _Span:
         self._t0 = 0.0
         self._token: contextvars.Token | None = None
         self._tid = threading.get_ident()
+        self._range: Any = None
 
     def __enter__(self) -> "_Span":
         parent = _CURRENT.get()
         self.parent_id = parent.span_id if parent is not None else None
         self._token = _CURRENT.set(self)
+        if _profiler_recording():
+            import torch
+
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         if self._token is not None:
             _CURRENT.reset(self._token)
         if exc_type is not None:
@@ -552,7 +580,9 @@ def span(name: str, **attrs: Any):
     """Open a hierarchical span: ``with telemetry.span("factorize"): ...``.
 
     Returns the shared no-op singleton when telemetry is disabled — no
-    allocation, no clock read. Nesting is tracked through a contextvar, so
+    allocation, no clock read, no profiler touched. Enabled, it opens a
+    ``torch.profiler.record_function`` range beside itself while a profiler
+    records, and none otherwise. Nesting is tracked through a contextvar, so
     spans opened on worker threads become roots of their own stacks (they
     still interleave correctly by timestamp in the trace view).
     """
@@ -560,34 +590,6 @@ def span(name: str, **attrs: Any):
         return _NOOP
     _bootstrap()
     return _Span(name, attrs)
-
-
-def annotated(name: str, **attrs: Any):
-    """A span that also opens a ``torch.profiler.record_function`` range, so
-    the region shows up in a ``torch.profiler`` trace next to the kernels it
-    covers (the mesh dispatch paths use this)."""
-    if not enabled():
-        return _NOOP
-    import torch
-
-    return _AnnotatedSpan(span(name, **attrs), torch.profiler.record_function(name))
-
-
-class _AnnotatedSpan:
-    __slots__ = ("_span", "_annotation")
-
-    def __init__(self, sp: Any, annotation: Any) -> None:
-        self._span = sp
-        self._annotation = annotation
-
-    def __enter__(self) -> Any:
-        self._span.__enter__()
-        self._annotation.__enter__()
-        return self._span
-
-    def __exit__(self, *exc: Any) -> bool:
-        self._annotation.__exit__(*exc)
-        return self._span.__exit__(*exc)
 
 
 def record_span(

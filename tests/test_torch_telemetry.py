@@ -108,6 +108,76 @@ class TestDisabledMode:
 
 
 # ---------------------------------------------------------------------------
+# spans on the profiler's timeline
+# ---------------------------------------------------------------------------
+
+
+class TestProfilerRanges:
+    def test_spans_are_ranges_while_a_profiler_records(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        with flox_tpu_torch.set_options(telemetry=True):
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                _run_reduce()
+        spans = {r["name"] for r in telemetry.spans() if r["type"] == "span"}
+        assert {"groupby_reduce", "factorize", "dispatch", "legs"} <= _range_names(prof)
+        assert _range_names(prof) == spans
+
+    @pytest.mark.parametrize("telemetry_on, profiled", [(False, True), (True, False)])
+    def test_no_range_unless_both(self, monkeypatch, telemetry_on, profiled):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        opened = []
+        real = torch.profiler.record_function
+
+        def counting(name, *args, **kw):
+            opened.append(name)
+            return real(name, *args, **kw)
+
+        monkeypatch.setattr(torch.profiler, "record_function", counting)
+        with flox_tpu_torch.set_options(telemetry=telemetry_on):
+            with profile(activities=[ProfilerActivity.CPU]) if profiled else \
+                    contextlib.nullcontext():
+                _run_reduce()
+        assert opened == []
+        with flox_tpu_torch.set_options(telemetry=True):
+            with profile(activities=[ProfilerActivity.CPU]):
+                _run_reduce()
+        assert "groupby_reduce" in opened  # the count does see the ranges opened
+
+    def test_disabled_span_reads_no_profiler_state(self, monkeypatch):
+        import torch
+
+        def boom():
+            raise AssertionError("the profiler's state was read with telemetry off")
+
+        monkeypatch.setattr(torch.autograd, "_profiler_enabled", boom)
+        with telemetry.span("x") as sp:
+            sp.set(a=1)
+        assert telemetry.spans() == []
+
+
+def test_collective_spans_in_a_two_rank_world(tmp_path):
+    """Each collective of a 2-rank gloo world's map-reduce nanmean opens a
+    ``collective`` span with its op, dtypes, bytes and ranks, and
+    ``mesh.collective_bytes`` is the sum of their bytes."""
+    import torch_mesh_world as W
+
+    for rank in W.run_world(["collective-spans"], str(tmp_path), world=2):
+        status, (spans, counters), _ = rank["collective-spans"]
+        assert status == "ok"
+        assert spans, "no collective span"
+        for attrs in spans:
+            assert set(attrs) == {"op", "dtype", "wire_dtype", "nbytes", "ranks"}
+            assert attrs["ranks"] == 2 and attrs["nbytes"] > 0
+        assert {a["op"] for a in spans} <= {"psum", "pmax", "pmin", "all_gather",
+                                             "psum_scatter"}
+        assert counters["mesh.collectives"] == len(spans)
+        assert counters["mesh.collective_bytes"] == sum(a["nbytes"] for a in spans)
+
+
+# ---------------------------------------------------------------------------
 # enabled/disabled bit-identity
 # ---------------------------------------------------------------------------
 
@@ -119,10 +189,14 @@ def _bits(x) -> bytes:
 class TestBitIdentity:
     @pytest.mark.parametrize("level", ["basic", "detailed"])
     def test_reduce_identical(self, level):
+        from torch.profiler import ProfilerActivity, profile
+
         off, _ = _run_reduce()
         with flox_tpu_torch.set_options(telemetry=True, telemetry_level=level, costmodel=True):
             on, _ = _run_reduce()
-        assert _bits(off) == _bits(on)
+            with profile(activities=[ProfilerActivity.CPU]):  # every span a range too
+                ranged, _ = _run_reduce()
+        assert _bits(off) == _bits(on) == _bits(ranged)
 
     def test_mesh_reduce_identical(self):
         off, _ = _run_reduce(method="map-reduce")
@@ -162,6 +236,11 @@ class TestBitIdentity:
 # ---------------------------------------------------------------------------
 
 
+def _range_names(prof) -> set:
+    """The ``record_function`` ranges a ``torch.profiler`` recorded."""
+    return {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+
+
 def _by_name(records):
     out = {}
     for rec in records:
@@ -195,11 +274,15 @@ class TestSpans:
         assert {"groupby_scan", "factorize", "dispatch", "finalize"} <= names
 
     def test_mesh_scan_annotated(self):
+        from torch.profiler import ProfilerActivity, profile
+
         with flox_tpu_torch.set_options(telemetry=True):
-            flox_tpu_torch.groupby_scan(RNG.normal(size=32), np.arange(32) % 3, func="cumsum",
-                                        method="blelloch", device="cpu")
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                flox_tpu_torch.groupby_scan(RNG.normal(size=32), np.arange(32) % 3,
+                                            func="cumsum", method="blelloch", device="cpu")
         names = {r["name"] for r in telemetry.spans()}
         assert "flox:mesh-scan[cumsum/blelloch]" in names
+        assert "flox:mesh-scan[cumsum/blelloch]" in _range_names(prof)
 
     def test_streaming_phases_and_stream_report_attrs(self):
         with flox_tpu_torch.set_options(telemetry=True):
@@ -634,6 +717,9 @@ def test_metric_names_match_reference():
 #: listener, its program caches, and the trace of its card analysis compile
 _REF_ONLY_PREFIXES = ("jax.", "cache.")
 _REF_ONLY = {"costmodel.card_traces", "costmodel.card_compiles", "costmodel.card_compile_ms"}
+#: the port's spans below the reference's phases, which the reference has no
+#: counterpart of: the kernel wrappers' steps and the mesh program's run
+_PORT_ONLY_SPANS = frozenset({"bins", "launch", "legs", "program", "collective"})
 
 
 @contextlib.contextmanager
@@ -702,7 +788,8 @@ def test_span_and_counter_names_match_reference(call):
     }
     ref_spans, ref_counters = _names(ref_telemetry, flox_tpu, ref_calls[call])
     port_spans, port_counters = _names(telemetry, flox_tpu_torch, port_calls[call])
-    assert port_spans == ref_spans
+    assert [s for s in port_spans if s[0] not in _PORT_ONLY_SPANS] == ref_spans
+    assert "legs" in {s[0] for s in port_spans}  # the post-kernel passes, on every path
     assert port_counters == ref_counters
 
 

@@ -740,6 +740,27 @@ def _tuned_ranks_case(rank: int, mesh) -> tuple:
             np.asarray([picks[0], picks[1] == "sort"], dtype=np.int64))
 
 
+def _collective_spans_case(mesh) -> tuple:
+    """A map-reduce and a cohorts nanmean with telemetry on: each
+    ``collective`` span's attributes, and the ``mesh.*`` counters."""
+    import flox_tpu_torch
+    from flox_tpu_torch import telemetry
+
+    rng = np.random.default_rng(12)
+    vals = rng.normal(size=(3, 40))
+    vals[:, ::5] = np.nan
+    telemetry.reset()
+    with flox_tpu_torch.set_options(telemetry=True):
+        for method in ("map-reduce", "cohorts"):
+            flox_tpu_torch.groupby_reduce(vals, np.arange(40) % 5, func="nanmean",
+                                          method=method, mesh=mesh)
+    spans = [r["attrs"] for r in telemetry.drain()
+             if r["type"] == "span" and r["name"] == "collective"]
+    counters = {k: v for k, v in telemetry.METRICS.counters().items() if k.startswith("mesh.")}
+    telemetry.reset()
+    return spans, counters
+
+
 class _Capture(logging.Handler):
     def __init__(self):
         super().__init__(logging.DEBUG)
@@ -773,6 +794,12 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str, case_ids: list,
         if cid == "tuned-ranks":
             try:
                 results[cid] = ("ok", _tuned_ranks_case(rank, meshes["1d"]), [])
+            except Exception as err:  # noqa: BLE001 - reported to the test
+                results[cid] = ("err", type(err).__name__, str(err))
+            continue
+        if cid == "collective-spans":
+            try:
+                results[cid] = ("ok", _collective_spans_case(meshes["1d"]), [])
             except Exception as err:  # noqa: BLE001 - reported to the test
                 results[cid] = ("err", type(err).__name__, str(err))
             continue
