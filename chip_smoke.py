@@ -15,7 +15,12 @@ Phases; any failure exits nonzero:
    run-to-run bit identity; the segment-sum and multi-statistic kernels'
    sums and markers bit-identical to a float32 column-order emulation of
    their walk at {37, 64, 600} rows (full and partial 256-row tiles), and
-   their empty results at N = 0 without a launch; the segment-min/max kernel
+   their empty results at N = 0 without a launch; the segment-sum kernel's
+   window walk bit-identical, all four legs, to its run walk and to the
+   radix-binning kernel over {plain, kahan, dd} x {float32, bfloat16} x
+   seven code patterns at {37, 600} rows, then both walks checked and timed
+   at the OISST cell's and a four-card ERA5 shard's full shapes; the
+   segment-min/max kernel
    over {min, max} x {float32, bfloat16, int32} x size {1, 12, 128, 512} x
    {random, sorted, hour-of-day codes}, exactly, NaN propagating and empty
    groups at the identity; the multi-statistic kernel
@@ -176,6 +181,7 @@ Without CUDA it exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -346,6 +352,7 @@ def phase_kernels(seed: int) -> dict:
     print("[kernels] segment-sum sweep: bit-identical to the radix-binning kernel on random and "
           "sorted codes; markers exact; plain within (n_g - 1) u S + 1 ulp of float64")
     _walk_emulation_sweep(ck, gen)
+    _window_sweep(ck, gen)
     _accuracy_bars(ck)
     for rows in (k, 600):  # a partial tile of 256 rows; two full ones and a partial one
         _minmax_sweep(ck, gen, rows, n)
@@ -498,6 +505,161 @@ def _walk_emulation_sweep(ck, gen) -> None:
     check(not any(ck.LAUNCHES.values()), f"N = 0: launches {ck.LAUNCHES}")
     print("[kernels] segment-sum and multi-statistic walks: the column-order emulation bit for "
           "bit at 37, 64 and 600 rows; N = 0 gives the empty-group values with no launch")
+
+
+@contextlib.contextmanager
+def _run_walk(ck):
+    """B1 pinned to its run walk (window 1) whatever the shape, so that the
+    window walk can be held to it on the same input."""
+    window = ck._window
+    ck._window = lambda size, n: 1
+    try:
+        yield
+    finally:
+        ck._window = window
+
+
+def _window_codes(pattern: str, rng) -> tuple[np.ndarray, int]:
+    """Codes on which B1 takes its window walk (N < 128 * size): day of year
+    over 8 years of days, and over 4096 hours (sorted runs, whose windows
+    take the run walk), the same hours with the second half shuffled, hour
+    of day over 2048 hours, month over 4 years of days, and random codes
+    over 512 and over 3 groups (fewer than a window) with -1 and
+    out-of-range ones."""
+    days = np.datetime64("1981-09-01") + np.arange(2922)
+    doy = (days - days.astype("datetime64[Y]").astype("datetime64[D]")).astype(np.int64)
+    month = days.astype("datetime64[M]").astype(np.int64) % 12
+    hourly = np.arange(4096) // 24  # days of the year of hourly steps: sorted runs of 24
+    mixed = hourly.copy()
+    mixed[2048:] = rng.permutation(mixed[2048:])  # sorted windows, then shuffled ones
+    return {
+        "dayofyear": (doy, 366),
+        "hourly_dayofyear": (hourly, 366),
+        "mixed": (mixed, 366),
+        "hour": (np.arange(2048) % 24, 24),
+        "month": (month[:1461], 12),
+        "random512": (rng.integers(-1, 515, 4099), 512),
+        "random3": (rng.integers(-1, 5, 300), 3),
+    }[pattern]
+
+
+def _window_sweep(ck, gen) -> None:
+    """B1's window walk bit for bit, all four legs, against its run walk and
+    B5 on the same input: {float32, bfloat16} x {plain, kahan, dd} x
+    {day-of-year of days, of hours, of hours half shuffled, hour-of-day,
+    month, random-512, random-3} codes at 37 and 600 rows
+    (a partial 256-row tile; two full ones and a partial one), with 10 % of
+    the rows NaN throughout and scattered NaN and +-inf; then one launch,
+    counted by ``kernels.window_launches`` and carrying ``window`` 8 on its
+    ``launch`` span."""
+    import flox_tpu_torch
+    from flox_tpu_torch import telemetry
+
+    rng = np.random.default_rng(int(gen.initial_seed()) % 2**32)
+    for pattern in ("dayofyear", "hourly_dayofyear", "mixed", "hour", "month", "random512",
+                    "random3"):
+        codes_np, size = _window_codes(pattern, rng)
+        n = codes_np.size
+        check(ck._window(size, n) == 8, f"{pattern}: the window walk does not engage")
+        codes = torch.from_numpy(codes_np.astype(np.int32)).to(DEVICE)
+        for rows, dtype in itertools.product((37, 600), (torch.float32, torch.bfloat16)):
+            data, _ = _sum_case(gen, rows, n, size, torch.float32)
+            data[torch.rand(rows, generator=gen, device=DEVICE) < 0.1] = float("nan")
+            data = data.to(dtype)
+            for accum in ("plain", "kahan", "dd"):
+                got = ck.segment_sum_raw(data, codes, size, accum)
+                with _run_walk(ck):
+                    run = ck.segment_sum_raw(data, codes, size, accum)
+                b5 = ck.segment_sum_radixbin_raw(data, codes, size, accum)
+                torch.cuda.synchronize()
+                tag = f"window walk {pattern} ({rows}, {n}) size={size} {dtype} {accum}"
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, run)),
+                      f"{tag}: differs from the run walk")
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, b5)),
+                      f"{tag}: differs from segment_sum_radixbin_raw")
+    telemetry.reset()
+    with flox_tpu_torch.set_options(telemetry=True):
+        ck.segment_sum_raw(data, codes, size, "kahan")
+        with _run_walk(ck):
+            ck.segment_sum_raw(data, codes, size, "kahan")
+        counted = telemetry.METRICS.get("kernels.window_launches")
+    windows = [r["attrs"].get("window") for r in telemetry.spans()
+               if r["type"] == "span" and r["name"] == "launch"]
+    telemetry.reset()
+    check(counted == 1 and windows == [8, 1],
+          f"window launches counted {counted}, launch spans' windows {windows}")
+    print("[kernels] window walk: bit for bit the run walk and the radix-binning kernel, all "
+          "four legs, on day-of-year (daily, hourly, hourly half shuffled), hour-of-day, "
+          "month, random-512 and random-3 codes; one window launch counted")
+
+
+def _walk_times(ck, name: str, data, codes, size: int, reps: int) -> dict:
+    """B1 on ``data`` by ``codes`` under kahan, the cells' accumulation: the
+    window walk bit for bit its run walk and B5, then both walks timed in
+    turns (run, window, window, run; CUDA-event medians of the wrapper,
+    binning included) against the bound: the data and codes read and one
+    (the cells' bytes) or four (what B1 writes) legs of results written, at
+    3.35 TB/s."""
+    k, n = data.shape
+    check(ck._window(size, n) == 8, f"{name}: the window walk does not engage")
+    got = ck.segment_sum_raw(data, codes, size, "kahan")
+    with _run_walk(ck):
+        run = ck.segment_sum_raw(data, codes, size, "kahan")
+    torch.cuda.synchronize()
+    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, run)),
+          f"{name}: the window walk differs from the run walk")
+    del run
+    b5 = ck.segment_sum_radixbin_raw(data, codes, size, "kahan")
+    torch.cuda.synchronize()
+    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, b5)),
+          f"{name}: the window walk differs from segment_sum_radixbin_raw")
+    del got, b5
+    torch.cuda.empty_cache()
+
+    def window():
+        ck.segment_sum_raw(data, codes, size, "kahan")
+
+    def run_walk():
+        with _run_walk(ck):
+            ck.segment_sum_raw(data, codes, size, "kahan")
+
+    times = {"run": [], "window": []}
+    for walk, fn in (("run", run_walk), ("window", window), ("window", window),
+                     ("run", run_walk)):
+        times[walk].append(time_ms(fn, reps))
+    read = data.numel() * data.element_size() + n * 4
+    out = {"shape": [k, n], "size": size, "run_ms": times["run"], "window_ms": times["window"],
+           "bound_ms": (read + size * k * 4) / HBM_BYTES_PER_S * 1e3,
+           "bound_four_legs_ms": (read + 4 * size * k * 4) / HBM_BYTES_PER_S * 1e3}
+    for walk in ("run", "window"):
+        out[f"{walk}_roofline_pct"] = 100 * out["bound_ms"] / statistics.median(times[walk])
+    print(f"[window] {name} kahan: bit for bit run walk and B5; {json.dumps(out)}")
+    return out
+
+
+def phase_window_times(seed: int, reps: int) -> dict:
+    """:func:`_walk_times` at the full shapes of the cells whose B1 takes the
+    window walk: OISST (1036800 x 14532 float32, 30 % of the rows NaN, 366
+    day-of-year codes) and one card's shard of the four-card ERA5 cell
+    (1038240 x 6576 hours of 2016, hourly day-of-year codes)."""
+    from flox_tpu_torch import cuda_kernels as ck
+    from portbench import fields, labels, spec
+
+    bench = spec.Spec()
+    out = {}
+    for name, config, ncols in (("oisst", "oisst-v2.1-daily-0p25", None),
+                                ("era5-shard", "era5-hourly-0p25", 26304 // 4)):
+        config = bench.config(config)
+        # the whole grid: OISST's one card, and each of the four ERA5 cards
+        k = config["published"]["nlat"] * config["nlon"]
+        n = ncols or int(config["time"]["count"])
+        data = fields.make_shard(config, k, n, seed, 0, DEVICE)
+        doy = labels.FIELDS["dayofyear"](labels.timestamps(config["time"]))[:n] - 1
+        codes = torch.from_numpy(doy.astype(np.int32)).to(DEVICE)
+        out[name] = _walk_times(ck, f"{name} {k} x {n}", data, codes, 366, reps)
+        del data
+        torch.cuda.empty_cache()
+    return out
 
 
 def _radixbin_sweep(ck, gen, k: int, n: int) -> float:
@@ -4478,6 +4640,8 @@ def main() -> int:
 
     phase_kernels(args.seed)
     mark("kernels")
+    phase_window_times(args.seed, max(3, args.reps // 2))
+    mark("window walk at the OISST shape")
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
     mark("main path")
     phase_matmul(data, month, codes, launches, max(3, args.reps // 2))

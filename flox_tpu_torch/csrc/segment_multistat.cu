@@ -44,8 +44,8 @@ int flox_segment_multistat(const void* data, int dtype, const int* perm, const i
                            int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
                            void* mins, void* maxs, void* stream) {
   return flox::dispatch_segment_reduce<true>(data, dtype, perm, scodes, offsets, K, N, size,
-                                             groups, accum, sums, nan_c, pos_c, neg_c, mins, maxs,
-                                             stream);
+                                             groups, 1, accum, sums, nan_c, pos_c, neg_c, mins,
+                                             maxs, stream);
 }
 
 const char* flox_error_string(int err) {

@@ -29,12 +29,18 @@
 //
 // The codes reach the kernel binned (cuda_kernels._radixbin_bins, device ops
 // over the N codes only, no host sync): perm, the columns in stable order of
-// their code (invalid codes last); scodes, the codes in that order; offsets
-// (size + 1,), so that group g owns columns perm[offsets[g] : offsets[g + 1]]
-// in their original order. For sorted codes perm is the identity; on the
-// month codes it joins each month's runs (three of ~730 hourly columns a
-// month over 26304 hours), so a stage's 32 columns stay a 128-byte row
-// segment but where a run ends.
+// a key (invalid codes last); scodes, the codes in that order; offsets
+// (size + 1,). For the run walk (below) the key is the code, and offsets[g]
+// counts the valid columns whose code is below g, so group g owns columns
+// perm[offsets[g] : offsets[g + 1]]. For the window walk of W groups the
+// key is the first group of the code's window (the code rounded down to a
+// multiple of W; invalid codes past the last window), and offsets[g] counts
+// the valid columns of the windows that start below g, so the window over
+// [g0, g0 + W) owns perm[offsets[g0] : offsets[min(g0 + W, size)]]. Either
+// way one group's (one window's) columns lie in their original order. For
+// sorted codes perm is the identity; on the month codes it joins each
+// month's runs (three of ~730 hourly columns a month over 26304 hours), so a
+// stage's 32 columns stay a 128-byte row segment but where a run ends.
 //
 // Design. Block b owns a tile of kRows = 256 rows, one thread per row, and a
 // segment of `groups` whole consecutive groups; the segment index is the
@@ -47,32 +53,51 @@
 // with the stage's codes beside it. Stage s + 1 is in flight while stage s is
 // walked (bfloat16, below cp.async's 4-byte minimum, is loaded into registers
 // a stage ahead and stored widened to its tile after the walk; int32 takes
-// the float32 fill). Thread r walks the stage's columns in order with one
-// group's accumulator in registers, run by run: one ballot per stage marks
-// the columns where the code changes. At a change it writes the finished
-// group's outputs at out[g * K + k] (a warp writes 32 consecutive k) and the
-// empty-group values (the legs' empty accumulator) for any group it passes;
-// at the segment's end it writes every group left. Every (group, row)
-// output is written exactly once, nothing is atomic, and every thread walks
-// the same columns, so all branching is block-uniform but for the rare
-// non-finite value.
+// the float32 fill). Every (group, row) output is written exactly once,
+// nothing is atomic, and every thread walks the same columns, so all
+// branching is block-uniform but for the rare non-finite value. The walk
+// takes one of two forms, fixed at compile time by the window width WIN:
 //
-// Groups per block. The wrapper derives it from size, K and N
-// (cuda_kernels._groups_per_block), and it is no option: one group per
-// block, so that the size blocks of a row tile (the segment index is the
-// fastest) walk its rows together and share them in L2; unless the groups
-// average less than one 32-column stage each, where a block's set-up would
-// outweigh its walk: then the fewest groups that average a stage, but never
-// so many that the grid holds fewer blocks than the card's resident slots
-// (the __launch_bounds__ below: 3 blocks of 4-byte data or 2 bfloat16 ones
-// per SM, times the SM count). The reason, measured on the H100 (PERF.md):
-// at the main path's 12 month groups and K = 65160 one group per block gives
-// 3060 blocks, faster than the 765 blocks of 4 groups; on hour-of-day codes
-// (runs of one column) it is about three times faster than 8 groups,
-// because the 24 blocks of a tile gather the same 32-byte sectors at about
-// the same time; only groups of a few columns each pay more for a block's
-// set-up than they save. Every split reads the data once: a segment reads
-// only its own groups' columns.
+//   Run walk (WIN = 1; B1, B2 and B3). The segment's columns come in code
+//   order. Thread r walks the stage's columns in order with one group's
+//   accumulator in registers, run by run: one ballot per stage marks the
+//   columns where the code changes. At a change it writes the finished
+//   group's outputs at out[g * K + k] (a warp writes 32 consecutive k) and
+//   the empty-group values (the legs' empty accumulator) for any group it
+//   passes; at the segment's end it writes every group left.
+//
+//   Window walk (WIN = kWindow = 8; B1 only). The segment is a window of 8
+//   consecutive groups, and its columns come in column order: the bins were
+//   made by window. Thread r keeps the 8 groups' accumulators in
+//   registers, indexed only by compile-time constants. Per stage and group
+//   w, one ballot of code == g0 + w marks that group's columns, and the
+//   thread adds them to acc[w] in ascending column order. At the window's
+//   end it writes all 8 groups' outputs; a group with no columns writes the
+//   empty accumulator. Where neighbouring groups are neighbouring columns
+//   (day-of-year codes over daily data: a window is 8 consecutive days of
+//   every year), a stage's 32 lanes read 4 runs of 8 contiguous words, so
+//   each 32-byte sector of a row is read by one block instead of one block
+//   a group, and a block walks ~8 times the columns.
+//
+// Groups per block, and the window. The wrapper derives both from size, K
+// and N (cuda_kernels._window, cuda_kernels._groups_per_block); neither is an
+// option. B1 takes the window walk when the groups average fewer than four
+// 32-column stages (N < 128 * size): then a run walk's block reads a few
+// columns lying a row's period apart, a word of each 32-byte sector whose
+// other words belong to other blocks, and those blocks are too short to
+// keep their cp.async pipeline full. Otherwise, and always for B2 and B3,
+// the run walk: one group per block, so that the size blocks of a row tile
+// (the segment index is the fastest) walk its rows together and share them
+// in L2; unless the groups average less than one 32-column stage each,
+// where a block's set-up would outweigh its walk: then the fewest groups
+// that average a stage, but never so many that the grid holds fewer blocks
+// than the card's resident slots (the __launch_bounds__ below: 3 blocks of
+// 4-byte data or 2 bfloat16 ones per SM, times the SM count). Measured on
+// the H100 (PERF.md): at the main path's 12 month groups and K = 65160 one
+// group per block gives 3060 blocks, faster than the 765 blocks of 4
+// groups; on OISST's 366 day-of-year groups over 14532 days the window walk
+// is faster than one group per block. Every split reads the data once: a
+// segment reads only its own groups' columns.
 //
 // Invariants (checked on the card by chip_smoke.py):
 //   - per (group, row), the sum is sequential over the group's columns in
@@ -81,7 +106,9 @@
 //     __fadd_rn; kahan's _rn compensated update; dd's Dekker split by 4097
 //     with the 8e34 guard, then two_sum merges). Everything goes through _rn
 //     intrinsics, so nvcc contracts nothing into FMAs. The result does not
-//     depend on where other groups' columns lie, nor on the groups per block;
+//     depend on where other groups' columns lie, nor on the groups per
+//     block, nor on the walk: the window walk adds each group's columns in
+//     the same order, so its four legs equal the run walk's bit for bit;
 //   - hence B1 equals the radix-binning kernel (B5) bit for bit on the same
 //     data, codes and accum at any size <= 512: both walk the same order
 //     under the same discipline;
@@ -118,6 +145,7 @@ constexpr int kPitch = kCols + 1;
 constexpr int kTileWords = kRows * kPitch;
 constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kGroupCap = 512;  // the groups B1-B3 take (cuda_kernels._MAX_GROUPS)
+constexpr int kWindow = 8;  // groups of the window walk (cuda_kernels._WINDOW)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float widen(uint16_t v) {
@@ -262,10 +290,11 @@ struct ExtremumLegs {
   }
 };
 
-template <typename T, typename Legs>
+template <typename T, typename Legs, int WIN>
 // resident blocks per SM: 3 blocks of 4-byte data (3 x 67.8 KB of tiles), 2
 // bfloat16 ones (their register loads a stage ahead need more registers);
-// cuda_kernels._BLOCKS_PER_SM mirrors it
+// cuda_kernels._BLOCKS_PER_SM mirrors it. WIN: 1 for the run walk, kWindow
+// for the window walk (see above)
 __global__ void __launch_bounds__(kRows, sizeof(T) == 4 ? 3 : 2)
 segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ perm,
                       const int* __restrict__ scodes, const int* __restrict__ offsets, long long N,
@@ -323,60 +352,88 @@ segment_reduce_kernel(const T* __restrict__ data, const int* __restrict__ perm,
       if (warp == 0) codes_s[(s & 1) * kCols + lane] = held_code;
     }
   };
-  // the outputs of group `from`, then the empty-group values of the groups
-  // in (from, to)
-  auto finish = [&](int from, int to, const Acc& a) {
-    if (!row_ok) return;
-    legs.put(from, k, a);
-    for (int e = from + 1; e < to; ++e) legs.put(e, k, Legs::empty());
-  };
-
-  Acc acc = Legs::empty();
-  int cur = g_begin;  // the group whose accumulators acc holds
   if (nstages > 0) {
     fill(0);
     land(0);
   }
-  for (int s = 0; s < nstages; ++s) {
-    if constexpr (sizeof(T) == 4) cp_async_wait_all();  // this thread's copies of stage s
-    // every thread's stage s is in its tile, and every thread is done with
-    // stage s - 1, whose buffer the next fill takes
-    __syncthreads();
-    const bool ahead = s + 1 < nstages;
-    if (ahead) fill(s + 1);
-    const W* x = reinterpret_cast<const W*>(smem + (s & 1) * kTileWords + threadIdx.x * kPitch);
-    const int* code = codes_s + (s & 1) * kCols;
-    const int ncols = min(kCols, j_end - j_begin - s * kCols);
-    // bit c of `starts`: column c begins another group than the column
-    // before it (for c = 0, than cur). Every warp computes the same mask, so
-    // the walk below goes run by run, block-uniformly, with no per-column test
-    const int mine = lane < ncols ? code[lane] : 0;
-    const int prev = lane == 0 ? cur : code[lane - 1];
-    const unsigned starts = __ballot_sync(kFull, lane < ncols && mine != prev);
-    int c = 0;
-    while (c < ncols) {
-      if ((starts >> c) & 1u) {
-        const int g = code[c];
-        finish(cur, g, acc);
-        acc = Legs::empty();
-        cur = g;
-      }
-      const unsigned later = c == kCols - 1 ? 0u : starts >> (c + 1);
-      const int e = later ? min(c + __ffs(later), ncols) : ncols;  // the run's end
+  if constexpr (WIN == 1) {
+    // the outputs of group `from`, then the empty-group values of the groups
+    // in (from, to)
+    auto finish = [&](int from, int to, const Acc& a) {
+      if (!row_ok) return;
+      legs.put(from, k, a);
+      for (int e = from + 1; e < to; ++e) legs.put(e, k, Legs::empty());
+    };
+    Acc acc = Legs::empty();
+    int cur = g_begin;  // the group whose accumulators acc holds
+    for (int s = 0; s < nstages; ++s) {
+      if constexpr (sizeof(T) == 4) cp_async_wait_all();  // this thread's copies of stage s
+      // every thread's stage s is in its tile, and every thread is done with
+      // stage s - 1, whose buffer the next fill takes
+      __syncthreads();
+      const bool ahead = s + 1 < nstages;
+      if (ahead) fill(s + 1);
+      const W* x = reinterpret_cast<const W*>(smem + (s & 1) * kTileWords + threadIdx.x * kPitch);
+      const int* code = codes_s + (s & 1) * kCols;
+      const int ncols = min(kCols, j_end - j_begin - s * kCols);
+      // bit c of `starts`: column c begins another group than the column
+      // before it (for c = 0, than cur). Every warp computes the same mask,
+      // so the walk below goes run by run, block-uniformly, with no
+      // per-column test
+      const int mine = lane < ncols ? code[lane] : 0;
+      const int prev = lane == 0 ? cur : code[lane - 1];
+      const unsigned starts = __ballot_sync(kFull, lane < ncols && mine != prev);
+      int c = 0;
+      while (c < ncols) {
+        if ((starts >> c) & 1u) {
+          const int g = code[c];
+          finish(cur, g, acc);
+          acc = Legs::empty();
+          cur = g;
+        }
+        const unsigned later = c == kCols - 1 ? 0u : starts >> (c + 1);
+        const int e = later ? min(c + __ffs(later), ncols) : ncols;  // the run's end
 #pragma unroll 4
-      for (; c < e; ++c) Legs::add(acc, x[c]);
+        for (; c < e; ++c) Legs::add(acc, x[c]);
+      }
+      if (ahead) land(s + 1);
     }
-    if (ahead) land(s + 1);
+    finish(cur, g_end, acc);
+  } else {
+    Acc acc[WIN];  // acc[w]: group g_begin + w
+#pragma unroll
+    for (int w = 0; w < WIN; ++w) acc[w] = Legs::empty();
+    for (int s = 0; s < nstages; ++s) {
+      if constexpr (sizeof(T) == 4) cp_async_wait_all();
+      __syncthreads();  // as in the run walk
+      const bool ahead = s + 1 < nstages;
+      if (ahead) fill(s + 1);
+      const W* x = reinterpret_cast<const W*>(smem + (s & 1) * kTileWords + threadIdx.x * kPitch);
+      const int ncols = min(kCols, j_end - j_begin - s * kCols);
+      const int mine = lane < ncols ? codes_s[(s & 1) * kCols + lane] - g_begin : -1;
+#pragma unroll
+      for (int w = 0; w < WIN; ++w) {
+        // group w's columns of the stage, added in ascending column order;
+        // every warp computes the same mask
+        for (unsigned m = __ballot_sync(kFull, mine == w); m; m &= m - 1)
+          Legs::add(acc[w], x[__ffs(m) - 1]);
+      }
+      if (ahead) land(s + 1);
+    }
+    if (row_ok) {
+#pragma unroll
+      for (int w = 0; w < WIN; ++w)
+        if (g_begin + w < g_end) legs.put(g_begin + w, k, acc[w]);
+    }
   }
-  finish(cur, g_end, acc);
 }
 
-template <typename T, typename Legs>
+template <typename T, int WIN, typename Legs>
 cudaError_t launch(const void* data, const int* perm, const int* scodes, const int* offsets,
                    long long N, int size, int groups, int nseg, long long blocks,
                    const Legs& legs, cudaStream_t stream) {
   constexpr size_t smem = (2 * kTileWords + 2 * kCols) * sizeof(float);
-  auto kernel = segment_reduce_kernel<T, Legs>;
+  auto kernel = segment_reduce_kernel<T, Legs, WIN>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -403,12 +460,17 @@ inline bool grid(long long K, long long N, int size, int groups, int& nseg, long
 }
 
 template <typename T, bool MINMAX>
-cudaError_t launch_accum(int accum, const void* data, const int* perm, const int* scodes,
-                         const int* offsets, long long N, int size, int groups, int nseg,
-                         long long blocks, float* const outs[4], void* mins, void* maxs,
-                         long long K, cudaStream_t st) {
+cudaError_t launch_accum(int accum, int window, const void* data, const int* perm,
+                         const int* scodes, const int* offsets, long long N, int size,
+                         int groups, int nseg, long long blocks, float* const outs[4],
+                         void* mins, void* maxs, long long K, cudaStream_t st) {
   auto run = [&](auto legs) {
-    return launch<T>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, legs, st);
+    if constexpr (!MINMAX) {
+      if (window == kWindow)
+        return launch<T, kWindow>(data, perm, scodes, offsets, N, size, groups, nseg, blocks,
+                                  legs, st);
+    }
+    return launch<T, 1>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, legs, st);
   };
   T* mn = static_cast<T*>(mins);
   T* mx = static_cast<T*>(maxs);
@@ -423,26 +485,30 @@ cudaError_t launch_accum(int accum, const void* data, const int* perm, const int
 
 // B1's and B2's C entry points: dispatch over dtype (0 float32, 1 bfloat16)
 // and accum (0 plain, 1 kahan, 2 dd) on the binned codes (see above),
-// `groups` groups per block. Returns the cudaError_t of the launch;
-// cudaErrorInvalidValue for a shape, dtype or accum it refuses.
+// `groups` groups per block; `window` 1 for the run walk, or kWindow (B1
+// only, with groups = min(kWindow, size), on bins made by window) for the
+// window walk. Returns the cudaError_t of the launch; cudaErrorInvalidValue
+// for a shape, dtype, accum or window it refuses.
 template <bool MINMAX>
 int dispatch_segment_reduce(const void* data, int dtype, const int* perm, const int* scodes,
                             const int* offsets, long long K, long long N, int size, int groups,
-                            int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
-                            void* mins, void* maxs, void* stream) {
+                            int window, int accum, void* sums, void* nan_c, void* pos_c,
+                            void* neg_c, void* mins, void* maxs, void* stream) {
   int nseg;
   long long blocks;
   if (!grid(K, N, size, groups, nseg, blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  if (window != 1 && (MINMAX || window != kWindow || groups != min(kWindow, size)))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* const outs[4] = {static_cast<float*>(sums), static_cast<float*>(nan_c),
                           static_cast<float*>(pos_c), static_cast<float*>(neg_c)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
-    err = launch_accum<float, MINMAX>(accum, data, perm, scodes, offsets, N, size, groups, nseg,
-                                      blocks, outs, mins, maxs, K, st);
+    err = launch_accum<float, MINMAX>(accum, window, data, perm, scodes, offsets, N, size, groups,
+                                      nseg, blocks, outs, mins, maxs, K, st);
   else if (dtype == 1)
-    err = launch_accum<uint16_t, MINMAX>(accum, data, perm, scodes, offsets, N, size, groups,
-                                         nseg, blocks, outs, mins, maxs, K, st);
+    err = launch_accum<uint16_t, MINMAX>(accum, window, data, perm, scodes, offsets, N, size,
+                                         groups, nseg, blocks, outs, mins, maxs, K, st);
   return static_cast<int>(err);
 }
 
@@ -457,8 +523,8 @@ int dispatch_segment_extremum(const void* data, int dtype, const int* perm, cons
   if (!grid(K, N, size, groups, nseg, blocks)) return static_cast<int>(cudaErrorInvalidValue);
   auto run = [&](auto legs) {
     using T = std::remove_pointer_t<decltype(legs.out)>;
-    return launch<T>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, legs,
-                     static_cast<cudaStream_t>(stream));
+    return launch<T, 1>(data, perm, scodes, offsets, N, size, groups, nseg, blocks, legs,
+                        static_cast<cudaStream_t>(stream));
   };
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)

@@ -18,16 +18,21 @@
 // addend Dekker-split and merged with two_sum).
 //
 // Design: segment_reduce.cuh with its MINMAX legs off. Blocks of 256 rows,
-// one thread each, over a segment of whole consecutive groups (the number
-// derived from size and K by the wrapper); cp.async-staged (256, 33) tiles
-// of 32 columns, double-buffered; one ballot per stage marks where the code
-// changes, and each thread walks its row's columns in order with the
-// accumulators in registers.
+// one thread each, over a segment of whole consecutive groups;
+// cp.async-staged (256, 33) tiles of 32 columns, double-buffered, with the
+// accumulators in registers. Two walks, chosen by the wrapper from the
+// shape (cuda_kernels._window): where the groups average four 32-column
+// stages or more (N >= 128 * size), the run walk, over groups in code order
+// (one ballot per stage marks where the code changes; the groups per block
+// derived from size and K); else the window walk, over windows of 8
+// consecutive groups whose columns come in column order (one ballot per
+// stage and group), so that neighbouring groups' words of one 32-byte
+// sector are read by one block.
 //
 // Invariants: per (group, row) the sum is sequential over the group's
-// columns in column order, so it equals the radix-binning kernel
-// (segment_radixbin.cu) bit for bit at any size <= 512 and does not depend
-// on where other groups' columns lie; the multi-statistic kernel
+// columns in column order under either walk, so it equals the radix-binning
+// kernel (segment_radixbin.cu) bit for bit at any size <= 512 and does not
+// depend on where other groups' columns lie; the multi-statistic kernel
 // (segment_multistat.cu), the same template, gives these sums and markers
 // bit for bit; no atomics, so two launches give the same bits.
 //
@@ -44,14 +49,16 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16. accum: 0 plain, 1 kahan, 2 dd. perm, scodes
 // (N,) and offsets (size + 1,) int32 are the binned codes; groups is the
-// number of groups per block (1 <= groups <= size <= 512). Returns the
-// cudaError_t of the launch (0 on success).
+// number of groups per block (1 <= groups <= size <= 512); window is 1 (the
+// run walk) or 8 (the window walk, with groups min(8, size), on codes
+// binned by window of 8 groups). Returns the cudaError_t of the launch (0 on success).
 int flox_segment_sum(const void* data, int dtype, const int* perm, const int* scodes,
                      const int* offsets, long long K, long long N, int size, int groups,
-                     int accum, void* sums, void* nan_c, void* pos_c, void* neg_c, void* stream) {
+                     int window, int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
+                     void* stream) {
   return flox::dispatch_segment_reduce<false>(data, dtype, perm, scodes, offsets, K, N, size,
-                                              groups, accum, sums, nan_c, pos_c, neg_c, nullptr,
-                                              nullptr, stream);
+                                              groups, window, accum, sums, nan_c, pos_c, neg_c,
+                                              nullptr, nullptr, stream);
 }
 
 const char* flox_error_string(int err) {

@@ -90,6 +90,8 @@ _MAX_BINNED_COLS = 2**31 - 33
 _ROWS_PER_BLOCK = 256
 _STAGE_COLS = 32
 _BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 2, torch.int32: 3}
+#: csrc/segment_reduce.cuh: groups of B1's window walk (kWindow)
+_WINDOW = 8
 
 
 def _call_bytes(data: torch.Tensor, out_bytes: int) -> int:
@@ -106,11 +108,12 @@ def _declare(name: str, data: torch.Tensor, out_bytes: int, ops_per_elem: int) -
         note_launch(name, _call_bytes(data, out_bytes), ops_per_elem * data.numel())
 
 
-def _launch_span(name: str, data: torch.Tensor, outs):
+def _launch_span(name: str, data: torch.Tensor, outs, **attrs):
     """The ``launch`` span around one kernel's ctypes call: the kernel's name
-    and the bytes it must move, as :func:`_declare` reckons them."""
+    and the bytes it must move, as :func:`_declare` reckons them, and
+    ``attrs``."""
     nbytes = _call_bytes(data, sum(o.nbytes for o in outs)) if telemetry.enabled() else 0
-    return telemetry.span("launch", kernel=name, nbytes=nbytes)
+    return telemetry.span("launch", kernel=name, nbytes=nbytes, **attrs)
 
 
 def reset_launches() -> None:
@@ -196,7 +199,9 @@ def segment_sum_raw(data: torch.Tensor, codes: torch.Tensor, size: int, accum: s
     ``pallas_accum`` option) is "plain", "kahan" or "dd". float32 and
     bfloat16 data; sums accumulate in float32 either way. On the card the
     codes are binned first (:func:`_radixbin_bins`) and the kernel walks each
-    group's columns in column order, one thread per row: per (group, row) the
+    group's columns in column order, one thread per row, a group at a time or,
+    where the groups average fewer than four 32-column stages
+    (:func:`_window`), 8 neighbouring groups at a time: per (group, row) the
     sum is sequential over the group's columns under ``accum``, the bits of
     :func:`segment_sum_radixbin_raw` on the same input.
     """
@@ -238,6 +243,16 @@ def _groups_per_block(size: int, k: int, n: int, slots: int) -> int:
     return max(1, min(stage, fill, size))
 
 
+def _window(size: int, n: int) -> int:
+    """The window of B1 (csrc/segment_reduce.cuh) for ``size`` groups over
+    ``n`` columns: 8, the window walk over 8 consecutive groups in column
+    order, where the groups average fewer than four 32-column stages each
+    (``n < 128 * size``); else 1, the run walk over :func:`_groups_per_block`
+    groups in code order. OISST's 366 days of the year over 14532 days take
+    the window; the main path's 12 months over 26304 hours do not."""
+    return _WINDOW if n < 4 * _STAGE_COLS * size else 1
+
+
 _REDUCE_ARGTYPES = [_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I]
 
 
@@ -263,17 +278,29 @@ def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
         for o, v in zip(outs, empty):
             o.fill_(v)
         return tuple(outs)
-    lib = _lib(name, _REDUCE_ARGTYPES + [_P] * (len(outs) + 1))
+    # B1 alone has a window walk, and takes the window before its accum
+    if name == "segment_sum":
+        window = _window(size, n)
+        lib = _lib(name, _REDUCE_ARGTYPES + [_I] + [_P] * (len(outs) + 1))
+        walk = (window, code)
+    else:
+        window = 1
+        lib = _lib(name, _REDUCE_ARGTYPES + [_P] * (len(outs) + 1))
+        walk = (code,)
     # the kernel gathers rows of (K, N) row-major: a non-contiguous input is
     # copied once here; a contiguous one (the usual case) is read in place
     data = data.contiguous()
-    perm, sorted_codes, offsets = _radixbin_bins(codes, size)
-    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
-    groups = _groups_per_block(size, k, n, sms * _BLOCKS_PER_SM[data.dtype])
-    with _launch_span(name, data, outs):
+    perm, sorted_codes, offsets = _radixbin_bins(codes, size, window)
+    if window > 1:
+        groups = min(window, size)
+        telemetry.count("kernels.window_launches")
+    else:
+        sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+        groups = _groups_per_block(size, k, n, sms * _BLOCKS_PER_SM[data.dtype])
+    with _launch_span(name, data, outs, window=window):
         err = getattr(lib, f"flox_{name}")(
             data.data_ptr(), _MINMAX_DTYPES[data.dtype], perm.data_ptr(),
-            sorted_codes.data_ptr(), offsets.data_ptr(), k, n, size, groups, code,
+            sorted_codes.data_ptr(), offsets.data_ptr(), k, n, size, groups, *walk,
             *(o.data_ptr() for o in outs), _stream(data.device),
         )
     _build.check(lib, err, f"{name} launch")
@@ -342,7 +369,7 @@ def segment_sum_radixbin(data, codes, size: int, accum: str | None = None, *,
         return reapply_nonfinite(*raw, skipna=skipna)
 
 
-def _radixbin_bins(codes: torch.Tensor, size: int):
+def _radixbin_bins(codes: torch.Tensor, size: int, window: int = 1):
     """The view of ``codes`` (N,) that the segment-sum, multi-statistic and
     radix-binning kernels take: ``(perm, sorted_codes, offsets)``, all int32
     on the codes' device.
@@ -354,13 +381,26 @@ def _radixbin_bins(codes: torch.Tensor, size: int):
     original order and ``offsets[size]`` counts the valid codes. Device ops
     over the N codes only, with no host sync; for sorted codes ``perm`` is the
     identity.
+
+    With a ``window`` of w > 1 groups, a power of two (B1's window walk),
+    ``perm`` orders the columns stably by their window's first group instead,
+    the codes outside [0, size) mapped to the first group past the last
+    window and so last; ``sorted_codes`` holds the mapped codes in that
+    order; ``offsets[g]`` counts the valid columns of the windows that start
+    below g. So the window over groups [g0, g0 + w) owns columns
+    ``perm[offsets[g0]:offsets[min(g0 + w, size)]]`` in their original order,
+    and ``offsets`` at each window's first group and at ``size`` is the
+    code-major count. One sort either way, and two more ops.
     """
     with telemetry.span("bins", n=codes.shape[-1], size=size):
-        key = torch.where((codes >= 0) & (codes < size), codes, size).to(torch.int32)
-        sorted_codes, perm = torch.sort(key, stable=True)
+        past = -(-size // window) * window  # size when window is 1
+        key = torch.where((codes >= 0) & (codes < size), codes, past).to(torch.int32)
+        order = key if window == 1 else key & -window
+        sorted_order, perm = torch.sort(order, stable=True)
         starts = torch.arange(size + 1, dtype=torch.int32, device=codes.device)
-        offsets = torch.searchsorted(sorted_codes, starts, out_int32=True)
-        return perm.to(torch.int32), sorted_codes, offsets
+        offsets = torch.searchsorted(sorted_order, starts, out_int32=True)
+        perm = perm.to(torch.int32)
+        return perm, sorted_order if window == 1 else key.index_select(0, perm), offsets
 
 
 def _segment_sum_radixbin_cuda(data, codes, size: int, accum: str):

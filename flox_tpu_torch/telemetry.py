@@ -9,7 +9,9 @@ ledger with device time, and the exporters (the port of
   ``program-build``, ``program`` and ``combine`` on a mesh, one
   ``stream[...]`` span per streaming pass. Below them the port's own
   steps: ``bins`` (the codes binned for a hand-written kernel),
-  ``launch`` (the kernel itself, with the bytes it must move), ``legs``
+  ``launch`` (the kernel itself, with the bytes it must move and, for the
+  segment-sum, multi-statistic and min/max kernels, the ``window`` of
+  their walk; the ``kernels.window_launches`` counter), ``legs``
   (the elementwise passes after a kernel or a mesh combine returns) and
   ``collective`` (one collective of the mesh, with its bytes; the
   ``mesh.collectives`` and ``mesh.collective_bytes`` counters). While a

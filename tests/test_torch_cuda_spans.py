@@ -42,14 +42,19 @@ def _spans(name):
     ("segment_cumsum", lambda d, c: ck.segment_cumsum(d, c, 12, True), 64 * 1000 * 4),
 ])
 def test_launch_span_names_the_kernel_and_its_bytes(cuda_device, kernel, call, out_bytes):
+    """The ``launch`` span names the kernel and its bytes; B1, B2 and B3 add
+    their walk's ``window``: 1000 columns over 12 groups take B1's window
+    walk (8), B2 and B3 their run walk (1)."""
     rng = np.random.default_rng(0)
     data = torch.from_numpy(rng.normal(size=(64, 1000)).astype(np.float32)).to(cuda_device)
     codes = torch.from_numpy(rng.integers(0, 12, 1000)).to(cuda_device)
     with flox_tpu_torch.set_options(telemetry=True):
         call(data, codes)
     (launch,) = _spans("launch")
+    window = {"segment_sum": 8, "segment_minmax": 1, "segment_multistat": 1}
     assert launch["attrs"] == {"kernel": kernel,
-                               "nbytes": 64 * 1000 * 4 + 1000 * 4 + out_bytes}
+                               "nbytes": 64 * 1000 * 4 + 1000 * 4 + out_bytes,
+                               **({"window": window[kernel]} if kernel in window else {})}
     if kernel != "segment_cumsum":  # B4 reads the codes as they are
         (bins,) = _spans("bins")
         assert bins["attrs"] == {"n": 1000, "size": 12}

@@ -423,20 +423,28 @@ def test_groups_per_block_rule(size):
                     assert g == max(1, size * tiles // slots)  # ... to keep the grid full
 
 
+def _pattern_codes(pattern, n, rng):
+    """Codes and size of the layouts the tests bin: months and hours of
+    hourly steps, days of the year of daily steps, random codes (with -1 and
+    out-of-range ones)."""
+    day = np.datetime64("1981-09-01") + np.arange(n)
+    return {
+        "months": (((np.arange(n) // 24 % 365) // 30.44).astype(np.int64) % 12, 12),
+        "hour_of_day": (np.arange(n) % 24, 24),
+        "day_of_year": ((day - day.astype("datetime64[Y]").astype("datetime64[D]"))
+                        .astype(np.int64), 366),
+        "random12": (rng.integers(-1, 13, n), 12),
+        "random512": (rng.integers(0, 520, n), 512),
+    }[pattern]
+
+
 @pytest.mark.parametrize("pattern", ["months", "hour_of_day", "random12", "random512"])
 def test_segments_read_each_column_once(pattern):
     """With g groups per block, the block over groups [g0, g0 + g) reads
     ``perm[offsets[g0] : offsets[min(g0 + g, size)]]``: exactly the columns
     whose codes fall in those groups, in code order and then column order;
     together the segments read every valid column once."""
-    n = 26304
-    rng = np.random.default_rng(5)
-    codes, size = {
-        "months": (((np.arange(n) // 24 % 365) // 30.44).astype(np.int64) % 12, 12),
-        "hour_of_day": (np.arange(n) % 24, 24),
-        "random12": (rng.integers(-1, 13, n), 12),
-        "random512": (rng.integers(0, 520, n), 512),
-    }[pattern]
+    codes, size = _pattern_codes(pattern, 26304, np.random.default_rng(5))
     perm, _, offsets = (t.numpy() for t in ck._radixbin_bins(torch.from_numpy(codes), size))
     for g in (1, 4, 7):
         seen = []
@@ -448,6 +456,57 @@ def test_segments_read_each_column_once(pattern):
             seen.append(cols)
         np.testing.assert_array_equal(np.sort(np.concatenate(seen)),
                                       np.flatnonzero((codes >= 0) & (codes < size)))
+
+
+@pytest.mark.parametrize("pattern", ["months", "hour_of_day", "day_of_year", "random12",
+                                     "random512"])
+def test_windows_read_each_column_once(pattern):
+    """Under B1's window walk the bins order the columns by code // 8: the
+    window over groups [g0, g0 + 8) reads ``perm[offsets[g0] :
+    offsets[min(g0 + 8, size)]]``, exactly the columns whose codes fall in
+    those groups, in column order, with their codes beside them in
+    ``sorted_codes``; together the windows read every valid column once, the
+    invalid ones last; and ``offsets`` at each window's first group and at
+    ``size`` keeps the code-major bins' counts."""
+    n = 14532
+    codes, size = _pattern_codes(pattern, n, np.random.default_rng(8))
+    perm, scodes, offsets = (t.numpy() for t in ck._radixbin_bins(torch.from_numpy(codes),
+                                                                   size, ck._WINDOW))
+    code_major = ck._radixbin_bins(torch.from_numpy(codes), size)[2].numpy()
+    np.testing.assert_array_equal(offsets[::ck._WINDOW], code_major[::ck._WINDOW])
+    assert offsets[size] == code_major[size] == np.count_nonzero((codes >= 0) & (codes < size))
+    seen = []
+    for g0 in range(0, size, ck._WINDOW):
+        g1 = min(g0 + ck._WINDOW, size)
+        cols = perm[offsets[g0]:offsets[g1]]
+        np.testing.assert_array_equal(cols, np.flatnonzero((codes >= g0) & (codes < g1)))
+        np.testing.assert_array_equal(scodes[offsets[g0]:offsets[g1]], codes[cols])
+        seen.append(cols)
+    np.testing.assert_array_equal(np.sort(np.concatenate(seen)),
+                                  np.flatnonzero((codes >= 0) & (codes < size)))
+    np.testing.assert_array_equal(scodes[offsets[size]:], -(-size // 8) * 8)  # past the windows
+
+
+@pytest.mark.parametrize("size,n,want", [
+    (366, 14532, 8),  # OISST: days of the year over 14532 days
+    (366, 6576, 8),  # one card of the four-card ERA5 cell: hourly days of the year
+    (12, 26304, 1),  # the main path's months over 26304 hours
+    (24, 26304, 1),  # hour of day: left to the run walk
+    (12, 1535, 8),  # just under four stages a group
+    (12, 1536, 1),  # four stages a group: the run walk
+    (366, 46847, 8),
+    (366, 46848, 1),
+    (512, 65535, 8),
+    (512, 65536, 1),
+    (3, 383, 8),  # fewer groups than a window: one window holds them all
+    (3, 384, 1),
+    (1, 127, 8),
+    (1, 128, 1),
+])
+def test_window_rule(size, n, want):
+    """B1 takes its window walk where the groups average fewer than four
+    32-column stages (n < 128 * size), and its run walk otherwise."""
+    assert ck._window(size, n) == want
 
 
 class _FakeLib:
@@ -476,8 +535,8 @@ def fake_card(monkeypatch):
     bins = []
     real_bins = ck._radixbin_bins
 
-    def record_bins(codes, size):
-        bins.append(real_bins(codes, size))
+    def record_bins(codes, size, window=1):
+        bins.append(real_bins(codes, size, window))
         return bins[-1]
 
     class _Props:
@@ -491,36 +550,103 @@ def fake_card(monkeypatch):
     return lib, bins
 
 
+def _launch_with_telemetry(name, data, codes, size, mode):
+    """:func:`_segment_reduce_cuda` with telemetry on: its outputs, the
+    ``kernels.window_launches`` count and the ``launch`` spans' attributes."""
+    from flox_tpu_torch import telemetry
+
+    telemetry.reset()
+    try:
+        with set_options(telemetry=True):
+            outs = ck._segment_reduce_cuda(name, data, codes, size, mode)
+        counted = telemetry.METRICS.get("kernels.window_launches")
+        spans = [r["attrs"] for r in telemetry.spans()
+                 if r["type"] == "span" and r["name"] == "launch"]
+    finally:
+        telemetry.reset()
+    return outs, counted, spans
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["segment_sum", "segment_multistat"])
 def test_binned_launch_arguments(fake_card, name, dtype):
     """What the wrapper hands the C entry point: the data in place, the
-    binned codes of :func:`_radixbin_bins`, (K, N, size), the derived groups
-    per block (3 float32 blocks or 2 bfloat16 ones on each of 132 SMs), the
-    accum code and the outputs it returns; one launch counted."""
+    binned codes of :func:`_radixbin_bins`, (K, N, size), the groups per
+    block, the accum code and the outputs it returns; one launch counted. At
+    300 columns over 12 groups (fewer than four 32-column stages a group)
+    B1 takes its window walk: bins by code // 8, 8 groups a block, a window
+    argument of 8 before the accum, one ``kernels.window_launches`` and
+    ``window`` 8 on the ``launch`` span. B2 keeps its run walk: code-major
+    bins, the derived groups per block (3 float32 blocks or 2 bfloat16 ones
+    on each of 132 SMs), no window argument, ``window`` 1."""
     lib, bins = fake_card
     rng = np.random.default_rng(6)
     k, n, size = 600, 300, 12
     data = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dtype)
     codes = torch.from_numpy(rng.integers(-1, size + 2, n))
     before = dict(ck.LAUNCHES)
-    outs = ck._segment_reduce_cuda(name, data, codes, size, "dd")
+    outs, counted, spans = _launch_with_telemetry(name, data, codes, size, "dd")
     assert ck.LAUNCHES[name] == before[name] + 1
     assert {kk: v for kk, v in ck.LAUNCHES.items() if kk != name} == {
         kk: v for kk, v in before.items() if kk != name}
     ((entry, args),) = lib.calls
     assert entry == f"flox_{name}"
     perm, sorted_codes, offsets = bins[0]
+    windowed = name == "segment_sum"
+    want_bins = ck._radixbin_bins(codes, size, 8 if windowed else 1)
+    assert all(torch.equal(a, b) for a, b in zip(bins[0], want_bins))
     slots = 132 * (3 if dtype == torch.float32 else 2)
-    assert args[:10] == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype],
-                         perm.data_ptr(), sorted_codes.data_ptr(), offsets.data_ptr(), k, n,
-                         size, ck._groups_per_block(size, k, n, slots), 2)
-    assert args[10:-1] == tuple(o.data_ptr() for o in outs)
+    groups = 8 if windowed else ck._groups_per_block(size, k, n, slots)
+    assert args[:9] == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype],
+                        perm.data_ptr(), sorted_codes.data_ptr(), offsets.data_ptr(), k, n,
+                        size, groups)
+    assert args[9:11 if windowed else 10] == ((8, 2) if windowed else (2,))
+    assert args[11 if windowed else 10:-1] == tuple(o.data_ptr() for o in outs)
+    assert counted == (1 if windowed else 0)
+    assert spans == [{"kernel": name, "nbytes": k * n * data.element_size() + n * 4
+                      + sum(o.nbytes for o in outs), "window": 8 if windowed else 1}]
     assert len(outs) == (6 if name == "segment_multistat" else 4)
     for o in outs[:4]:
         assert o.dtype == torch.float32 and tuple(o.shape) == (size, k)
     for o in outs[4:]:
         assert o.dtype == dtype and tuple(o.shape) == (size, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_binned_launch_arguments_run_walk(fake_card, dtype):
+    """B1 where the groups average four 32-column stages or more (2000
+    columns over 12 groups): its run walk, as before the window walk, with
+    code-major bins, the derived groups per block and a window argument of
+    1; no ``kernels.window_launches``."""
+    lib, bins = fake_card
+    rng = np.random.default_rng(9)
+    k, n, size = 600, 2000, 12
+    data = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dtype)
+    codes = torch.from_numpy(rng.integers(-1, size + 2, n))
+    outs, counted, spans = _launch_with_telemetry("segment_sum", data, codes, size, "kahan")
+    ((entry, args),) = lib.calls
+    assert entry == "flox_segment_sum"
+    assert all(torch.equal(a, b) for a, b in zip(bins[0], ck._radixbin_bins(codes, size)))
+    perm, sorted_codes, offsets = bins[0]
+    slots = 132 * (3 if dtype == torch.float32 else 2)
+    assert args == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype],
+                    perm.data_ptr(), sorted_codes.data_ptr(), offsets.data_ptr(), k, n, size,
+                    ck._groups_per_block(size, k, n, slots), 1, 1,
+                    *(o.data_ptr() for o in outs), None)
+    assert counted == 0 and [s["window"] for s in spans] == [1]
+
+
+@pytest.mark.parametrize("size", [1, 3, 7, 8, 9])
+def test_window_launch_groups(fake_card, size):
+    """The window walk's block holds min(8, size) groups: one window holds
+    all of fewer than 8 groups, and a last window the remainder."""
+    lib, bins = fake_card
+    k, n = 300, 100
+    codes = torch.from_numpy(np.random.default_rng(size).integers(-1, size + 1, n))
+    ck._segment_reduce_cuda("segment_sum", torch.ones((k, n)), codes, size, "plain")
+    ((entry, args),) = lib.calls
+    assert entry == "flox_segment_sum" and args[7:11] == (size, min(8, size), 8, 0)
+    assert all(torch.equal(a, b) for a, b in zip(bins[0], ck._radixbin_bins(codes, size, 8)))
 
 
 @pytest.mark.parametrize("shape", [(5, 0), (0, 7), (0, 0)], ids=str)
