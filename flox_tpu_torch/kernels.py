@@ -207,7 +207,9 @@ def _seg_matmul_raw(data: torch.Tensor, codes: torch.Tensor, size: int):
     poison every other group) and counted by their own product, one GEMM over
     the three stacked 0/1 masks. K runs in blocks sized by
     ``matmul_block_bytes`` (four (block, N) masks of the data's itemsize, as
-    in the reference), the ragged tail unpadded.
+    in the reference), the ragged tail unpadded, under one ``matmul`` span
+    (the shape, the dtype, the blocks, and ``nbytes``: the data's bytes,
+    which the call must read) and the ``kernels.matmul_blocks`` counter.
 
     Numerics: bfloat16 and float16 are cast to float32 first (a bf16 product
     cannot count past 256; the cast is exact), the masks' products are exact
@@ -227,13 +229,18 @@ def _seg_matmul_raw(data: torch.Tensor, codes: torch.Tensor, size: int):
     onehot_wide = onehot_acc if wide == acc else onehot.to(wide)
     out = torch.empty((4, k, size), dtype=acc, device=data.device)
     kb = max(8, OPTIONS["matmul_block_bytes"] // (4 * max(n, 1) * data.element_size()) // 8 * 8)
-    for start in range(0, k, kb):
-        block = data[start:start + kb].to(acc)
-        marks = torch.stack((torch.isnan(block), torch.isposinf(block),
-                             torch.isneginf(block))).to(acc)
-        zeroed = torch.nan_to_num(block, nan=0.0, posinf=0.0, neginf=0.0)
-        out[0, start:start + kb] = torch.matmul(zeroed.to(wide), onehot_wide)
-        out[1:, start:start + kb] = torch.matmul(marks, onehot_acc)
+    blocks = -(-k // kb)
+    telemetry.count("kernels.matmul_blocks", blocks)
+    dtype = str(data.dtype).removeprefix("torch.")
+    nbytes = data.numel() * data.element_size()
+    with telemetry.span("matmul", k=k, n=n, size=size, dtype=dtype, blocks=blocks, nbytes=nbytes):
+        for start in range(0, k, kb):
+            block = data[start:start + kb].to(acc)
+            marks = torch.stack((torch.isnan(block), torch.isposinf(block),
+                                 torch.isneginf(block))).to(acc)
+            zeroed = torch.nan_to_num(block, nan=0.0, posinf=0.0, neginf=0.0)
+            out[0, start:start + kb] = torch.matmul(zeroed.to(wide), onehot_wide)
+            out[1:, start:start + kb] = torch.matmul(marks, onehot_acc)
     return out[0], out[1], out[2], out[3]
 
 
