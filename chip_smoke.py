@@ -170,6 +170,11 @@ Phases; any failure exits nonzero:
 It then prints the peak device memory, the card's name and power limit, one
 JSON line of the kernels, and, last, ``{"ok": true, "device": {...}}``.
 
+``--mean-finalize`` runs only the build and :func:`phase_mean_finalize`,
+which the full run takes after the window walk's times: the mean finalize
+against its plain version, bit for bit and timed, at the daily and OISST
+cells' leg shapes.
+
 ``--mesh-cards N`` runs only the build and :func:`phase_mesh_cards`: the
 full-width mesh calls on N NCCL ranks, one card each, against one card's
 eager calls (exact, or within the float32 bars of other summation orders),
@@ -205,6 +210,10 @@ DAY0 = 29220  # 2020-01-01 in days since 1940-01-01, ERA5's first day
 NUNIVERSE = 36524  # the days 1940-01-01 to 2039-12-31
 SORT_ROWS = 8192  # the sort engine's cut: its dense result is scattered on the host
 DEVICE = "cuda"
+#: the launches of a skipna mean on the card: B1 or B5, then the mean
+#: finalize over their raw legs
+B1_MEAN = {"segment_sum": 1, "mean_finalize": 1}
+B5_MEAN = {"segment_sum_radixbin": 1, "mean_finalize": 1}
 
 
 def check(cond, msg: str) -> None:
@@ -662,6 +671,86 @@ def phase_window_times(seed: int, reps: int) -> dict:
     return out
 
 
+def _finalize_legs(size: int, k: int, rows: int, seed: int):
+    """Raw (size, K) legs of B1 or B5 at a cell's shape, made on the card from
+    ``seed``: ``rows`` columns a group (every 97th group empty), 30 % of the
+    rows all NaN (land), a few NaN elsewhere, and +inf, -inf and both
+    sprinkled; returns ``(legs, rowcount)``."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    rowcount = torch.full((size,), rows, dtype=torch.int32, device=DEVICE)
+    rowcount[::97] = 0
+    rows_f = rowcount.float()[:, None]
+    land = torch.rand(k, generator=gen, device=DEVICE) < 0.3
+    r = torch.rand((size, k), generator=gen, device=DEVICE)
+    nan_c = torch.where(land, rows_f, torch.minimum(torch.floor(r * 3), rows_f))
+    pos_c = (r < 1e-3).float()
+    neg_c = ((r > 0.9995) | (r < 2e-4)).float()
+    del r
+    sums = torch.randn((size, k), generator=gen, device=DEVICE) * 300
+    sums = torch.where(nan_c < rows_f, sums, 0.0)
+    return [t.contiguous() for t in (sums, nan_c, pos_c, neg_c)], rowcount
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits where not NaN, and NaN at the same places (payloads
+    aside)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(bits(a[~na]), bits(b[~nb]))
+
+
+def phase_mean_finalize(seed: int, reps: int) -> dict:
+    """The mean finalize (csrc/mean_finalize.cu) against its plain version,
+    the torch passes that finished the skipna mean before it, at the leg
+    shapes of the daily cell (1096 groups of 519840 rows, 24 hours a day)
+    and of OISST (366 days of the year of 1036800 rows, 39 or 40 days a
+    year): bit for bit, NaN payloads aside, for float32 and bfloat16 results
+    and NaN and -999 fills, then each timed (CUDA events) beside its bound,
+    4 legs read and the result written once at 3.35 TB/s, and the plain
+    version's time."""
+    from flox_tpu_torch import cuda_kernels as ck
+
+    out = {}
+    for name, size, k, rows in (("daily", NDAYS, 519840, 24), ("oisst", 366, 1036800, 40)):
+        legs, rowcount = _finalize_legs(size, k, rows, seed)
+        for dtype, fill in itertools.product((torch.float32, torch.bfloat16),
+                                             (float("nan"), -999.0)):
+            ck.reset_launches()
+            got = ck.mean_finalize(*legs, rowcount, fill, dtype)
+            want = ck.mean_finalize_plain(*legs, rowcount, fill, dtype)
+            torch.cuda.synchronize()
+            check(ck.LAUNCHES["mean_finalize"] == 1, f"mean finalize {name}: launches "
+                  f"{ck.LAUNCHES}")
+            check(got.is_contiguous() and tuple(got.shape) == (k, size) and got.dtype == dtype,
+                  f"mean finalize {name}: result {tuple(got.shape)} {got.dtype}")
+            check(_same_bits(got, want), f"mean finalize {name} {dtype} fill {fill}: differs "
+                  "from its plain version")
+            del got, want
+        torch.cuda.empty_cache()
+        row = {"shape": [size, k]}
+        for dtype in (torch.float32, torch.bfloat16):
+            nbytes = 4 * size * k * 4 + size * 4 + size * k * dtype.itemsize
+            tag = str(dtype).removeprefix("torch.")
+            row[tag] = {
+                "ms": time_ms(lambda: ck.mean_finalize(*legs, rowcount, float("nan"), dtype),
+                              reps),
+                "plain_ms": time_ms(
+                    lambda: ck.mean_finalize_plain(*legs, rowcount, float("nan"), dtype),
+                    max(2, reps // 2)),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            }
+            row[tag]["roofline_pct"] = 100 * row[tag]["bound_ms"] / row[tag]["ms"]
+            torch.cuda.empty_cache()
+        out[name] = row
+        print(f"[mean-finalize] {name} legs {size} x {k}: bit for bit its plain version "
+              f"(float32 and bfloat16, NaN and -999 fills); {json.dumps(row)}")
+        del legs, rowcount
+        torch.cuda.empty_cache()
+    return out
+
+
 def _radixbin_sweep(ck, gen, k: int, n: int) -> float:
     """B5 against its plain version at B1's bars, with the markers exact and
     reruns bit-identical, over sorted and random codes, each with -1 and
@@ -1110,10 +1199,10 @@ def phase_main_path(seed: int):
         check(np.array_equal(groups, np.arange(NGROUPS)), f"{funcs}: groups {groups}")
         return out
 
-    # groupby_reduce: nanmean is one segment-sum launch, nanmax one
+    # groupby_reduce: nanmean is one segment-sum launch and one mean finalize, nanmax one
     # segment-min/max launch, var two segment-sum launches
     results = {
-        "nanmean": _drive(ck, "nanmean", lambda: reduce("nanmean"), {"segment_sum": 1}, totals),
+        "nanmean": _drive(ck, "nanmean", lambda: reduce("nanmean"), B1_MEAN, totals),
         "nanmax": _drive(ck, "nanmax", lambda: reduce("nanmax"), {"segment_minmax": 1}, totals),
         "var": _drive(ck, "var", lambda: reduce("var"), {"segment_sum": 2}, totals),
     }
@@ -1201,7 +1290,7 @@ def _daily_and_sort(ck, data, totals) -> None:
         return out
 
     means = _drive(ck, "daily nanmean (1096 groups)", lambda: daily("nanmean"),
-                   {"segment_sum_radixbin": 1}, totals)
+                   B5_MEAN, totals)
     _check_close("daily nanmean", means, _f64_reference(data, day_codes, NDAYS, "nanmean"))
     sums = _drive(ck, "daily sum (1096 groups)", lambda: daily("sum"),
                   {"segment_sum_radixbin": 1}, totals)
@@ -1232,7 +1321,7 @@ def _daily_and_sort(ck, data, totals) -> None:
         return out
 
     out = _drive(ck, f"sort engine nanmean ({SORT_ROWS} rows, {NUNIVERSE}-day universe)",
-                 sort_call, {"segment_sum_radixbin": 1}, totals)
+                 sort_call, B5_MEAN, totals)
     present = pk.present_groups(labels, NUNIVERSE)
     cap = pk.present_cap(len(present), NUNIVERSE)
     check(tuple(out.shape) == (cut.shape[0], NUNIVERSE) and out.dtype == torch.float32
@@ -1507,21 +1596,21 @@ def label_calls(data, month, objs: dict) -> dict:
     trio = ("nanmean", "nanmin", "nanmax")
     calls = {
         "xarray_reduce(da, 'month', nanmean)": (
-            lambda: xr(objs["da"], "month", func="nanmean"), {"segment_sum": 1}),
+            lambda: xr(objs["da"], "month", func="nanmean"), B1_MEAN),
         "xarray_reduce(da, 'day', nanmean)": (
-            lambda: xr(objs["da"], "day", func="nanmean"), {"segment_sum_radixbin": 1}),
+            lambda: xr(objs["da"], "day", func="nanmean"), B5_MEAN),
         "xarray_reduce(ds, 'month', nanmax)": (
             lambda: xr(objs["ds"], "month", func="nanmax"), {"segment_minmax": 2}),
         "xarray_reduce(da, 'lat', nanmean, 18 bins)": (
             lambda: xr(objs["da"], "lat", func="nanmean", isbin=True,
-                       expected_groups=LAT_EDGES), {"segment_sum": 1}),
+                       expected_groups=LAT_EDGES), B1_MEAN),
         "groupby_reduce_device(month on the card, nanmean)": (
             lambda: flox_tpu_torch.groupby_reduce_device(
                 data, objs["month_dev"], func="nanmean", expected_values=np.arange(1, 13)),
-            {"segment_sum": 1}),
+            B1_MEAN),
         "groupby_reduce(prefactorized month, nanmean)": (
             lambda: flox_tpu_torch.groupby_reduce(data, objs["pf"], func="nanmean")[0],
-            {"segment_sum": 1}),
+            B1_MEAN),
         "aggregate_many(prefactorized month, nanmean, nanmin, nanmax)": (
             lambda: flox_tpu_torch.groupby_aggregate_many(data, objs["pf"], funcs=trio)[0],
             {"segment_multistat": 1}),
@@ -1533,7 +1622,7 @@ def label_calls(data, month, objs: dict) -> dict:
         lambda: flox_tpu_torch.groupby_reduce(
             data[:SORT_ROWS], DAY0 + day, func="nanmean", expected_groups=np.arange(NUNIVERSE),
             engine="sort", reindex=ReindexStrategy(array_type=ReindexArrayType.SPARSE_COO))[0],
-        {"segment_sum_radixbin": 1})
+        B5_MEAN)
     calls["groupby_reduce(engine='numpy'), 2048 rows"] = (
         lambda: flox_tpu_torch.groupby_reduce(data[:2048], month, func="nanmean",
                                               engine="numpy")[0], {})
@@ -2135,7 +2224,7 @@ def _mesh_rechunk(ck, data, month, mesh, totals: dict) -> None:
                       lambda: ft.groupby_reduce(out.data, codes, func="nanmean",
                                                 method="blockwise", mesh=mesh,
                                                 expected_groups=np.arange(NGROUPS))[0],
-                      {"segment_sum": 1}, totals)
+                      B1_MEAN, totals)
     _check_close("blockwise nanmean after rechunk_for_blockwise", got,
                  _f64_reference(data, torch.from_numpy(month).to(DEVICE), NGROUPS, "nanmean"))
     del out, got
@@ -3112,11 +3201,11 @@ def phase_telemetry(data, month, totals: dict, reps: int) -> None:
         return flox_tpu_torch.groupby_reduce(data, month, func="nanmean")[0]
 
     telemetry.reset()
-    off = _drive(ck, "nanmean, telemetry off", call, {"segment_sum": 1}, totals)
+    off = _drive(ck, "nanmean, telemetry off", call, B1_MEAN, totals)
     off_ms = time_ms(call, reps)
     with flox_tpu_torch.set_options(telemetry=True, costmodel=True):
         telemetry.reset()
-        on = _drive(ck, "nanmean, telemetry and cost cards on", call, {"segment_sum": 1}, totals)
+        on = _drive(ck, "nanmean, telemetry and cost cards on", call, B1_MEAN, totals)
         records = telemetry.spans()
         row = telemetry.cost_by_program()["bundle[nanmean]"]
         card = costmodel.card_for("bundle[nanmean]")
@@ -3135,16 +3224,19 @@ def phase_telemetry(data, month, totals: dict, reps: int) -> None:
     wall, busy, ours = prof.get("nanmean (months), telemetry off", (None, None, None))
     print(f"[telemetry] ledger device_ms of the dispatch {row['device_ms']!r} ms (CUDA events "
           f"around its launches, read when the ledger was read); the profile's busy time of "
-          f"one call {busy!r} ms ({ours!r} in B1), traced wall {wall!r} ms")
+          f"one call {busy!r} ms ({ours!r} in B1 and the mean finalize), traced wall {wall!r} ms")
 
-    # the cost card: the segment-sum kernel's declared bytes, as PERF.md's
-    # B1 bound counts them
-    want_bytes = k * n * 4 + n * 4 + 4 * NGROUPS * k * 4
+    # the cost card: the segment-sum kernel's and the mean finalize's
+    # declared bytes, as PERF.md's bounds count them
+    legs_bytes = 4 * NGROUPS * k * 4
+    want_bytes = (k * n * 4 + n * 4 + legs_bytes) + (legs_bytes + NGROUPS * 4 + k * NGROUPS * 4)
     check(card is not None and card["analysis"] == "ok", f"cost card: {card}")
     check(card["bytes_accessed"] == want_bytes
-          and card["kernels"]["segment_sum"]["launches"] == 1,
-          f"cost card bytes {card['bytes_accessed']}, the kernel's bound bytes {want_bytes}")
-    bound_ms = max(want_bytes / HBM_BYTES_PER_S, 2 * k * n / F32_FLOPS) * 1e3
+          and card["kernels"]["segment_sum"]["launches"] == 1
+          and card["kernels"]["mean_finalize"]["launches"] == 1,
+          f"cost card bytes {card['bytes_accessed']}, the kernels' bound bytes {want_bytes}")
+    bound_ms = max(want_bytes / HBM_BYTES_PER_S,
+                   (2 * k * n + 3 * k * NGROUPS) / F32_FLOPS) * 1e3
     check(abs(card["predicted_ms"] - bound_ms) < 1e-5,
           f"cost card predicted_ms {card['predicted_ms']}, the bound {bound_ms}")
     print(f"[telemetry] cost card bundle[nanmean] on {card['device']} ({card['power_limit']}): "
@@ -3325,7 +3417,7 @@ def phase_autotune(data, month, totals: dict, reps: int, seed: int) -> dict:
                       f"sweep: {cand} timed without its launches")
             on, on_l = _launched(ck, mean_call, totals, tuned=True)
             twin, twin_l = _launched(ck, mean_call, totals, segment_sum_impl=winner)
-            check(on_l == {kk: int(kk == _SUM_KERNEL_OF[winner]) for kk in on_l},
+            check(on_l == {kk: int(kk in (_SUM_KERNEL_OF[winner], "mean_finalize")) for kk in on_l},
                   f"tuned month nanmean: launches {on_l}, decision {winner!r}")
             how = _held("month nanmean", on, twin, on_l, twin_l)
             if winner == "kernel":
@@ -3782,17 +3874,17 @@ async def _served_checks(d, data, month, day, totals: dict) -> list:
         return lambda: flox_tpu_torch.groupby_reduce(x, labels, func=func, device=DEVICE)[0]
 
     calls = [
-        ("month nanmean", dict(func="nanmean", dataset="month"), {"segment_sum": 1},
+        ("month nanmean", dict(func="nanmean", dataset="month"), B1_MEAN,
          eager_reduce("nanmean", data, month)),
         ("month nanmax", dict(func="nanmax", dataset="month"), {"segment_minmax": 1},
          eager_reduce("nanmax", data, month)),
         ("month trio", dict(func=trio, dataset="month"), {"segment_multistat": 1},
          lambda: flox_tpu_torch.groupby_aggregate_many(data, month, funcs=trio,
                                                        device=DEVICE)[0]),
-        ("daily nanmean", dict(func="nanmean", dataset="day"), {"segment_sum_radixbin": 1},
+        ("daily nanmean", dict(func="nanmean", dataset="day"), B5_MEAN,
          eager_reduce("nanmean", data, day)),
         ("year window nanmean", dict(func="nanmean", dataset="month", rows=[0, year]),
-         {"segment_sum": 1}, eager_reduce("nanmean", data[:, :year], month[:year])),
+         B1_MEAN, eager_reduce("nanmean", data[:, :year], month[:year])),
     ]
     rows = []
     for name, req, want, eager in calls:
@@ -3961,7 +4053,7 @@ def _serve_in_process(data, month, day, totals: dict, host: np.ndarray, out: dic
 
     before = METRICS.get("serve.dispatches")
     res = _drive(ck, "four identical served nanmeans", lambda: asyncio.run(four()),
-                 {"segment_sum": 1}, totals)
+                 B1_MEAN, totals)
     check(METRICS.get("serve.dispatches") - before == 1
           and sum(r.coalesced for r in res) == 3, "four identical requests: not coalesced")
     print("[serve] four identical requests: one dispatch, three coalesced")
@@ -3982,7 +4074,7 @@ def _serve_in_process(data, month, day, totals: dict, host: np.ndarray, out: dic
 
     before = METRICS.get("serve.dispatches")
     res, wall = _drive(ck, "eight micro-batched nanmeans", lambda: asyncio.run(eight()),
-                       {"segment_sum": 1}, totals)
+                       B1_MEAN, totals)
     check(METRICS.get("serve.dispatches") - before == 1
           and all(r.batch_size == 8 for r in res), "eight inline requests: not one batch")
     for p, r in zip(small, res):
@@ -4356,7 +4448,7 @@ def phase_times(data, month, codes, reps: int, launches: dict, seed: int = 0) ->
 # symbol before it was one, so that the profile of an earlier checkout
 # (see pattern_times) counts it too
 _OUR_KERNELS = ("segment_reduce_kernel", "segment_minmax_kernel", "segment_cumsum_kernel",
-                "radixbin_kernel")
+                "radixbin_kernel", "mean_finalize_kernel")
 
 
 def wrapper_calls(data) -> dict:
@@ -4615,6 +4707,8 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--mesh-cards", type=int, default=0,
                         help="run only the multi-card mesh phase on this many cards")
+    parser.add_argument("--mean-finalize", action="store_true",
+                        help="run only the mean finalize phase")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4625,8 +4719,11 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
-    if args.mesh_cards:
-        phase_mesh_cards(args.seed, args.mesh_cards, max(3, args.reps // 2))
+    if args.mesh_cards or args.mean_finalize:
+        if args.mesh_cards:
+            phase_mesh_cards(args.seed, args.mesh_cards, max(3, args.reps // 2))
+        else:
+            phase_mean_finalize(args.seed, args.reps)
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60).stdout.strip())
@@ -4642,6 +4739,8 @@ def main() -> int:
     mark("kernels")
     phase_window_times(args.seed, max(3, args.reps // 2))
     mark("window walk at the OISST shape")
+    phase_mean_finalize(args.seed, max(3, args.reps // 2))
+    mark("mean finalize at the daily and OISST leg shapes")
     data, month, codes, launches, _scan_err = phase_main_path(args.seed)
     mark("main path")
     phase_matmul(data, month, codes, launches, max(3, args.reps // 2))

@@ -38,6 +38,7 @@ SOURCES = {
     "segment_multistat": "segment_multistat.cu",
     "segment_cumsum": "segment_cumsum.cu",
     "segment_radixbin": "segment_radixbin.cu",
+    "mean_finalize": "mean_finalize.cu",
 }
 
 NVCC_FLAGS = (

@@ -16,16 +16,21 @@ kernel (source)           replaces (flox_tpu/pallas_kernels.py)       plain vers
 ``segment_sum_radixbin``  ``_radixbin_kernel`` (B5), via               ``segment_sum_radixbin_plain``
 (csrc/segment_radixbin    ``segment_sum_radixbin_pallas``
 .cu)
+``mean_finalize``         none: the skipna mean's finish from B1's or    ``mean_finalize_plain``
+(csrc/mean_finalize.cu)   B5's raw legs, which XLA fuses for the
+                          reference
 ========================  ==========================================  =====================
 
-Every kernel takes ``data`` as (K, N), N contiguous — the trailing-reduce
+Every kernel of B1-B5 takes ``data`` as (K, N), N contiguous — the trailing-reduce
 layout the caller already holds — and reads it once, in place. The three
 reductions are bound by that read: K*N*itemsize bytes over the card's memory
 rate (3.35 TB/s on an H100 SXM), 2.05 ms for the 65160 x 26304 float32
 benchmark array; the cumsum also writes a (K, N) result, 4.09 ms (computed,
 not measured). The radix-binning kernel also writes 4*size*K*4 bytes of
 outputs, which at the 1096 day groups of the daily means is 1.14 GB more,
-2.39 ms in all. The design notes sit at the top of each source; the segment-
+2.39 ms in all. The mean finalize reads four such legs once and writes the
+(K, size) mean: 11.4 GB, 3.40 ms, at the daily cell's 1096 groups of 519,840
+rows (computed). The design notes sit at the top of each source; the segment-
 sum, multi-statistic and segment-min/max kernels share theirs
 (csrc/segment_reduce.cuh).
 
@@ -51,6 +56,8 @@ from .options import OPTIONS, VALID_ACCUMS
 
 __all__ = [
     "LAUNCHES",
+    "mean_finalize",
+    "mean_finalize_plain",
     "reset_launches",
     "segment_cumsum",
     "segment_cumsum_plain",
@@ -68,7 +75,7 @@ __all__ = [
 
 #: kernel launches since the last reset, one per launch of each kernel
 LAUNCHES = {"segment_sum": 0, "segment_minmax": 0, "segment_multistat": 0, "segment_cumsum": 0,
-            "segment_sum_radixbin": 0}
+            "segment_sum_radixbin": 0, "mean_finalize": 0}
 #: the serving dispatcher launches from worker threads: increments take it
 _LAUNCH_LOCK = threading.Lock()
 
@@ -428,6 +435,96 @@ def segment_sum_radixbin_plain(data: torch.Tensor, codes: torch.Tensor, size: in
     function as :func:`segment_sum_raw_plain`, whose ``index_add_`` takes any
     number of groups."""
     return segment_sum_raw_plain(data, codes, size, accum)
+
+
+# ---------------------------------------------------------------------------
+# the mean finalize: B1's or B5's raw legs to the skipna mean in one pass
+# ---------------------------------------------------------------------------
+
+#: the mean finalize's result dtypes, as its C entry point codes them
+_MEAN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mean_finalize(sums, nan_c, pos_c, neg_c, rowcount, fill: float, dtype: torch.dtype):
+    """The skipna grouped mean from the raw legs of :func:`segment_sum_raw`
+    or :func:`segment_sum_radixbin_raw`: ``sums``, ``nan_c``, ``pos_c`` and
+    ``neg_c`` (size, K) float32 and contiguous, as those write them, and
+    ``rowcount`` (size,) int32, the columns of each group.
+
+    Returns the (K, size) row-major mean in ``dtype`` (float32 or bfloat16):
+    per (group, row) the sum with +-inf re-applied (NaN where both), over
+    the count of values that are not NaN, and ``fill`` (taken as float32)
+    where that count is 0. On the card one pass of ``csrc/mean_finalize.cu``,
+    bit for bit :func:`mean_finalize_plain`, NaN payloads aside.
+    """
+    legs = (sums, nan_c, pos_c, neg_c)
+    _check_mean_args(legs, rowcount, dtype)
+    size, k = sums.shape
+    # each leg and the counts read once, the result written once
+    nbytes = 4 * sums.nbytes + rowcount.nbytes + k * size * dtype.itemsize
+    if sums.numel():
+        # a subtract, a divide and a select an element
+        note_launch("mean_finalize", nbytes, 3 * sums.numel())
+    if sums.device.type == "cpu":
+        return mean_finalize_plain(*legs, rowcount, fill, dtype)
+    return _mean_finalize_cuda(legs, rowcount, float(fill), dtype, nbytes)
+
+
+def _check_mean_args(legs, rowcount: torch.Tensor, dtype: torch.dtype) -> None:
+    shape, device = legs[0].shape, legs[0].device
+    if len(shape) != 2:
+        raise ValueError(f"mean_finalize: the legs must be (size, K); got shape {tuple(shape)}")
+    for t in legs:
+        if t.shape != shape or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(
+                f"mean_finalize: the four legs must be (size, K) float32 on one device; got "
+                f"{[(tuple(x.shape), x.dtype, str(x.device)) for x in legs]}")
+        if not t.is_contiguous():
+            raise ValueError("mean_finalize: the legs must be contiguous (size, K), as B1 and "
+                             "B5 write them")
+    if (rowcount.dtype != torch.int32 or tuple(rowcount.shape) != (shape[0],)
+            or rowcount.device != device or not rowcount.is_contiguous()):
+        raise ValueError(
+            f"mean_finalize: rowcount must be contiguous ({shape[0]},) int32 on {device}; got "
+            f"{tuple(rowcount.shape)} {rowcount.dtype} on {rowcount.device}")
+    if dtype not in _MEAN_DTYPES:
+        raise TypeError(f"mean_finalize: no kernel for a {dtype} result; takes "
+                        f"{sorted(map(str, _MEAN_DTYPES))}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mean_finalize: no kernel for device {device}")
+
+
+def _mean_finalize_cuda(legs, rowcount, fill: float, dtype: torch.dtype, nbytes: int):
+    _require_cuda("mean_finalize")
+    size, k = legs[0].shape
+    out = torch.empty((k, size), dtype=dtype, device=legs[0].device)
+    if out.numel() == 0:
+        return out  # nothing to read, so no launch
+    lib = _lib("mean_finalize", [_P] * 5 + [_LL, _LL, ctypes.c_float, _I, _P, _P])
+    with telemetry.span("launch", kernel="mean_finalize", nbytes=nbytes):
+        err = lib.flox_mean_finalize(
+            *(t.data_ptr() for t in legs), rowcount.data_ptr(), k, size, fill,
+            _MEAN_DTYPES[dtype], out.data_ptr(), _stream(out.device),
+        )
+    _build.check(lib, err, "mean_finalize launch")
+    _count_launch("mean_finalize")
+    telemetry.count("kernels.mean_finalize_launches")
+    return out
+
+
+def mean_finalize_plain(sums, nan_c, pos_c, neg_c, rowcount, fill: float, dtype: torch.dtype):
+    """Plain PyTorch version of :func:`mean_finalize`: the torch composition
+    that finishes a skipna mean from fused legs in ``kernels._mean_impl``
+    (``utils.reapply_nonfinite``, the count, the divide, the fill, the cast)
+    on the (K, size) views of the legs, returned contiguous."""
+    from .utils import reapply_nonfinite
+
+    sums, nan_c, pos_c, neg_c = (t.T for t in (sums, nan_c, pos_c, neg_c))
+    total = reapply_nonfinite(sums, nan_c, pos_c, neg_c, skipna=True)
+    cnt = rowcount.expand_as(sums).to(sums.dtype) - nan_c
+    out = torch.where(cnt > 0, total / cnt,
+                      torch.as_tensor(fill, dtype=total.dtype, device=total.device))
+    return out.to(dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------

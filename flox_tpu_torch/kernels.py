@@ -25,7 +25,10 @@ sends it to XLA's scatter; on a CUDA device a float sum that no kernel takes
 goes to the one-hot GEMM (``_seg_matmul_raw``) where the reference's
 ``_use_matmul_path`` guard passes (at most ``matmul_num_groups_max`` groups,
 a kept axis of at least a quarter of them). Several statistics of one float
-array (sums, counts, min and max) share one kernel pass (``_fused_stats``), and
+array (sums, counts, min and max) share one kernel pass (``_fused_stats``); a
+skipna mean whose sums take the segment-sum or radix-binning kernel on the
+card finishes in one pass of the mean finalize over their raw legs
+(``_mean_pass``), where XLA fuses the reference's finish; and
 float32/bfloat16 grouped cumsums over at most ``pallas_scan_num_groups_max``
 groups (the missing-label group included) go to the segmented-cumsum kernel
 (``_scan_impl_choice``); other scans run a sort plus a log-depth segmented
@@ -501,7 +504,8 @@ _FUSABLE_LEG_NAMES = frozenset(
 )
 
 
-def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple):
+def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple,
+                 impl: str | None = None):
     """Several statistics from one kernel pass (the reference's
     ``_fused_stats_leading``).
 
@@ -518,7 +522,8 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
     sum and count legs come from one :func:`_seg_matmul_raw` pass, and a min
     or max leg returns None, as in the reference. Returns ``{name: (K,
     size)}``, or None when the policy resolves to scatter or a guard fails
-    (callers then run the per-leg reductions).
+    (callers then run the per-leg reductions). ``impl``: the segment-sum
+    impl where the caller has resolved it already.
     """
     want = tuple(want)
     if not set(want) <= _FUSABLE_LEG_NAMES:
@@ -529,7 +534,7 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
         return None  # counts alone never justify a pass over the data
     if not data.is_floating_point() or data.shape[-1] >= 2**24:
         return None  # 2^24: the f32 marker-count exactness guard
-    impl = _segment_sum_impl(data, size)
+    impl = impl or _segment_sum_impl(data, size)
     if impl == "scatter":
         return None
     if minmaxish:
@@ -543,9 +548,7 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
     elif impl == "matmul":
         sums, nan_c, pos_c, neg_c = _seg_matmul_raw(data, codes, size)
     else:
-        raw = (cuda_kernels.segment_sum_raw if impl == "kernel"
-               else cuda_kernels.segment_sum_radixbin_raw)
-        sums, nan_c, pos_c, neg_c = (t.T for t in raw(data, codes, size))
+        sums, nan_c, pos_c, neg_c = (t.T for t in _raw_sum_legs(data, codes, size, impl))
     with telemetry.span("legs"):
         out: dict[str, torch.Tensor] = {}
         if "sum" in want:
@@ -568,6 +571,25 @@ def _fused_stats(data: torch.Tensor, codes: torch.Tensor, size: int, want: tuple
         return out
 
 
+def _raw_sum_legs(data: torch.Tensor, codes: torch.Tensor, size: int, impl: str):
+    """The four (size, K) float32 legs ``(sums, nan_c, pos_c, neg_c)`` of
+    ``data`` (K, N) from the segment-sum kernel (``impl`` "kernel", B1) or
+    the radix-binning kernel ("radixbin", B5), as they write them."""
+    raw = (cuda_kernels.segment_sum_raw if impl == "kernel"
+           else cuda_kernels.segment_sum_radixbin_raw)
+    return raw(data, codes, size)
+
+
+def _rowcount(codes: torch.Tensor, size: int) -> torch.Tensor:
+    """The columns of each group, (size,) int32, from safe ``codes``: equal
+    to :func:`_counts` (``codes, size``), by ``index_add_`` of ones into
+    ``size + 1`` slots, which reads nothing back to the host (``bincount``
+    reads the codes' maximum first)."""
+    out = torch.zeros(size + 1, dtype=torch.int32, device=codes.device)
+    out.index_add_(0, codes, torch.ones_like(codes))
+    return out[:size]
+
+
 def fused_segment_stats(group_idx, array, *, size: int, want: tuple):
     """Plugin-layout entry to :func:`_fused_stats`: ``array`` (..., N) in,
     ``{name: (..., size)}`` out, or None."""
@@ -579,9 +601,10 @@ def fused_segment_stats(group_idx, array, *, size: int, want: tuple):
     return {k: _unflat(v, lead) for k, v in raw.items()}
 
 
-def _fused_sum_counts(cast: torch.Tensor, codes: torch.Tensor, size: int):
+def _fused_sum_counts(cast: torch.Tensor, codes: torch.Tensor, size: int,
+                      impl: str | None = None):
     """Single-pass skipna (total, non-NaN count): the mean/var fast path."""
-    got = _fused_stats(cast, codes, size, ("nansum", "nanlen"))
+    got = _fused_stats(cast, codes, size, ("nansum", "nanlen"), impl)
     if got is None:
         return None
     return got["nansum"], got["nanlen"]
@@ -598,11 +621,53 @@ def _float_request(data: torch.Tensor, dtype):
     return dtype
 
 
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _f32_fill(fill) -> float | None:
+    """``fill`` as a Python float where float32 holds it exactly (NaN and
+    +-inf included), else None."""
+    if isinstance(fill, (bool, np.bool_)) or not isinstance(fill, (int, float, np.integer,
+                                                                    np.floating)):
+        return None
+    try:
+        value = float(fill)
+    except OverflowError:
+        return None
+    if not math.isfinite(value):
+        return value
+    if abs(value) > _F32_MAX or float(np.float32(value)) != value:
+        return None
+    return value
+
+
+def _mean_pass(impl: str, dtype: torch.dtype, device_type: str, skipna: bool, fill) -> bool:
+    """Whether a mean finishes in one :func:`cuda_kernels.mean_finalize` pass
+    over the raw legs: a skipna mean whose segment sum resolves to the
+    segment-sum kernel ("kernel", B1) or the radix-binning kernel
+    ("radixbin", B5), of float32 or bfloat16 data on the card,
+    with a fill that float32 holds. Everything else takes the torch passes."""
+    return (skipna and impl in ("kernel", "radixbin") and device_type == "cuda"
+            and dtype in cuda_kernels._MEAN_DTYPES and _f32_fill(fill) is not None)
+
+
 def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
     codes = _safe_codes(group_idx, size)
     data, lead = _flat(array)
     cast = _maybe_cast(data, _float_request(data, dtype))
-    fused = _fused_sum_counts(cast, codes, size) if skipna else None
+    fill = fill_value if fill_value is not None else float("nan")
+    impl = None
+    # where _fused_stats would resolve the impl: float data, marker counts
+    # exact in float32
+    if skipna and cast.is_floating_point() and cast.shape[-1] < 2**24:
+        impl = _segment_sum_impl(cast, size)
+        if _mean_pass(impl, cast.dtype, cast.device.type, skipna, fill):
+            legs = _raw_sum_legs(cast, codes, size, impl)
+            with telemetry.span("legs"):
+                out = cuda_kernels.mean_finalize(*legs, _rowcount(codes, size),
+                                                 _f32_fill(fill), cast.dtype)
+                return _unflat(out, lead)
+    fused = _fused_sum_counts(cast, codes, size, impl) if skipna else None
     if fused is not None:
         total, cnt = fused
         present = cnt > 0
@@ -619,7 +684,7 @@ def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
         orig_dtype = sdata.dtype
     with telemetry.span("legs"):
         out = total / cnt
-        out = _fill_empty(out, present, fill_value if fill_value is not None else float("nan"))
+        out = _fill_empty(out, present, fill)
         if out.dtype != orig_dtype and orig_dtype.is_floating_point:
             out = out.to(orig_dtype)  # divide in f32, present as bf16
         return _unflat(out, lead)

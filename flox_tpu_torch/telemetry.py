@@ -11,7 +11,8 @@ ledger with device time, and the exporters (the port of
   steps: ``bins`` (the codes binned for a hand-written kernel),
   ``launch`` (the kernel itself, with the bytes it must move and, for the
   segment-sum, multi-statistic and min/max kernels, the ``window`` of
-  their walk; the ``kernels.window_launches`` counter), ``matmul`` (the
+  their walk; the ``kernels.window_launches`` counter, and
+  ``kernels.mean_finalize_launches`` for the mean finalize), ``matmul`` (the
   one-hot GEMM's block loop, with its shape, dtype, blocks and the data's
   bytes; the ``kernels.matmul_blocks`` counter), ``legs``
   (the elementwise passes after a kernel or a mesh combine returns) and
