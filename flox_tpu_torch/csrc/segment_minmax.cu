@@ -49,6 +49,7 @@ extern "C" {
 int flox_segment_minmax(const void* data, int dtype, const int* perm, const int* scodes,
                         const int* offsets, long long K, long long N, int size, int groups,
                         int op, void* out, void* stream) {
+  if (size > flox::kGroupCap) return static_cast<int>(cudaErrorInvalidValue);
   if (op == 0)
     return flox::dispatch_segment_extremum<false>(data, dtype, perm, scodes, offsets, K, N, size,
                                                   groups, out, stream);

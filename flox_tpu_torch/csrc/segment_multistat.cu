@@ -43,6 +43,7 @@ int flox_segment_multistat(const void* data, int dtype, const int* perm, const i
                            const int* offsets, long long K, long long N, int size, int groups,
                            int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
                            void* mins, void* maxs, void* stream) {
+  if (size > flox::kGroupCap) return static_cast<int>(cudaErrorInvalidValue);
   return flox::dispatch_segment_reduce<true>(data, dtype, perm, scodes, offsets, K, N, size,
                                              groups, 1, accum, sums, nan_c, pos_c, neg_c, mins,
                                              maxs, stream);

@@ -1,11 +1,12 @@
 // The grouped reduction shared by segment_sum.cu (B1), segment_multistat.cu
-// (B2) and segment_minmax.cu (B3), for Hopper (sm_90a).
+// (B2), segment_minmax.cu (B3) and segment_radixbin.cu (B5), for Hopper
+// (sm_90a).
 //
 // One kernel template, segment_reduce_kernel<T, Legs>, walks data (K, N) by
 // codes (N,) and keeps one accumulator per (group, row). What it accumulates
 // and writes are its legs:
 //
-//   SumLegs<T, ACC, MINMAX> (B1; B2 with MINMAX)
+//   SumLegs<T, ACC, MINMAX> (B1 and B5; B2 with MINMAX)
 //     sums, nan_c, pos_c, neg_c  float32: the sum of the finite values (non-
 //         finite values are zero-filled and counted, never added) and the
 //         counts of NaN, +inf and -inf;
@@ -58,7 +59,7 @@
 // branching is block-uniform but for the rare non-finite value. The walk
 // takes one of two forms, fixed at compile time by the window width WIN:
 //
-//   Run walk (WIN = 1; B1, B2 and B3). The segment's columns come in code
+//   Run walk (WIN = 1; B1, B2, B3 and B5). The segment's columns come in code
 //   order. Thread r walks the stage's columns in order with one group's
 //   accumulator in registers, run by run: one ballot per stage marks the
 //   columns where the code changes. At a change it writes the finished
@@ -81,8 +82,10 @@
 //
 // Groups per block, and the window. The wrapper derives both from size, K
 // and N (cuda_kernels._window, cuda_kernels._groups_per_block); neither is an
-// option. B1 takes the window walk when the groups average fewer than four
-// 32-column stages (N < 128 * size): then a run walk's block reads a few
+// option. B5 always takes the run walk over min(8, size) groups a block
+// (cuda_kernels._RADIXBIN_GROUPS; segment_radixbin.cu says why 8). B1 takes
+// the window walk when the groups average fewer than four 32-column stages
+// (N < 128 * size): then a run walk's block reads a few
 // columns lying a row's period apart, a word of each 32-byte sector whose
 // other words belong to other blocks, and those blocks are too short to
 // keep their cp.async pipeline full. Otherwise, and always for B2 and B3,
@@ -99,10 +102,20 @@
 // is faster than one group per block. Every split reads the data once: a
 // segment reads only its own groups' columns.
 //
+// Against the earlier one-warp-per-row design (a lane tree per 32-column
+// chunk, accumulators in shared memory): that cost about 80 warp
+// instructions per 32 elements on 24-column days and held occupancy at 16
+// warps per SM; here an element costs a shared-memory load and the legs'
+// update, the accumulators live in registers, and 3 blocks (24 warps) fit
+// per SM. A gathered column still costs one 32-byte sector request per
+// 4-byte element, so unsorted codes stay several times slower than sorted
+// ones. Skew: a group's columns are never split across blocks, so one group
+// that owns most columns is walked serially by the blocks of its segment.
+//
 // Invariants (checked on the card by chip_smoke.py):
 //   - per (group, row), the sum is sequential over the group's columns in
-//     column order, under the discipline applied per element exactly as in
-//     segment_radixbin.cu (zero-fill and count the non-finite values; plain
+//     column order, under the discipline applied per element
+//     (SumLegs::add: zero-fill and count the non-finite values; plain
 //     __fadd_rn; kahan's _rn compensated update; dd's Dekker split by 4097
 //     with the 8e34 guard, then two_sum merges). Everything goes through _rn
 //     intrinsics, so nvcc contracts nothing into FMAs. The result does not
@@ -110,8 +123,8 @@
 //     block, nor on the walk: the window walk adds each group's columns in
 //     the same order, so its four legs equal the run walk's bit for bit;
 //   - hence B1 equals the radix-binning kernel (B5) bit for bit on the same
-//     data, codes and accum at any size <= 512: both walk the same order
-//     under the same discipline;
+//     data, codes and accum at any size <= 512: B5 is this run walk, and B1
+//     this run walk or its window walk, over the same order;
 //   - B2's sums and markers equal B1's bit for bit: the min/max legs only
 //     add fminf / fmaxf in registers beside the sum;
 //   - B2's extrema equal B3's bit for bit on NaN-parked data: both fold
@@ -122,12 +135,14 @@
 //   - two launches give the same bits.
 //
 // Bound on the card: one read of the data, K*N*itemsize bytes (plus the
-// binned codes, 3*N*4, and the outputs: 4*size*K*4 for B1, 2*size*K*itemsize
-// more for B2, size*K*itemsize for B3). At the benchmark width, 65160 x
-// 26304 float32 = 6.86 GB, that is at least 2.05 ms at the H100's 3.35 TB/s
-// (computed, not measured). The work per element is a shared-memory load and
-// the legs' update: a finiteness test and the discipline's adds (two more
-// ops with MINMAX) for the sums, a NaN test and an fminf / fmaxf for B3.
+// binned codes, 3*N*4, and the outputs: 4*size*K*4 for B1 and B5,
+// 2*size*K*itemsize more for B2, size*K*itemsize for B3). At the benchmark
+// width, 65160 x 26304 float32 = 6.86 GB, that is at least 2.05 ms at the
+// H100's 3.35 TB/s (computed, not measured); B5's outputs over the daily
+// means' 1096 groups add 1.14 GB, 2.39 ms in all. The work per element is a
+// shared-memory load and the legs' update: a finiteness test and the
+// discipline's adds (two more ops with MINMAX) for the sums, a NaN test and
+// an fminf / fmaxf for B3.
 
 #pragma once
 
@@ -144,7 +159,9 @@ constexpr int kCols = 32;  // columns per stage: one per lane when filling
 constexpr int kPitch = kCols + 1;
 constexpr int kTileWords = kRows * kPitch;
 constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kGroupCap = 512;  // the groups B1-B3 take (cuda_kernels._MAX_GROUPS)
+// the groups the entry points of B1-B3 take, and B4 with its missing-label
+// group (cuda_kernels._MAX_GROUPS); the template itself takes any int size
+constexpr int kGroupCap = 512;
 constexpr int kWindow = 8;  // groups of the window walk (cuda_kernels._WINDOW)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -448,13 +465,12 @@ cudaError_t launch(const void* data, const int* perm, const int* scodes, const i
 
 // The grid of a launch: nseg segments of `groups` groups per row tile, and
 // the blocks. perm and offsets index the columns in int32, a stage past the
-// last one, so N stays below 2^31 - 32; at most kGroupCap groups. False for
-// a shape the kernel refuses.
+// last one, so N stays below 2^31 - 32. False for a shape the kernel
+// refuses.
 inline bool grid(long long K, long long N, int size, int groups, int& nseg, long long& blocks) {
-  if (K <= 0 || N < 0 || N > 0x7fffffffLL - kCols || size <= 0 || size > kGroupCap ||
-      groups <= 0 || groups > size)
+  if (K <= 0 || N < 0 || N > 0x7fffffffLL - kCols || size <= 0 || groups <= 0 || groups > size)
     return false;
-  nseg = (size + groups - 1) / groups;
+  nseg = static_cast<int>((size + (groups - 1LL)) / groups);
   blocks = (K + kRows - 1) / kRows * nseg;
   return blocks <= 0x7fffffffLL;
 }
@@ -483,7 +499,7 @@ cudaError_t launch_accum(int accum, int window, const void* data, const int* per
   return cudaErrorInvalidValue;
 }
 
-// B1's and B2's C entry points: dispatch over dtype (0 float32, 1 bfloat16)
+// B1's, B2's and B5's C entry points: dispatch over dtype (0 float32, 1 bfloat16)
 // and accum (0 plain, 1 kahan, 2 dd) on the binned codes (see above),
 // `groups` groups per block; `window` 1 for the run walk, or kWindow (B1
 // only, with groups = min(kWindow, size), on bins made by window) for the

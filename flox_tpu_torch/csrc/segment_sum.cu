@@ -30,11 +30,13 @@
 // sector are read by one block.
 //
 // Invariants: per (group, row) the sum is sequential over the group's
-// columns in column order under either walk, so it equals the radix-binning
-// kernel (segment_radixbin.cu) bit for bit at any size <= 512 and does not
-// depend on where other groups' columns lie; the multi-statistic kernel
-// (segment_multistat.cu), the same template, gives these sums and markers
-// bit for bit; no atomics, so two launches give the same bits.
+// columns in column order under either walk, and does not depend on where
+// other groups' columns lie. So it equals the radix-binning kernel
+// (segment_radixbin.cu) bit for bit at any size <= 512: both are this
+// template's run walk, or B1's window walk, over the same order. The
+// multi-statistic kernel (segment_multistat.cu), the same template, gives
+// these sums and markers bit for bit; no atomics, so two launches give the
+// same bits.
 //
 // Bound on the card: the kernel must read K*N*itemsize bytes of data once
 // (plus 3*N*4 of binned codes, and write 4*size*K*4). At the benchmark
@@ -56,6 +58,7 @@ int flox_segment_sum(const void* data, int dtype, const int* perm, const int* sc
                      const int* offsets, long long K, long long N, int size, int groups,
                      int window, int accum, void* sums, void* nan_c, void* pos_c, void* neg_c,
                      void* stream) {
+  if (size > flox::kGroupCap) return static_cast<int>(cudaErrorInvalidValue);
   return flox::dispatch_segment_reduce<false>(data, dtype, perm, scodes, offsets, K, N, size,
                                               groups, window, accum, sums, nan_c, pos_c, neg_c,
                                               nullptr, nullptr, stream);

@@ -14,8 +14,8 @@ kernel (source)           replaces (flox_tpu/pallas_kernels.py)       plain vers
 ``segment_cumsum``        ``_scan_kernel`` (B4), via                   ``segment_cumsum_plain``
 (csrc/segment_cumsum.cu)  ``segment_cumsum_pallas``
 ``segment_sum_radixbin``  ``_radixbin_kernel`` (B5), via               ``segment_sum_radixbin_plain``
-(csrc/segment_radixbin    ``segment_sum_radixbin_pallas``
-.cu)
+(csrc/segment_radixbin    ``segment_sum_radixbin_pallas``; B1's run
+.cu)                      walk past 512 groups
 ``mean_finalize``         none: the skipna mean's finish from B1's or    ``mean_finalize_plain``
 (csrc/mean_finalize.cu)   B5's raw legs, which XLA fuses for the
                           reference
@@ -31,8 +31,9 @@ outputs, which at the 1096 day groups of the daily means is 1.14 GB more,
 2.39 ms in all. The mean finalize reads four such legs once and writes the
 (K, size) mean: 11.4 GB, 3.40 ms, at the daily cell's 1096 groups of 519,840
 rows (computed). The design notes sit at the top of each source; the segment-
-sum, multi-statistic and segment-min/max kernels share theirs
-(csrc/segment_reduce.cuh).
+sum, multi-statistic, segment-min/max and radix-binning kernels are instances
+of one template and share theirs (csrc/segment_reduce.cuh), and one launcher
+(``_segment_reduce_cuda``).
 
 Dispatch: a wrapper runs the plain version only for a tensor on the CPU. For
 a CUDA tensor it launches the kernel or raises; there is no fallback. Each
@@ -99,6 +100,10 @@ _STAGE_COLS = 32
 _BLOCKS_PER_SM = {torch.float32: 3, torch.bfloat16: 2, torch.int32: 3}
 #: csrc/segment_reduce.cuh: groups of B1's window walk (kWindow)
 _WINDOW = 8
+#: groups a block of B5's run walk, at most (csrc/segment_radixbin.cu says why)
+_RADIXBIN_GROUPS = 8
+#: a template kernel's library, where it is not named after the kernel
+_LIBRARY = {"segment_sum_radixbin": "segment_radixbin"}
 
 
 def _call_bytes(data: torch.Tensor, out_bytes: int) -> int:
@@ -163,6 +168,15 @@ def _check_args(data: torch.Tensor, codes: torch.Tensor, size: int, dtypes, what
         raise ValueError(f"{what}: no kernel for device {data.device}")
 
 
+def _accum(accum: str | None) -> str:
+    """``accum``, or the ``pallas_accum`` option where it is None: "plain",
+    "kahan" or "dd"."""
+    accum = OPTIONS["pallas_accum"] if accum is None else accum
+    if accum not in VALID_ACCUMS:
+        raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
+    return accum
+
+
 def _codes_int32(codes: torch.Tensor, size: int) -> torch.Tensor:
     """The kernels take int32 codes: convert once, sending out-of-range int64
     codes to -1 first so that none wraps into [0, size)."""
@@ -212,9 +226,7 @@ def segment_sum_raw(data: torch.Tensor, codes: torch.Tensor, size: int, accum: s
     sum is sequential over the group's columns under ``accum``, the bits of
     :func:`segment_sum_radixbin_raw` on the same input.
     """
-    accum = OPTIONS["pallas_accum"] if accum is None else accum
-    if accum not in VALID_ACCUMS:
-        raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
+    accum = _accum(accum)
     _check_args(data, codes, size, _SUM_DTYPES, "segment_sum", max_cols=_MAX_BINNED_COLS)
     _declare("segment_sum", data, 4 * int(size) * data.shape[0] * 4, 2)
     if data.device.type == "cpu":
@@ -264,9 +276,11 @@ _REDUCE_ARGTYPES = [_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I]
 
 
 def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
-    """Launch B1 (``name`` "segment_sum"), B2 ("segment_multistat") or B3
-    ("segment_minmax") on binned codes: their four, six or one (size, K)
-    outputs. ``mode`` is the accumulation of B1 and B2 and B3's op."""
+    """Launch B1 (``name`` "segment_sum"), B2 ("segment_multistat"), B3
+    ("segment_minmax") or B5 ("segment_sum_radixbin"), the instances of
+    csrc/segment_reduce.cuh, on binned codes: their four, six, one or four
+    (size, K) outputs. ``mode`` is the accumulation of B1, B2 and B5 and B3's
+    op."""
     _require_cuda(name)
     k, n = data.shape
     if name == "segment_minmax":
@@ -286,13 +300,14 @@ def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
             o.fill_(v)
         return tuple(outs)
     # B1 alone has a window walk, and takes the window before its accum
+    library = _LIBRARY.get(name, name)
     if name == "segment_sum":
         window = _window(size, n)
-        lib = _lib(name, _REDUCE_ARGTYPES + [_I] + [_P] * (len(outs) + 1))
+        lib = _lib(library, _REDUCE_ARGTYPES + [_I] + [_P] * (len(outs) + 1))
         walk = (window, code)
     else:
         window = 1
-        lib = _lib(name, _REDUCE_ARGTYPES + [_P] * (len(outs) + 1))
+        lib = _lib(library, _REDUCE_ARGTYPES + [_P] * (len(outs) + 1))
         walk = (code,)
     # the kernel gathers rows of (K, N) row-major: a non-contiguous input is
     # copied once here; a contiguous one (the usual case) is read in place
@@ -301,11 +316,13 @@ def _segment_reduce_cuda(name: str, data, codes, size: int, mode: str):
     if window > 1:
         groups = min(window, size)
         telemetry.count("kernels.window_launches")
+    elif name == "segment_sum_radixbin":
+        groups = min(_RADIXBIN_GROUPS, size)
     else:
         sms = torch.cuda.get_device_properties(data.device).multi_processor_count
         groups = _groups_per_block(size, k, n, sms * _BLOCKS_PER_SM[data.dtype])
     with _launch_span(name, data, outs, window=window):
-        err = getattr(lib, f"flox_{name}")(
+        err = getattr(lib, f"flox_{library}")(
             data.data_ptr(), _MINMAX_DTYPES[data.dtype], perm.data_ptr(),
             sorted_codes.data_ptr(), offsets.data_ptr(), k, n, size, groups, *walk,
             *(o.data_ptr() for o in outs), _stream(data.device),
@@ -347,21 +364,20 @@ def segment_sum_radixbin_raw(data: torch.Tensor, codes: torch.Tensor, size: int,
 
     Codes outside [0, size) drop out; ``accum`` as for
     :func:`segment_sum_raw`. On the card the codes are binned first
-    (:func:`_radixbin_bins`) and the kernel walks each group's columns in
-    column order, one thread per row: per (group, row) the sum is sequential
-    over the group's columns under ``accum``, so it does not depend on where
-    other groups' columns lie, unsorted codes give the bits of the same data
-    with its columns gathered into code order, and reruns are bit-identical.
+    (:func:`_radixbin_bins`) and the kernel, B1's run walk at 8 groups a
+    block, walks each group's columns in column order, one thread per row:
+    per (group, row) the sum is sequential over the group's columns under
+    ``accum``, so it does not depend on where other groups' columns lie,
+    unsorted codes give the bits of the same data with its columns gathered
+    into code order, and reruns are bit-identical.
     """
-    accum = OPTIONS["pallas_accum"] if accum is None else accum
-    if accum not in VALID_ACCUMS:
-        raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
+    accum = _accum(accum)
     _check_args(data, codes, size, _SUM_DTYPES, "segment_sum_radixbin",
                 max_groups=_RADIXBIN_MAX_GROUPS, max_cols=_MAX_BINNED_COLS)
     _declare("segment_sum_radixbin", data, 4 * int(size) * data.shape[0] * 4, 2)
     if data.device.type == "cpu":
         return segment_sum_radixbin_plain(data, codes, size, accum)
-    return _segment_sum_radixbin_cuda(data, codes, int(size), accum)
+    return _segment_reduce_cuda("segment_sum_radixbin", data, codes, int(size), accum)
 
 
 def segment_sum_radixbin(data, codes, size: int, accum: str | None = None, *,
@@ -408,26 +424,6 @@ def _radixbin_bins(codes: torch.Tensor, size: int, window: int = 1):
         offsets = torch.searchsorted(sorted_order, starts, out_int32=True)
         perm = perm.to(torch.int32)
         return perm, sorted_order if window == 1 else key.index_select(0, perm), offsets
-
-
-def _segment_sum_radixbin_cuda(data, codes, size: int, accum: str):
-    _require_cuda("segment_sum_radixbin")
-    lib = _lib("segment_radixbin", [_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P])
-    k, n = data.shape
-    outs = [torch.empty((size, k), dtype=torch.float32, device=data.device) for _ in range(4)]
-    if k == 0:
-        return tuple(outs)
-    data = data.contiguous()  # one copy for a non-contiguous input, as above
-    perm, sorted_codes, offsets = _radixbin_bins(codes, size)
-    with _launch_span("segment_sum_radixbin", data, outs):
-        err = lib.flox_segment_radixbin(
-            data.data_ptr(), _SUM_DTYPES[data.dtype], perm.data_ptr(), sorted_codes.data_ptr(),
-            offsets.data_ptr(), k, n, size, _ACCUM_CODES[accum], *(o.data_ptr() for o in outs),
-            _stream(data.device),
-        )
-    _build.check(lib, err, "segment_sum_radixbin launch")
-    _count_launch("segment_sum_radixbin")
-    return tuple(outs)
 
 
 def segment_sum_radixbin_plain(data: torch.Tensor, codes: torch.Tensor, size: int, accum: str):
@@ -578,9 +574,7 @@ def segment_multistat(data: torch.Tensor, codes: torch.Tensor, size: int,
     in the data dtype (float32 or bfloat16); an empty group, or one whose
     values are all NaN, holds the op's identity (+inf for min, -inf for max).
     """
-    accum = OPTIONS["pallas_accum"] if accum is None else accum
-    if accum not in VALID_ACCUMS:
-        raise ValueError(f"accum must be one of {VALID_ACCUMS}; got {accum!r}")
+    accum = _accum(accum)
     _check_args(data, codes, size, _SUM_DTYPES, "segment_multistat", max_cols=_MAX_BINNED_COLS)
     _declare("segment_multistat", data,
              int(size) * data.shape[0] * (4 * 4 + 2 * data.element_size()), 4)

@@ -26,8 +26,8 @@ goes to the one-hot GEMM (``_seg_matmul_raw``) where the reference's
 ``_use_matmul_path`` guard passes (at most ``matmul_num_groups_max`` groups,
 a kept axis of at least a quarter of them). Several statistics of one float
 array (sums, counts, min and max) share one kernel pass (``_fused_stats``); a
-skipna mean whose sums take the segment-sum or radix-binning kernel on the
-card finishes in one pass of the mean finalize over their raw legs
+skipna mean whose sums take the segment-sum or radix-binning kernel
+finishes in one pass of the mean finalize over their raw legs
 (``_mean_pass``), where XLA fuses the reference's finish; and
 float32/bfloat16 grouped cumsums over at most ``pallas_scan_num_groups_max``
 groups (the missing-label group included) go to the segmented-cumsum kernel
@@ -641,14 +641,15 @@ def _f32_fill(fill) -> float | None:
     return value
 
 
-def _mean_pass(impl: str, dtype: torch.dtype, device_type: str, skipna: bool, fill) -> bool:
+def _mean_pass(impl: str, dtype: torch.dtype, skipna: bool, fill) -> bool:
     """Whether a mean finishes in one :func:`cuda_kernels.mean_finalize` pass
     over the raw legs: a skipna mean whose segment sum resolves to the
     segment-sum kernel ("kernel", B1) or the radix-binning kernel
-    ("radixbin", B5), of float32 or bfloat16 data on the card,
-    with a fill that float32 holds. Everything else takes the torch passes."""
-    return (skipna and impl in ("kernel", "radixbin") and device_type == "cuda"
-            and dtype in cuda_kernels._MEAN_DTYPES and _f32_fill(fill) is not None)
+    ("radixbin", B5), of float32 or bfloat16 data, with a fill that float32
+    holds. Everything else takes the torch passes. The device plays no part:
+    on the CPU the kernels and the pass run their plain versions."""
+    return (skipna and impl in ("kernel", "radixbin") and dtype in cuda_kernels._MEAN_DTYPES
+            and _f32_fill(fill) is not None)
 
 
 def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
@@ -661,7 +662,7 @@ def _mean_impl(group_idx, array, *, size, fill_value, dtype, skipna):
     # exact in float32
     if skipna and cast.is_floating_point() and cast.shape[-1] < 2**24:
         impl = _segment_sum_impl(cast, size)
-        if _mean_pass(impl, cast.dtype, cast.device.type, skipna, fill):
+        if _mean_pass(impl, cast.dtype, skipna, fill):
             legs = _raw_sum_legs(cast, codes, size, impl)
             with telemetry.span("legs"):
                 out = cuda_kernels.mean_finalize(*legs, _rowcount(codes, size),

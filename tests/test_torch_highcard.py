@@ -451,9 +451,10 @@ def test_segment_sum_routing(monkeypatch, opts, size, impl):
 
 
 def test_fused_nanmean_is_one_radixbin_pass(monkeypatch):
-    """nanmean over 1096 groups: one B5 pass for the sums and the counts, equal
-    bit for bit to the per-leg path (B5 sums of the NaN-zeroed data, counts by
-    index_add_)."""
+    """nanmean over 1096 groups: one B5 pass for the sums and the counts,
+    finished by the mean finalize, equal bit for bit to the fused torch
+    passes over the same B5 legs and to the per-leg path (B5 sums of the
+    NaN-zeroed data, counts by index_add_)."""
     rng = np.random.default_rng(9)
     n = 26304 // 8
     day = np.arange(n) // 3
@@ -474,10 +475,14 @@ def test_fused_nanmean_is_one_radixbin_pass(monkeypatch):
     fused, _ = flox_tpu_torch.groupby_reduce(vals, day, func="nanmean", device="cpu")
     assert calls == {"segment_sum_radixbin_raw": 1, "segment_sum_radixbin": 0,
                      "segment_sum_raw": 0, "segment_multistat": 0}
+    monkeypatch.setattr(pk, "_mean_pass", lambda *a: False)
+    torch_passes, _ = flox_tpu_torch.groupby_reduce(vals, day, func="nanmean", device="cpu")
+    assert calls["segment_sum_radixbin_raw"] == 2
     monkeypatch.setattr(pk, "_fused_sum_counts", lambda *a, **k: None)
     per_leg, _ = flox_tpu_torch.groupby_reduce(vals, day, func="nanmean", device="cpu")
     assert calls["segment_sum_radixbin"] == 1
-    assert fused.dtype == per_leg.dtype == torch.float32
+    assert fused.dtype == torch_passes.dtype == per_leg.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(fused), _bits(torch_passes))
     np.testing.assert_array_equal(_bits(fused), _bits(per_leg))
 
 

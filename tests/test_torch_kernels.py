@@ -528,9 +528,9 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """The launch path of the B1/B2 wrappers on CPU tensors, with the
-    library, the stream and the card's SM count faked; returns the fake
-    library and the bins the wrapper made."""
+    """The launch path of the template kernels (B1, B2, B3 and B5) on CPU
+    tensors, with the library, the stream and the card's SM count faked;
+    returns the fake library and the bins the wrapper made."""
     lib = _FakeLib()
     bins = []
     real_bins = ck._radixbin_bins
@@ -568,7 +568,7 @@ def _launch_with_telemetry(name, data, codes, size, mode):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat"])
+@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat", "segment_sum_radixbin"])
 def test_binned_launch_arguments(fake_card, name, dtype):
     """What the wrapper hands the C entry point: the data in place, the
     binned codes of :func:`_radixbin_bins`, (K, N, size), the groups per
@@ -578,7 +578,9 @@ def test_binned_launch_arguments(fake_card, name, dtype):
     argument of 8 before the accum, one ``kernels.window_launches`` and
     ``window`` 8 on the ``launch`` span. B2 keeps its run walk: code-major
     bins, the derived groups per block (3 float32 blocks or 2 bfloat16 ones
-    on each of 132 SMs), no window argument, ``window`` 1."""
+    on each of 132 SMs), no window argument, ``window`` 1. B5, through the
+    same launcher, enters ``flox_segment_radixbin`` with code-major bins,
+    min(8, size) groups a block, no window argument and ``window`` 1."""
     lib, bins = fake_card
     rng = np.random.default_rng(6)
     k, n, size = 600, 300, 12
@@ -590,13 +592,19 @@ def test_binned_launch_arguments(fake_card, name, dtype):
     assert {kk: v for kk, v in ck.LAUNCHES.items() if kk != name} == {
         kk: v for kk, v in before.items() if kk != name}
     ((entry, args),) = lib.calls
-    assert entry == f"flox_{name}"
+    assert entry == ("flox_segment_radixbin" if name == "segment_sum_radixbin"
+                     else f"flox_{name}")
     perm, sorted_codes, offsets = bins[0]
     windowed = name == "segment_sum"
     want_bins = ck._radixbin_bins(codes, size, 8 if windowed else 1)
     assert all(torch.equal(a, b) for a, b in zip(bins[0], want_bins))
     slots = 132 * (3 if dtype == torch.float32 else 2)
-    groups = 8 if windowed else ck._groups_per_block(size, k, n, slots)
+    if windowed:
+        groups = 8
+    elif name == "segment_sum_radixbin":
+        groups = min(8, size)
+    else:
+        groups = ck._groups_per_block(size, k, n, slots)
     assert args[:9] == (data.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype],
                         perm.data_ptr(), sorted_codes.data_ptr(), offsets.data_ptr(), k, n,
                         size, groups)
@@ -650,7 +658,8 @@ def test_window_launch_groups(fake_card, size):
 
 
 @pytest.mark.parametrize("shape", [(5, 0), (0, 7), (0, 0)], ids=str)
-@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat", "segment_minmax"])
+@pytest.mark.parametrize("name", ["segment_sum", "segment_multistat", "segment_minmax",
+                                  "segment_sum_radixbin"])
 def test_binned_launch_nothing_to_read(fake_card, name, shape):
     """With no rows or no columns there is no launch: every group is empty,
     so the sums and markers are zeros and the extrema the identities."""

@@ -1,13 +1,14 @@
 """The mean finalize (``cuda_kernels.mean_finalize``) and the skipna mean's
 route to it, on the CPU.
 
-On the card a skipna mean whose segment sum resolves to B1 or B5 finishes in
-one pass of ``csrc/mean_finalize.cu`` over the kernel's raw legs, with the
-rows of each group counted by a device op that reads nothing back. Here the
-wrapper runs its plain version, which these tests hold bit for bit to the
-torch composition that finishes the mean everywhere else; the route is
-forced onto the CPU (``kernels._mean_pass``) to hold it to the unrouted call
-and to flox_tpu. The kernel against its plain version on the card is
+A skipna mean whose segment sum resolves to B1 or B5 finishes in one pass of
+the mean finalize over the kernel's raw legs, with the rows of each group
+counted by a device op that reads nothing back: on the card
+``csrc/mean_finalize.cu``, here the wrapper's plain version, which these
+tests hold bit for bit to the torch composition that finishes the mean
+everywhere else. The route (``kernels._mean_pass``) does not look at the
+device, so the CPU takes the card's route, held here to the unrouted call and
+to flox_tpu. The kernel against its plain version on the card is
 ``chip_smoke.py --mean-finalize`` and ``tests/test_torch_cuda_mean_finalize.py``.
 """
 
@@ -128,39 +129,38 @@ def test_rowcount_equals_counts(size):
     assert got.is_contiguous() and tuple(got.shape) == (size,)
 
 
-@pytest.mark.parametrize("impl, dtype, device, skipna, fill, routed", [
-    ("kernel", torch.float32, "cuda", True, NAN, True),
-    ("radixbin", torch.float32, "cuda", True, NAN, True),
-    ("kernel", torch.bfloat16, "cuda", True, NAN, True),
-    ("radixbin", torch.bfloat16, "cuda", True, -999, True),
-    ("kernel", torch.float32, "cuda", True, np.float32(0.25), True),
-    ("kernel", torch.float32, "cuda", True, float("-inf"), True),
-    ("matmul", torch.float32, "cuda", True, NAN, False),
-    ("scatter", torch.float32, "cuda", True, NAN, False),
-    ("kernel", torch.float64, "cuda", True, NAN, False),
-    ("matmul", torch.float64, "cuda", True, NAN, False),
-    ("kernel", torch.float16, "cuda", True, NAN, False),
-    ("kernel", torch.float32, "cuda", False, NAN, False),
-    ("kernel", torch.float32, "cuda", True, 0.1, False),  # float32 rounds 0.1
-    ("kernel", torch.float32, "cuda", True, 1e300, False),
-    ("kernel", torch.float32, "cuda", True, 2**40 + 1, False),
-    ("kernel", torch.float32, "cuda", True, 1 + 2j, False),
-    ("kernel", torch.float32, "cuda", True, True, False),
-    ("kernel", torch.float32, "cpu", True, NAN, False),
-    ("radixbin", torch.bfloat16, "cpu", True, NAN, False),
+@pytest.mark.parametrize("impl, dtype, skipna, fill, routed", [
+    ("kernel", torch.float32, True, NAN, True),
+    ("radixbin", torch.float32, True, NAN, True),
+    ("kernel", torch.bfloat16, True, NAN, True),
+    ("radixbin", torch.bfloat16, True, -999, True),
+    ("radixbin", torch.bfloat16, True, NAN, True),
+    ("kernel", torch.float32, True, np.float32(0.25), True),
+    ("kernel", torch.float32, True, float("-inf"), True),
+    ("matmul", torch.float32, True, NAN, False),
+    ("scatter", torch.float32, True, NAN, False),
+    ("kernel", torch.float64, True, NAN, False),
+    ("matmul", torch.float64, True, NAN, False),
+    ("kernel", torch.float16, True, NAN, False),
+    ("kernel", torch.float32, False, NAN, False),
+    ("kernel", torch.float32, True, 0.1, False),  # float32 rounds 0.1
+    ("kernel", torch.float32, True, 1e300, False),
+    ("kernel", torch.float32, True, 2**40 + 1, False),
+    ("kernel", torch.float32, True, 1 + 2j, False),
+    ("kernel", torch.float32, True, True, False),
 ])
-def test_mean_pass_routing(impl, dtype, device, skipna, fill, routed):
-    """B1 and B5 on float32 and bfloat16 on the card take the pass; the GEMM,
-    scatter, float64, float16, a mean without skipna, a fill that float32
-    does not hold exactly and the CPU keep the torch passes."""
-    assert kernels._mean_pass(impl, dtype, device, skipna, fill) is routed
+def test_mean_pass_routing(impl, dtype, skipna, fill, routed):
+    """B1 and B5 on float32 and bfloat16 take the pass, on any device; the
+    GEMM, scatter, float64, float16, a mean without skipna and a fill that
+    float32 does not hold exactly keep the torch passes."""
+    assert kernels._mean_pass(impl, dtype, skipna, fill) is routed
 
 
 @pytest.fixture
 def routed_on_cpu(monkeypatch):
-    """The pass's route taken on the CPU, where the wrapper runs its plain
-    version; returns the list of ``mean_finalize`` calls' result dtypes."""
-    real_pass, real_fin = kernels._mean_pass, ck.mean_finalize
+    """Records the ``mean_finalize`` calls, whose plain version runs on the
+    CPU; returns the list of their result dtypes."""
+    real_fin = ck.mean_finalize
     calls = []
 
     def fin(*a, **k):
@@ -168,9 +168,6 @@ def routed_on_cpu(monkeypatch):
         calls.append(out.dtype)
         return out
 
-    monkeypatch.setattr(kernels, "_mean_pass",
-                        lambda impl, dtype, device, skipna, fill:
-                        real_pass(impl, dtype, "cuda", skipna, fill))
     monkeypatch.setattr(ck, "mean_finalize", fin)
     return calls
 

@@ -472,10 +472,16 @@ class TestCostModelCards:
         card = costmodel.card_for("bundle[nanmean]")
         assert card["analysis"] == "ok" and card["device"] == "cpu"
         # the segment-sum kernel's bound: (K, N) f32 read, (N,) int32 codes
-        # read, four (size, K) f32 outputs written; two operations an element
-        assert card["kernels"] == {"segment_sum": {
-            "launches": 1, "bytes": k * n * 4 + n * 4 + 4 * size * k * 4, "flops": 2 * k * n}}
-        assert card["bytes_accessed"] == k * n * 4 + n * 4 + 4 * size * k * 4
+        # read, four (size, K) f32 outputs written; two operations an element.
+        # Then the mean finalize's: the four legs and the (size,) int32 row
+        # counts read, the (K, size) f32 mean written; three operations an
+        # element of a leg
+        sum_bytes = k * n * 4 + n * 4 + 4 * size * k * 4
+        fin_bytes = 4 * size * k * 4 + size * 4 + k * size * 4
+        assert card["kernels"] == {
+            "segment_sum": {"launches": 1, "bytes": sum_bytes, "flops": 2 * k * n},
+            "mean_finalize": {"launches": 1, "bytes": fin_bytes, "flops": 3 * size * k}}
+        assert card["bytes_accessed"] == sum_bytes + fin_bytes
         want = max(card["bytes_accessed"] / 20e9, card["flops"] / 100e9) * 1e3
         assert card["predicted_ms"] == pytest.approx(want, abs=1e-6)
         assert "torch ops" in card["covers"]
